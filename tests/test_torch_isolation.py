@@ -1,0 +1,76 @@
+"""The PyTorch port stands alone: it imports neither JAX nor anything of the
+JAX package, and its entry points refuse to fall back to the CPU quietly."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import thermal_semantic_segmentation_torch as port  # noqa: E402
+from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
+    create_deeplab)
+from thermal_semantic_segmentation_torch.serving.batcher import (  # noqa: E402
+    InferenceServer)
+
+BANNED = ("jax", "jaxlib", "flax", "optax", "thermal_semantic_segmentation_tpu")
+PORT_DIR = Path(port.__file__).parent
+REPO = PORT_DIR.parent
+SOURCES = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _banned(name: str) -> bool:
+    return name.split(".")[0] in BANNED
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_banned_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if _banned(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _banned(node.module):
+                found.append(node.module)
+    assert not found, f"{path} imports {found}"
+
+
+def test_importing_every_module_loads_no_banned_package():
+    modules = [m.name for m in pkgutil.walk_packages(
+        [str(PORT_DIR)], prefix=f"{port.__name__}.")]
+    assert len(modules) >= 20, modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {BANNED!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["create_deeplab", "InferenceServer"])
+def test_entry_points_raise_without_a_card(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "create_deeplab":
+            create_deeplab(0, layers=(1, 1, 1, 1))
+        else:
+            InferenceServer(create_deeplab(0, device="cpu",
+                                           layers=(1, 1, 1, 1)))
+
+
+def test_chip_smoke_alone_fails_without_result(tmp_path):
+    """Without a card, or without the rest of the repo beside it, the smoke
+    test exits non-zero and prints no result line."""
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

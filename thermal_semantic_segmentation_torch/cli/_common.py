@@ -1,0 +1,102 @@
+"""Shared CLI plumbing: checkpoint loading and model construction
+(counterpart of the JAX ``cli/_common.py``)."""
+
+from __future__ import annotations
+
+import re
+import zipfile
+
+import numpy as np
+import torch
+
+from ..models.deeplab import create_deeplab
+
+_BLOCK_KEY = re.compile(r"layer([1-4])\.(\d+)\.conv1\.weight$")
+# numpy objects a reference .pth may carry beside its tensors (the JAX
+# package's export stores epoch/val_loss as numpy arrays): numpy's array
+# reconstructor and the numeric dtypes, and nothing else (no object arrays)
+_NUMPY_SAFE = [(getattr(np, "_core", None) or np.core).multiarray._reconstruct,
+               np.ndarray, np.dtype] + [
+    type(np.dtype(t)) for t in
+    ("b1", "i1", "i2", "i4", "i8", "u1", "u2", "u4", "u8", "f2", "f4", "f8")]
+
+
+def model_meta_from_state_dict(sd) -> dict:
+    """Architecture of a reference DeepLabV2 (module2 head) state_dict: the
+    checkpoint is authoritative for it, as its tensors ARE that model."""
+    if "conv1.weight" not in sd or "layer5.head.1.weight" not in sd:
+        raise ValueError("not a DeepLabV2 state_dict with the module2 head "
+                         "(legacy-head checkpoints are not yet ported)")
+    blocks = {}
+    for key in sd:
+        m = _BLOCK_KEY.match(key)
+        if m:
+            stage, block = int(m.group(1)), int(m.group(2))
+            blocks[stage] = max(blocks.get(stage, 0), block + 1)
+    return {"layers": [blocks.get(s, 0) for s in (1, 2, 3, 4)],
+            "num_channels": int(sd["conv1.weight"].shape[1]),
+            "num_classes": int(sd["layer5.head.1.weight"].shape[0]),
+            "bn_clr": "bn_pretrain.weight" in sd}
+
+
+def load_seg_checkpoint(path: str):
+    """Load a reference-schema seg ``.pth``
+    (``{'sem_net_state_dict', 'epoch', 'val_loss', ...}`` or a bare
+    state_dict) with ``torch.load(weights_only=True)``.
+
+    Returns (state_dict, meta); meta carries the checkpoint's extra keys plus
+    the architecture read from the state_dict.
+    """
+    if not zipfile.is_zipfile(path):
+        raise ValueError(
+            f"{path!r} is not a torch .pth checkpoint. A native msgpack "
+            f"checkpoint of the JAX package converts to one with "
+            f"`python -m thermal_semantic_segmentation_tpu.cli.export_torch "
+            f"--kind seg --src {path} --dst <out>.pth`")
+    with torch.serialization.safe_globals(_NUMPY_SAFE):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if "sem_net_state_dict" in ckpt:
+        sd = ckpt["sem_net_state_dict"]
+        meta = {k: v for k, v in ckpt.items() if not k.endswith("state_dict")}
+    else:
+        sd, meta = ckpt, {}
+    meta.update(model_meta_from_state_dict(sd))
+    return sd, meta
+
+
+def apply_model_meta(args, meta) -> None:
+    """Adopt architecture keys from checkpoint meta into ``args`` before the
+    model is built (the checkpoint is authoritative)."""
+    def as_cmp(v):
+        return tuple(v) if isinstance(v, (list, tuple)) else v
+
+    updates = {}
+    if "layers" in meta:
+        updates["layers"] = tuple(int(x) for x in meta["layers"])
+    if "num_channels" in meta:
+        updates["net_mode"] = ("one_channel" if int(meta["num_channels"]) == 1
+                               else "three_channels")
+    if "num_classes" in meta:
+        updates["num_classes"] = int(meta["num_classes"])
+    if "bn_clr" in meta:
+        updates["bn_clr"] = bool(meta["bn_clr"])
+    for key, new in updates.items():
+        old = getattr(args, key, None)
+        if old is not None and as_cmp(old) != as_cmp(new):
+            print(f"checkpoint meta overrides --{key}: {old} -> {new}")
+        setattr(args, key, new)
+
+
+def build_deeplab(args, *, device=None):
+    """net_mode switch -> a seeded ``DeepLabV2`` on ``device``."""
+    if args.net_mode == "one_channel":
+        num_channels = 1
+    elif args.net_mode == "three_channels":
+        num_channels = 3
+    else:
+        raise ValueError("net mode does not exist.")
+    return create_deeplab(args.seed, device=device,
+                          num_classes=args.num_classes,
+                          num_channels=num_channels,
+                          bn_clr=getattr(args, "bn_clr", False),
+                          layers=getattr(args, "layers", (3, 4, 23, 3)))

@@ -1,0 +1,83 @@
+"""The GroupNorm + SE ASPP head of DeepLabV2 (counterpart of the JAX
+``nn/aspp.py::ASPPModule2``).
+
+1x1 + four dilated 3x3 branches -> 256 channels each with GroupNorm(32) and
+ReLU, channel concat, SE gate, 3x3 bottleneck conv + GroupNorm, Dropout2d
+(training only), 1x1 classifier without bias. Returns both the 256-channel
+pre-classifier feature ('feat') and the logits ('out'). Submodule names give
+the reference state_dict keys: ``conv2d_list.{i}.{0,1}``,
+``bottleneck.{0.se.0, 0.se.2, 1, 2}`` and ``head.1``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+GN_EPS = 1e-5
+GN_GROUPS = 32
+BRANCH_WIDTH = 256
+DILATIONS = (6, 12, 18, 24)
+DROPRATE = 0.1
+HEAD_STD = 0.001
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation channel gate."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.se = nn.Sequential(
+            nn.Linear(channels, channels // reduction), nn.ReLU(inplace=True),
+            nn.Linear(channels // reduction, channels), nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.se(x.mean(dim=(2, 3)))
+        return x * s[:, :, None, None]
+
+
+class ASPPModule2(nn.Module):
+
+    def __init__(self, in_channels: int, num_classes: int):
+        super().__init__()
+
+        def branch(kernel: int, d: int) -> nn.Sequential:
+            pad = d if kernel == 3 else 0
+            return nn.Sequential(
+                nn.Conv2d(in_channels, BRANCH_WIDTH, kernel, padding=pad,
+                          dilation=d, bias=True),
+                nn.GroupNorm(GN_GROUPS, BRANCH_WIDTH, eps=GN_EPS),
+                nn.ReLU(inplace=True))
+
+        self.conv2d_list = nn.ModuleList(
+            [branch(1, 1)] + [branch(3, d) for d in DILATIONS])
+        concat = BRANCH_WIDTH * (len(DILATIONS) + 1)
+        self.bottleneck = nn.Sequential(
+            SEBlock(concat),
+            nn.Conv2d(concat, BRANCH_WIDTH, 3, padding=1, bias=True),
+            nn.GroupNorm(GN_GROUPS, BRANCH_WIDTH, eps=GN_EPS))
+        self.head = nn.Sequential(
+            nn.Dropout2d(DROPRATE),
+            nn.Conv2d(BRANCH_WIDTH, num_classes, 1, bias=False))
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """Kaiming-normal branch/bottleneck convs, N(0, 0.001) classifier."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, nonlinearity="relu",
+                                        generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Linear):
+                nn.init.normal_(m.weight, 0.0, 0.01, generator=generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.GroupNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+        nn.init.normal_(self.head[1].weight, 0.0, HEAD_STD,
+                        generator=generator)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        y = torch.cat([b(x) for b in self.conv2d_list], dim=1)
+        feat = self.head[0](self.bottleneck(y))
+        return {"feat": feat, "out": self.head[1](feat)}

@@ -1,0 +1,206 @@
+"""Micro-batching inference engine (counterpart of the JAX
+``serving/batcher.py``).
+
+:class:`InferenceServer` coalesces concurrent requests into fixed-size padded
+device batches, up to a latency budget, and answers each with its (H, W)
+uint8 class ids: model forward, then the fused ``upsample_argmax`` kernel,
+then a cast to uint8 on the device before the copy back to the host.
+"""
+
+from __future__ import annotations
+
+import io
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.upsample_argmax import upsample_argmax
+from ..ops.batching import pad_rows
+
+HW = (256, 512)
+
+
+class InferenceError(RuntimeError):
+    """A server-side (device/model) failure -- maps to HTTP 500, while
+    request decode/preprocess errors stay 400."""
+
+
+def preprocess(image_bytes: bytes, hw=HW, channels: int = 1) -> np.ndarray:
+    """Decode request bytes -> (H, W, channels) float32.
+
+    16-bit input follows the Freiburg IR protocol (``data/freiburg.py``
+    ``load_ir_image``: resize to RAW_SIZE BICUBIC, column crop, radiometric
+    window), then the eval resize to ``hw``; 8-bit input (grayscale or RGB)
+    scales to [0, 1]."""
+    from PIL import Image
+
+    from ..data.freiburg import load_ir_image
+
+    img = Image.open(io.BytesIO(image_bytes))
+    arr = np.asarray(img)
+    if arr.dtype == np.uint16:
+        windowed = load_ir_image(io.BytesIO(image_bytes))
+        arr = np.asarray(windowed.resize((hw[1], hw[0]), Image.BICUBIC),
+                         dtype=np.float32)[..., None]
+    else:
+        img = img.convert("RGB" if channels == 3 else "L")
+        arr = np.asarray(img.resize((hw[1], hw[0]), Image.BICUBIC),
+                         dtype=np.float32) / 255.0
+        if arr.ndim == 2:
+            arr = arr[..., None]
+    if arr.shape[-1] != channels:
+        raise ValueError(f"expected {channels}-channel input, got "
+                         f"{arr.shape[-1]} (16-bit IR is 1-channel)")
+    return arr
+
+
+class InferenceServer:
+    """Micro-batching wrapper around the segmentation forward.
+
+    Requests enqueue (array, result queue); one worker thread drains up to
+    ``batch_size`` of them (waiting at most ``max_wait_ms`` for stragglers
+    after the first), pads the tail to the fixed batch shape and runs one
+    device step. ``device`` defaults to the CUDA device (raises without
+    one); ``bf16`` runs the forward under bfloat16 autocast, and the logits
+    reach the kernel as float32.
+    """
+
+    def __init__(self, model, *, batch_size: int = 8,
+                 max_wait_ms: float = 10.0, label_hw=HW, channels: int = 1,
+                 bf16: bool = False, device=None):
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+        self.max_wait = max_wait_ms / 1e3
+        self.label_hw = tuple(label_hw)
+        self.channels = channels
+        self.bf16 = bf16
+        # weights live on the device for the server's lifetime
+        self.model = model.to(device=self.device,
+                              memory_format=torch.channels_last).eval()
+        # one pinned host buffer per server: each batch is copied into it and
+        # sent with a non_blocking copy. Reuse is safe because every batch
+        # ends in a device->host copy that waits for the stream.
+        self._host = torch.empty(
+            (batch_size, *self.label_hw, channels), dtype=torch.float32,
+            pin_memory=self.device.type == "cuda")
+        self._queue: queue.Queue = queue.Queue()
+        self._stop = threading.Event()
+        # serializes submit()'s stop-check-then-put against stop()'s final
+        # drain: without it a submit could check, lose the CPU, and enqueue
+        # after both shutdown drains ran -- its waiter would never be answered
+        self._submit_lock = threading.Lock()
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self.batches_run = 0
+        self.requests_served = 0
+
+    def _predict(self, images: np.ndarray) -> np.ndarray:
+        """(batch, H, W, C) float32 -> (batch, H, W) uint8 class ids."""
+        self._host.numpy()[...] = images
+        x = self._host.to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                                enabled=self.bf16):
+                out = self.model(x.permute(0, 3, 1, 2))["out"]
+            # channels_last NCHW logits viewed as NHWC: no copy
+            logits = out.float().permute(0, 2, 3, 1)
+            pred, _ = upsample_argmax(logits, *self.label_hw)
+            # uint8 ids: 4x fewer bytes on the device->host copy
+            return pred.to(torch.uint8).cpu().numpy()
+
+    def _preprocess(self, image_bytes: bytes) -> np.ndarray:
+        return preprocess(image_bytes, self.label_hw, self.channels)
+
+    def warmup(self):
+        """One forward at the serving shape, so the first request does not
+        pay cuDNN's algorithm selection or the kernel's build."""
+        self._predict(np.zeros((self.batch_size, *self.label_hw,
+                                self.channels), np.float32))
+
+    def start(self):
+        self._worker.start()
+
+    def stop(self):
+        self._stop.set()
+        self._queue.put(None)
+        if self._worker.ident is not None:  # started
+            self._worker.join(timeout=5)
+        # final drain under the submit lock: every submit either enqueued
+        # before this drain (and gets failed here) or observes _stop set
+        # inside the lock (and fails itself) -- no waiter can be orphaned
+        with self._submit_lock:
+            while True:
+                try:
+                    item = self._queue.get_nowait()
+                except queue.Empty:
+                    return
+                if item is not None:
+                    item[1].put(InferenceError("server stopped"))
+
+    def submit(self, arr: np.ndarray) -> "queue.Queue":
+        """Enqueue one (H, W, C) image; returns a single-item result queue."""
+        out: queue.Queue = queue.Queue(maxsize=1)
+        with self._submit_lock:
+            if self._stop.is_set():
+                out.put(InferenceError("server stopped"))
+                return out
+            self._queue.put((arr, out))
+        return out
+
+    def segment(self, image_bytes: bytes) -> np.ndarray:
+        """Blocking helper: bytes in, (H, W) uint8 class ids out."""
+        result = self.submit(self._preprocess(image_bytes)).get()
+        if isinstance(result, Exception):
+            raise InferenceError(str(result))
+        return result
+
+    def _run(self):
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            self._run_loop()
+        finally:
+            # deliver a failure to any request still queued (enqueued after
+            # the stop sentinel or mid-shutdown) so no segment() call blocks
+            # forever on its result queue
+            while True:
+                try:
+                    item = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None:
+                    item[1].put(InferenceError("server stopped"))
+
+    def _run_loop(self):
+        while not self._stop.is_set():
+            item = self._queue.get()
+            if item is None:
+                return
+            batch = [item]
+            deadline = time.monotonic() + self.max_wait
+            while len(batch) < self.batch_size:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._stop.set()
+                    break
+                batch.append(nxt)
+            try:
+                images = pad_rows(np.stack([b[0] for b in batch]),
+                                  self.batch_size)
+                preds = self._predict(images)
+                self.batches_run += 1
+                for (_, out), pred in zip(batch, preds):
+                    out.put(pred)
+                    self.requests_served += 1
+            except Exception as e:  # deliver the failure to every waiter
+                for _, out in batch:
+                    out.put(e)
