@@ -6,7 +6,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every kernel under csrc/ with nvcc (in parallel);
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the serving shape and at a ragged shape, with its timings and bound;
+     the serving shape and at the shapes that exercise its tiling (ragged
+     edges, downsampling, one output row or column, a runtime class count,
+     a strided view), with its timings, its bound, the timing floor of a
+     one-element launch and its SASS counts;
   4. slice: the full-width DeepLabV2-ResNet101 seg server (random weights
      from a seed, loaded through the checkpoint path a user takes) answers
      requests from several threads, and the kernels' launch counts show the
@@ -27,8 +30,18 @@ H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 
 SERVE_SHAPE = (8, 33, 65, 13)   # stride-8 logits of a batch-8 256x512 request
 SERVE_OUT = (256, 512)
-RAGGED_SHAPE = (3, 9, 17, 13)
-RAGGED_OUT = (61, 127)
+# (shape, out_hw, strided): "strided" holds the logits as NCHW-contiguous
+# memory viewed as NHWC, so the kernel reads them through general strides
+PARITY_CASES = [
+    (SERVE_SHAPE, SERVE_OUT, False),
+    ((3, 9, 17, 13), (61, 127), False),
+    ((2, 33, 65, 13), (250, 509), False),    # ragged row and column tiles
+    ((1, 40, 70, 13), (17, 31), False),      # downsampling
+    ((2, 9, 17, 13), (1, 128), False),       # one output row
+    ((2, 9, 17, 13), (64, 1), False),        # one output column
+    ((2, 9, 17, 19), (64, 128), False),      # runtime class count
+    ((2, 33, 65, 13), (256, 512), True),
+]
 TIE_GAP = 1e-5
 CONF_RTOL, CONF_ATOL = 1e-4, 1e-5
 
@@ -67,7 +80,9 @@ def phase_build():
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of one call, by CUDA events. A sleep kernel keeps
     the card busy while the host enqueues the call, so the events bracket
-    the device work and not the host's launch overhead."""
+    the device work and not the host's launch overhead. The inputs stay
+    warm in L2 between calls, as the server's logits are when its kernel
+    reads them right after the forward that wrote them."""
     import torch
     for _ in range(warmup):
         fn()
@@ -100,18 +115,53 @@ def upsample_argmax_bound(shape, out_hw):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sass_counts(library: str, kernel: str) -> dict:
+    """Static SASS counts of the kernels in ``library`` whose mangled name
+    holds ``kernel``, from ``cuobjdump -sass``: all instructions, MUFU
+    (special-function unit) ones, and those after the first block barrier
+    (in a staged kernel, the straight-line per-thread compute)."""
+    import os
+    import re
+
+    from thermal_semantic_segmentation_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    counts = {}
+    for part in out.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if kernel not in name:
+            continue
+        ops = [re.sub(r"^@!?P\w+\s+", "", m) for m in
+               re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)]
+        ops = [op for op in ops if not op.startswith("NOP")]
+        bar = next((i for i, op in enumerate(ops)
+                    if op.startswith("BAR.SYNC")), -1)
+        counts[name] = {
+            "instructions": len(ops),
+            "mufu": sum(op.startswith("MUFU") for op in ops),
+            "after_barrier": len(ops) - bar - 1,
+            "mufu_after_barrier": sum(op.startswith("MUFU")
+                                      for op in ops[bar + 1:]),
+        }
+    return counts
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
 
+    from thermal_semantic_segmentation_torch.kernels import build
     from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
-        upsample_argmax, upsample_argmax_reference)
+        launch_plan, upsample_argmax, upsample_argmax_reference)
     from thermal_semantic_segmentation_torch.ops.resize import upsample_logits
 
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
-    for shape, (oh, ow) in ((SERVE_SHAPE, SERVE_OUT), (RAGGED_SHAPE, RAGGED_OUT)):
+    for shape, (oh, ow), strided in PARITY_CASES:
         x = torch.randn(shape, generator=gen).cuda()
+        if strided:
+            x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
         pred, conf = upsample_argmax(x, oh, ow)
         torch.cuda.synchronize()
         want_pred, want_conf = upsample_argmax_reference(x, oh, ow)
@@ -119,9 +169,12 @@ def phase_kernels():
         decided = (top2[..., 0] - top2[..., 1]) > TIE_GAP
         wrong = int(((pred != want_pred) & decided).sum())
         err = float((conf - want_conf).abs().max())
-        print(f"upsample_argmax {shape}->{(oh, ow)}: pred mismatches outside "
-              f"near-ties {wrong} (near-ties {int((~decided).sum())}), conf "
-              f"max abs err {err:.3g}", flush=True)
+        plan = launch_plan(shape[0], shape[2], shape[3], oh, ow)
+        print(f"upsample_argmax {shape}->{(oh, ow)}"
+              f"{' strided' if strided else ''} {plan}: pred mismatches "
+              f"outside near-ties {wrong} (near-ties "
+              f"{int((~decided).sum())}), conf max abs err {err:.3g}",
+              flush=True)
         if wrong:
             fail(f"upsample_argmax pred disagrees at {wrong} pixels")
         if not torch.allclose(conf, want_conf, rtol=CONF_RTOL, atol=CONF_ATOL):
@@ -140,7 +193,21 @@ def phase_kernels():
     kernel_ms = time_ms(lambda: upsample_argmax(x, *SERVE_OUT))
     plain_ms = time_ms(lambda: upsample_argmax_reference(x, *SERVE_OUT))
     library_ms = time_ms(library)
+    # what time_ms reads for a one-element kernel: its floor for any launch
+    floor_ms = time_ms(lambda: x[0, 0, 0].add_(0))
     bound_ms, bound_by = upsample_argmax_bound(SERVE_SHAPE, SERVE_OUT)
+    print(f"upsample_argmax {SERVE_SHAPE}->{SERVE_OUT}: kernel {kernel_ms} ms "
+          f"(bound_share {bound_ms / kernel_ms:.4f}), plain {plain_ms} ms "
+          f"(bound_share {bound_ms / plain_ms:.4f}), library {library_ms} ms "
+          f"(bound_share {bound_ms / library_ms:.4f}), bound {bound_ms} ms "
+          f"({bound_by}), one-element launch {floor_ms} ms", flush=True)
+    try:
+        sass = json.dumps(sass_counts(
+            str(build.library_path("upsample_argmax")),
+            "upsample_argmax_kernel"))
+    except (OSError, subprocess.SubprocessError) as e:
+        sass = f"not measured ({e!r})"
+    print(f"sass upsample_argmax: {sass}", flush=True)
     return [{
         "name": "upsample_argmax", "route": "cuda",
         "source": "thermal_semantic_segmentation_torch/csrc/upsample_argmax.cu",

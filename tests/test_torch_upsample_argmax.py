@@ -1,5 +1,6 @@
 """The port's fused upsample + argmax (kernels/upsample_argmax.py) against
-the JAX package's Pallas kernel (interpret mode) and its XLA composite, and
+the JAX package's Pallas kernel (interpret mode) and its XLA composite, the
+kernel's host-side launch plan (tiles, staged spans, shared memory), and
 (tests marked gpu) the CUDA kernel against its plain version on the card:
 
     python -m pytest --noconftest tests/test_torch_upsample_argmax.py -m gpu
@@ -15,12 +16,25 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (  # noqa: E402
-    upsample_argmax, upsample_argmax_reference)
+    SMEM_LIMIT, TARGET_THREADS, VEC, launch_plan, upsample_argmax,
+    upsample_argmax_reference)
 from thermal_semantic_segmentation_torch.ops.resize import (  # noqa: E402
     interp_taps_np, upsample_logits)
 
 TIE_GAP = 1e-5
 CONF_RTOL, CONF_ATOL = 1e-4, 1e-5
+
+# (N, h, w, C) -> (out_h, out_w) cases that exercise the kernel's tiling:
+# the serving shape, several row tiles with a ragged last tile in both axes,
+# downsampling, a single output row or column, a runtime class count above 13
+TILING_CASES = [
+    ((8, 33, 65, 13), (256, 512)),
+    ((2, 33, 65, 13), (250, 509)),
+    ((1, 40, 70, 13), (17, 31)),
+    ((2, 9, 17, 13), (1, 128)),
+    ((2, 9, 17, 13), (64, 1)),
+    ((2, 9, 17, 19), (64, 128)),
+]
 
 
 @pytest.fixture(scope="module")
@@ -99,6 +113,41 @@ def test_interp_taps_rebuild_the_jax_matrix_exactly(jax_ref, in_size,
         m, resize._interp_matrix_np(in_size, out_size, True))
 
 
+def _tiles(size, tile, count):
+    return [range(t * tile, min((t + 1) * tile, size)) for t in range(count)]
+
+
+@pytest.mark.parametrize("shape,out_hw", TILING_CASES)
+def test_launch_plan_tiles_cover_the_output_and_fit(shape, out_hw):
+    n, h, w, c = shape
+    out_h, out_w = out_hw
+    plan = launch_plan(n, w, c, out_h, out_w)
+    assert plan.grid[2] == n
+    # every output row and column falls in exactly one non-empty tile
+    for size, tile, count in ((out_h, plan.tile_h, plan.grid[1]),
+                              (out_w, plan.tile_w, plan.grid[0])):
+        tiles = _tiles(size, tile, count)
+        assert all(len(t) for t in tiles)
+        assert sorted(i for t in tiles for i in t) == list(range(size))
+    # each column tile's staged span [lo of its first column, + span)
+    # covers both taps of every column in it
+    lo, hi, _ = interp_taps_np(w, out_w)
+    for cols in _tiles(out_w, plan.tile_w, plan.grid[0]):
+        c0 = lo[cols[0]]
+        assert all(c0 <= lo[x] and hi[x] < c0 + plan.span for x in cols)
+    assert plan.span <= w
+    # staged columns hold every class, as float4s, spread over bank groups
+    assert plan.pitch >= c and plan.pitch % 4 == 0 and plan.pitch // 4 % 2
+    assert plan.tile_w % VEC == 0 and plan.threads <= TARGET_THREADS
+    assert 1 <= plan.block_h <= plan.tile_h
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
+def test_launch_plan_rejects_rows_over_shared_memory():
+    with pytest.raises(ValueError, match="shared"):
+        launch_plan(1, 17, 8000, 64, 128)
+
+
 def test_wrapper_rejects_non_4d_input():
     with pytest.raises(ValueError, match="expected"):
         upsample_argmax(torch.zeros(9, 17, 13), 64, 128)
@@ -110,6 +159,8 @@ def test_wrapper_rejects_non_4d_input():
     ((3, 9, 17, 13), (61, 127), "nhwc"),
     ((2, 33, 65, 13), (256, 512), "nchw"),     # strided NHWC view
     ((2, 9, 17, 5), (64, 128), "nhwc"),        # runtime class count
+] + [(shape, out_hw, "nhwc") for shape, out_hw in TILING_CASES[1:]] + [
+    ((2, 33, 65, 19), (250, 509), "nchw"),     # strided, runtime C, ragged
 ])
 def test_kernel_matches_plain_version_on_card(cuda_device, shape, out_hw,
                                               layout):
