@@ -13,7 +13,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   4. slice: the full-width DeepLabV2-ResNet101 seg server (random weights
      from a seed, loaded through the checkpoint path a user takes) answers
      requests from several threads, and the kernels' launch counts show the
-     requests went through them.
+     requests went through them;
+  5. eval: the same model, loaded through the eval CLI's checkpoint path,
+     scores seeded images with the loader and ``seg_validate`` (a ragged
+     tail batch included); its confusion matrix and val_loss are held
+     against the plain path and a float64 recomputation, and the kernels'
+     launch counts show every batch went through them.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -44,6 +49,9 @@ PARITY_CASES = [
 ]
 TIE_GAP = 1e-5
 CONF_RTOL, CONF_ATOL = 1e-4, 1e-5
+EVAL_IMAGES, EVAL_BATCH = 20, 8      # batches of 8, 8 and 4
+NUM_CLASSES, IGNORE = 13, 12
+LOSS_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -353,16 +361,247 @@ def batch_breakdown(server, images, reps: int = 5) -> dict:
                     (float(v) for v in med)))
 
 
+class SeededEvalImages:
+    """What ``val_transform`` gives for Freiburg test frames, made with numpy
+    from a seed: float32 (H, W, 1) images in [0, 1] and int64 (H, W) labels
+    in 0..12, about 5% of them 255 (outside the classes, so the loss and the
+    confusion matrix must drop them)."""
+
+    def __init__(self, n: int, hw, seed: int):
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        self.images = rng.random((n, *hw, 1), dtype=np.float32)
+        self.labels = rng.integers(0, NUM_CLASSES, (n, *hw))
+        self.labels[rng.random((n, *hw)) < 0.05] = 255
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def get(self, index: int, rng) -> dict:
+        return {"image": self.images[index], "label": self.labels[index]}
+
+
+def phase_eval(card: str) -> dict:
+    """Score seeded images with the full-width model through the eval path;
+    returns the kernels' launch counts from this run."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        apply_model_meta, build_deeplab, load_seg_checkpoint)
+    from thermal_semantic_segmentation_torch.cli.options import (
+        evaluation_parse)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.eval.metrics import (
+        scores_from_hist)
+    from thermal_semantic_segmentation_torch.eval.validate import (
+        seg_validate)
+    from thermal_semantic_segmentation_torch.kernels import build
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_reference)
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.ops.resize import upsample_logits
+    from thermal_semantic_segmentation_torch.train.seg import (
+        build_seg_eval_step)
+
+    hw = SERVE_OUT
+    data = SeededEvalImages(EVAL_IMAGES, hw, seed=1)
+    # ResNet-101, 1 channel, 13 classes, module2 head: random weights from
+    # seed 0, saved in the reference .pth schema and loaded back the way the
+    # eval CLI loads a checkpoint
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+        ref_model = create_deeplab(0)
+        torch.save({"epoch": 0, "sem_net_state_dict": ref_model.state_dict()},
+                   f"{root}/smoke.pth")
+        del ref_model
+        args = evaluation_parse().parse_args(
+            ["-checkpoint_name", "smoke.pth", "--model_root_path", root,
+             "-val_batch_size", str(EVAL_BATCH)])
+        state_dict, meta = load_seg_checkpoint(
+            os.path.join(args.model_root_path, args.checkpoint_name))
+    apply_model_meta(args, meta)
+    model = build_deeplab(args)
+    model.load_state_dict(state_dict, strict=True)
+    del state_dict
+
+    # the step seg_validate builds, recording each batch's outputs, and the
+    # model's stride-8 logits, for the checks below
+    step = build_seg_eval_step(num_classes=NUM_CLASSES, ignore_index=IGNORE)
+    seen, logits_seen = [], []
+
+    def recording_step(model, image, label):
+        hist, loss, pred = step(model, image, label)
+        seen.append((hist, loss, pred, label))
+        return hist, loss, pred
+
+    hook = model.register_forward_hook(lambda m, i, out: logits_seen.append(
+        out["out"].float().permute(0, 2, 3, 1).clone()))
+
+    def run():
+        loader = DataLoader(data, args.val_batch_size, shuffle=False,
+                            drop_last=False, seed=args.seed)
+        return seg_validate(model, loader, num_classes=NUM_CLASSES,
+                            ignore_index=IGNORE, eval_step=recording_step)
+
+    run()                               # warm-up: cuDNN at both batch sizes
+    torch.cuda.synchronize()
+    seen.clear()
+    logits_seen.clear()
+    upsample_argmax.launches = 0        # counts from the main path only
+    t0 = time.perf_counter()
+    mean_iu, val_loss, cls_iu = run()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    hook.remove()
+
+    n_batches = len(seen)
+    sizes = [p.shape[0] for _, _, p, _ in seen]
+    if sizes != [8, 8, 4] or len(logits_seen) != n_batches:
+        fail(f"eval ran batches of {sizes} ({len(logits_seen)} forwards)")
+    if launches["upsample_argmax"] < n_batches:
+        fail(f"upsample_argmax launched {launches['upsample_argmax']} times "
+             f"for {n_batches} eval batches")
+
+    # the confusion matrix: the device's against numpy's on the kernel's
+    # preds, and the kernel's preds against the plain version's outside
+    # near-ties; val_loss against a float64 recomputation
+    hist_dev = sum(h for h, _, _, _ in seen).cpu().numpy()
+
+    def np_hist(pred, label):
+        ok = (label >= 0) & (label < NUM_CLASSES)
+        return np.bincount(NUM_CLASSES * label[ok] + pred[ok],
+                           minlength=NUM_CLASSES ** 2).reshape(
+                               NUM_CLASSES, NUM_CLASSES)
+
+    hist_np = np.zeros((NUM_CLASSES, NUM_CLASSES), np.int64)
+    hist_diff = ties = wrong = 0
+    loss64 = 0.0
+    with torch.inference_mode():
+        for (_, _, pred, label), logits in zip(seen, logits_seen):
+            if not bool(torch.isfinite(logits).all()):
+                fail("non-finite logits in eval")
+            lab, got = label.cpu().numpy(), pred.long().cpu().numpy()
+            hist_np += np_hist(got, lab)
+            want, _ = upsample_argmax_reference(logits, *hw)
+            top2 = upsample_logits(logits, *hw).topk(2, dim=-1).values
+            decided = ((top2[..., 0] - top2[..., 1]) > TIE_GAP).cpu().numpy()
+            want = want.long().cpu().numpy()
+            ties += int((~decided).sum())
+            wrong += int(((got != want) & decided).sum())
+            masked = np.where(decided, lab, -1)
+            hist_diff += int(np.abs(np_hist(got, masked)
+                                    - np_hist(want, masked)).sum())
+            up = F.interpolate(logits.permute(0, 3, 1, 2).double(), size=hw,
+                               mode="bilinear", align_corners=True)
+            logp = torch.log_softmax(up, dim=1)
+            valid = (label != IGNORE) & (label >= 0) & (label < NUM_CLASSES)
+            nll = -logp.gather(1, torch.where(valid, label, 0)[:, None])[:, 0]
+            loss64 += float(torch.where(valid, nll, 0.0).sum()
+                            / valid.sum().clamp_min(1)) * pred.shape[0]
+    want_loss = loss64 / EVAL_IMAGES
+    loss_err = abs(val_loss - want_loss) / abs(want_loss)
+    counted = int(((data.labels >= 0) & (data.labels < NUM_CLASSES)).sum())
+    print(f"eval check: confusion matrix device vs numpy "
+          f"{int(np.abs(hist_dev - hist_np).sum())} counts apart ("
+          f"{int(hist_dev.sum())} pixels counted of {counted} labelled in "
+          f"0..12); kernel vs plain preds outside {ties} near-ties: {wrong} "
+          f"pixels, hists {hist_diff} counts apart; val_loss {val_loss} vs "
+          f"float64 {want_loss} (rel err {loss_err:.3g})", flush=True)
+    if not np.array_equal(hist_dev, hist_np) or hist_dev.sum() != counted:
+        fail("the device confusion matrix disagrees with numpy's")
+    if wrong or hist_diff:
+        fail(f"eval preds disagree with the plain path outside near-ties: "
+             f"{wrong} pixels, {hist_diff} hist counts")
+    if not loss_err <= LOSS_RTOL:
+        fail(f"val_loss {val_loss} vs float64 {want_loss}: rel err "
+             f"{loss_err} over {LOSS_RTOL}")
+    if not (np.isfinite(mean_iu) and len(cls_iu) == 12
+            and mean_iu == scores_from_hist(hist_np).mean_iu):
+        fail(f"eval scores: mean_iu {mean_iu}, {len(cls_iu)} classes")
+
+    print(f"eval: {EVAL_IMAGES} images in batches of {sizes} at "
+          f"{EVAL_IMAGES / eval_s:.2f} images/s ({eval_s:.3f} s, after one "
+          f"warm-up pass) on {card}; mean_iu {mean_iu} val_loss {val_loss}; "
+          f"launches {launches}", flush=True)
+    breakdown = eval_breakdown(model, data.images[:EVAL_BATCH],
+                               data.labels[:EVAL_BATCH])
+    print(f"eval batch breakdown: {json.dumps(breakdown)} on {card}",
+          flush=True)
+    return launches
+
+
+def eval_breakdown(model, images, labels, reps: int = 5) -> dict:
+    """Median per-stage times of one batch of the eval step, its own stages
+    bracketed by CUDA events: host->device copy (pinned), model forward,
+    upsample + CE, the upsample_argmax kernel, the confusion matrix; and
+    the host wall time of the whole step, whose remainder is device idle
+    time."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.losses import cross_entropy
+    from thermal_semantic_segmentation_torch.ops.confmat import (
+        confusion_matrix)
+    from thermal_semantic_segmentation_torch.ops.resize import upsample_logits
+
+    dev = torch.device("cuda")
+    hw = labels.shape[1:3]
+    host_image = torch.from_numpy(images).pin_memory()
+    host_label = torch.from_numpy(labels).pin_memory()
+    stages = ("h2d_ms", "forward_ms", "upsample_ce_ms", "kernel_ms",
+              "confmat_ms")
+    rows = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        image = host_image.to(dev, non_blocking=True)
+        label = host_label.to(dev, non_blocking=True)
+        ev[1].record()
+        with torch.inference_mode():
+            out = model(image.permute(0, 3, 1, 2))["out"]
+            ev[2].record()
+            logits = out.float().permute(0, 2, 3, 1)
+            cross_entropy(upsample_logits(logits, *hw), label,
+                          ignore_index=IGNORE)
+            ev[3].record()
+            pred, _ = upsample_argmax(logits, *hw)
+            ev[4].record()
+            confusion_matrix(pred, label, NUM_CLASSES)
+            ev[5].record()
+        ev[5].synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        times = [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+        rows.append(times + [wall, 1.0 - sum(times) / wall])
+    med = np.median(np.asarray(rows), axis=0)
+    return dict(zip(stages + ("wall_ms", "device_idle_share"),
+                    (float(v) for v in med)))
+
+
 def main() -> int:
     import torch
     card = phase_device()
     phase_build()
     kernels = phase_kernels()
-    launches = phase_slice(card)
+    by_path = {"serve": phase_slice(card), "eval": phase_eval(card)}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if not k["launches"]:
-            fail(f"kernel {k['name']} was not launched on the main path")
+        k["launches_by_path"] = {path: launches[k["name"]]
+                                 for path, launches in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        for path, n in k["launches_by_path"].items():
+            if not n:
+                fail(f"kernel {k['name']} was not launched on the {path} "
+                     f"path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)     # nvidia-smi's name, power.limit
     print(json.dumps({"ok": True, "device": {

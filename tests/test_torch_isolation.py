@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of the
-JAX package, and its entry points refuse to fall back to the CPU quietly."""
+JAX package (nor PIL when a module is imported: the card's machine has
+none), its entry points refuse to fall back to the CPU quietly, and its CLIs
+refuse the JAX package's flags they have not ported."""
 
 import ast
 import pkgutil
@@ -12,10 +14,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import thermal_semantic_segmentation_torch as port  # noqa: E402
+from thermal_semantic_segmentation_torch.cli import (  # noqa: E402
+    segmentation_evaluate)
+from thermal_semantic_segmentation_torch.eval.validate import (  # noqa: E402
+    seg_validate)
 from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
     create_deeplab)
 from thermal_semantic_segmentation_torch.serving.batcher import (  # noqa: E402
     InferenceServer)
+from thermal_semantic_segmentation_torch.train.seg import (  # noqa: E402
+    build_seg_eval_step)
 
 BANNED = ("jax", "jaxlib", "flax", "optax", "thermal_semantic_segmentation_tpu")
 PORT_DIR = Path(port.__file__).parent
@@ -43,11 +51,15 @@ def test_no_banned_import_in_source(path):
 def test_importing_every_module_loads_no_banned_package():
     modules = [m.name for m in pkgutil.walk_packages(
         [str(PORT_DIR)], prefix=f"{port.__name__}.")]
-    assert len(modules) >= 20, modules
+    assert len(modules) >= 30, modules
+    for new in ("cli.segmentation_evaluate", "eval.validate", "train.seg",
+                "data.loader", "data.device_pipeline", "ops.confmat"):
+        assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {BANNED!r})\n"
+        "bad += ['PIL'] if 'PIL' in sys.modules else []\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -55,15 +67,35 @@ def test_importing_every_module_loads_no_banned_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["create_deeplab", "InferenceServer"])
+@pytest.mark.parametrize("entry", [
+    "create_deeplab", "InferenceServer", "build_seg_eval_step",
+    "seg_validate", "seg_evaluation"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "create_deeplab":
             create_deeplab(0, layers=(1, 1, 1, 1))
-        else:
+        elif entry == "InferenceServer":
             InferenceServer(create_deeplab(0, device="cpu",
                                            layers=(1, 1, 1, 1)))
+        elif entry == "build_seg_eval_step":
+            build_seg_eval_step(num_classes=13, ignore_index=12)
+        elif entry == "seg_validate":
+            seg_validate(create_deeplab(0, device="cpu", layers=(1, 1, 1, 1)),
+                         [])
+        else:
+            segmentation_evaluate.main(["-dataset", "freiburg_ir"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--distributed", "true"], ["--data_parallel", "true"],
+    ["--native_decode", "true"], ["--wire", "packed_bf16"],
+    ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"]])
+def test_eval_cli_refuses_flags_not_yet_ported(argv, capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        segmentation_evaluate.main(argv + ["--device", "cpu"])
+    assert exit_info.value.code != 0
+    assert "not yet ported" in capsys.readouterr().err
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

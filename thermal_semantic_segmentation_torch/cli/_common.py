@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: checkpoint loading and model construction
-(counterpart of the JAX ``cli/_common.py``)."""
+"""Shared CLI plumbing: dataset selection, checkpoint loading and model
+construction (counterpart of the JAX ``cli/_common.py``)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ import zipfile
 import numpy as np
 import torch
 
+from ..data import transforms as T
+from ..data.freiburg import FreiburgTest
 from ..models.deeplab import create_deeplab
 
 _BLOCK_KEY = re.compile(r"layer([1-4])\.(\d+)\.conv1\.weight$")
@@ -19,6 +21,29 @@ _NUMPY_SAFE = [(getattr(np, "_core", None) or np.core).multiarray._reconstruct,
                np.ndarray, np.dtype] + [
     type(np.dtype(t)) for t in
     ("b1", "i1", "i2", "i4", "i8", "u1", "u2", "u4", "u8", "f2", "f4", "f8")]
+
+
+def val_transform():
+    """Resize((512, 256)) + ToArray (reference segmentation_train.py:96-99)."""
+    return T.Compose([T.Resize((512, 256)), T.ToArray()])
+
+
+def build_seg_dataset(args, transform, *, for_eval: bool = False):
+    """The dataset switch of the reference (segmentation_evaluate.py:99-118):
+    the Freiburg IR and RGB test splits so far."""
+    name = args.dataset
+    if name in ("freiburg_ir", "freiburg_rgb"):
+        if for_eval:
+            return FreiburgTest(args.freiburg_root, "test",
+                                "IR" if name == "freiburg_ir" else "RGB",
+                                transforms=transform, with_label=True,
+                                grayscale=args.grayscale)
+    elif name not in ("cityscapes", "cityscapes_translation",
+                      "freiburg_translation", "freiburg_t2s"):
+        raise ValueError("dataset does not exist.")
+    raise NotImplementedError(
+        f"the {name} {'test' if for_eval else 'train'} dataset is not yet "
+        f"ported to the PyTorch package (see ROADMAP.md)")
 
 
 def model_meta_from_state_dict(sd) -> dict:

@@ -10,21 +10,30 @@ from __future__ import annotations
 
 import argparse
 
-# host-side modes of the JAX package that the port has not ported yet
-NOT_YET_PORTED = ("data_parallel",)
+# host-side modes of the JAX package that the port has not ported yet: the
+# flag and a test of its value that is true when the mode is asked for
+NOT_YET_PORTED = {
+    "data_parallel": bool,
+    "distributed": bool,
+    "native_decode": bool,
+    "wire": lambda v: v == "packed_bf16",
+    "decode_cache_mb": bool,
+    "decode_cache_dir": bool,
+}
 
 
 class HostConfigParser(argparse.ArgumentParser):
     """ArgumentParser that applies host-side settings at parse time: a flag
-    of ``NOT_YET_PORTED`` set to true is an error, so no command line runs a
-    different configuration than it asked for."""
+    of ``NOT_YET_PORTED`` set to one of its refused values is an error, so
+    no command line runs a different configuration than it asked for."""
 
     def parse_args(self, *a, **kw):  # type: ignore[override]
         args = super().parse_args(*a, **kw)
-        for flag in NOT_YET_PORTED:
-            if getattr(args, flag, False):
-                self.error(f"--{flag} is not yet ported to the PyTorch "
-                           f"package (see ROADMAP.md)")
+        for flag, refused in NOT_YET_PORTED.items():
+            value = getattr(args, flag, None)
+            if value is not None and refused(value):
+                self.error(f"--{flag} {value} is not yet ported to the "
+                           f"PyTorch package (see ROADMAP.md)")
         return args
 
 
@@ -39,6 +48,9 @@ def str2bool(v) -> bool:
 
 
 def _add_roots(parser: argparse.ArgumentParser):
+    parser.add_argument('--freiburg_root', type=str, default='datasets/freiburg')
+    parser.add_argument('--source_root', type=str,
+                        default='datasets/source_dataset')
     parser.add_argument('--model_root_path', type=str,
                         default='./checkpoints/semantic_segmentation')
     parser.add_argument('--device', type=str, default='',
@@ -47,6 +59,18 @@ def _add_roots(parser: argparse.ArgumentParser):
                              'CPU.')
     parser.add_argument('--bf16', type=str2bool, default=False,
                         help='run the forward under bfloat16 autocast.')
+    parser.add_argument('--native_decode', type=str2bool, default=False,
+                        help='not yet ported: refused when true.')
+    parser.add_argument('--wire', type=str, default='packed',
+                        choices=['none', 'packed', 'packed_bf16'],
+                        help='host->device batch transfer: none and packed '
+                             '(default) are both lossless and take the same '
+                             'path here (pinned memory, non_blocking '
+                             'copies); packed_bf16 is not yet ported.')
+    parser.add_argument('--decode_cache_mb', type=float, default=0.0,
+                        help='not yet ported: refused when not 0.')
+    parser.add_argument('--decode_cache_dir', type=str, default='',
+                        help='not yet ported: refused when set.')
     parser.add_argument('--layers', type=lambda s: tuple(
                             int(x) for x in s.split(',')),
                         default=(3, 4, 23, 3),
@@ -55,4 +79,34 @@ def _add_roots(parser: argparse.ArgumentParser):
                              'overrides it with its own.')
     parser.add_argument('--data_parallel', type=str2bool, default=False,
                         help='not yet ported: refused when true.')
+    parser.add_argument('--distributed', type=str2bool, default=False,
+                        help='not yet ported: refused when true.')
     parser.add_argument('--seed', type=int, default=0)
+
+
+def evaluation_parse():
+    """Evaluation options (reference options.py:83-103)."""
+    parser = HostConfigParser(description='segmentation options')
+    parser.add_argument('--root', default='')
+    parser.add_argument('-val_batch_size', type=int, default=1)
+    parser.add_argument('-checkpoint_name', type=str,
+                        default='256_freiburg_rgb2ir_segmentation.pth')
+    parser.add_argument('-new_checkpoint_name', type=str, default='')
+    parser.add_argument('-num_samples_show', type=int, default=3)
+    parser.add_argument('-net_mode', type=str, default='one_channel')
+    parser.add_argument('-dataset', type=str, default='freiburg_ir')
+    parser.add_argument('-grayscale', type=str2bool, default=False)
+    parser.add_argument('-num_classes', type=int, default=13)
+    parser.add_argument('-data_split', type=str2bool, default=False)
+    parser.add_argument('-translation_name', type=str,
+                        default='cityscapes_rgb2freiburg_ir')
+    parser.add_argument('-visualize_prediction', default=None)
+    parser.add_argument('-ignore_index', type=int, default=12)
+    parser.add_argument('-generator_type', type=str, default='s2t')
+    parser.add_argument('-t2s_folder', type=str,
+                        default='test_cityscapes_rgb2freiburg_ir/')
+    parser.add_argument('-baseline', type=str2bool, default=False)
+    parser.add_argument('-source_domain', type=str, default='Thermal')
+    parser.add_argument('-target_domain', type=str, default='Grayscale')
+    _add_roots(parser)
+    return parser

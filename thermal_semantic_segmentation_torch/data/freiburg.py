@@ -1,26 +1,108 @@
-"""Freiburg thermal IR decoding for the 16-bit request path (counterpart of
-``load_ir_image`` in the JAX ``data/freiburg.py``; the datasets come later).
+"""Freiburg Thermal decoding and the test split (counterpart of the JAX
+``data/freiburg.py``; the train-split ``Freiburg`` comes with training).
 
 IR radiometric normalisation: resize the 16-bit frame to RAW_SIZE BICUBIC,
-crop columns COL_CROP, clamp to [IR_MIN, IR_MAX] and scale to [0, 1].
+crop columns COL_CROP, clamp to [IR_MIN, IR_MAX] and scale to [0, 1]. RGB
+frames and labels get the same resize (labels NEAREST) and crop. PIL is
+imported where it is used, so the package imports on a host without it.
+The JAX package's decode cache (``data/cache.py``, off by default) is not
+ported.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Callable
+
 import numpy as np
+
+from .list_files import freiburg_lists, parse_list_file
 
 IR_MIN, IR_MAX = 21800.0, 25000.0
 RAW_SIZE = (960, 320)          # PIL (w, h)
 COL_CROP = (150, 850)
 
 
+def _pil_image():
+    """PIL's ``Image`` module, with truncated files decoding to a partly
+    zero image instead of raising, as the reference sets at every entry
+    point."""
+    from PIL import Image, ImageFile
+
+    ImageFile.LOAD_TRUNCATED_IMAGES = True
+    return Image
+
+
 def load_ir_image(path_or_file):
     """16-bit IR PNG (path or file object) -> float [0, 1] PIL 'F' image,
     windowed and column-cropped."""
-    from PIL import Image
-
+    Image = _pil_image()
     image = np.array(Image.open(path_or_file).resize(RAW_SIZE, Image.BICUBIC),
                      dtype=np.float32)
     image = image[:, COL_CROP[0]:COL_CROP[1]]
     image = np.clip(image, IR_MIN, IR_MAX)
     return Image.fromarray((image - IR_MIN) / (IR_MAX - IR_MIN))
+
+
+def load_rgb_image(path: str, grayscale: bool = False):
+    """RGB frame -> uint8 PIL image (grayscale 'L' with ``grayscale``),
+    resized and column-cropped."""
+    Image = _pil_image()
+    img = Image.open(path).convert("RGB")
+    if grayscale:
+        from PIL import ImageOps
+        img = ImageOps.grayscale(img)
+    arr = np.array(img.resize(RAW_SIZE, Image.BICUBIC), dtype=np.float32)
+    return Image.fromarray(np.uint8(arr[:, COL_CROP[0]:COL_CROP[1]]))
+
+
+def load_label(path: str):
+    """Label PNG -> 'L' PIL image, resized NEAREST and column-cropped."""
+    Image = _pil_image()
+    label = np.array(Image.open(path).resize(RAW_SIZE, Image.NEAREST),
+                     dtype=np.uint8)
+    return Image.fromarray(label[:, COL_CROP[0]:COL_CROP[1]], mode="L")
+
+
+class FreiburgTest:
+    """Test split: labels are .npy files (reference
+    data/freiburg_dataset.py:154-208)."""
+
+    def __init__(self, root: str, split: str, domain: str, *,
+                 transforms: Callable, with_label: bool = True,
+                 grayscale: bool = False):
+        data_file = os.path.join(root, "image_list",
+                                 f"{split}_{domain}_data.txt")
+        label_file = os.path.join(root, "image_list",
+                                  f"{split}_{domain}_label.txt")
+        if not (os.path.exists(data_file) and os.path.exists(label_file)):
+            freiburg_lists(root, split, domain)
+        self.data_list = parse_list_file(data_file)
+        self.label_list = parse_list_file(label_file)
+        self.domain = domain
+        self.transforms = transforms
+        self.with_label = with_label
+        self.grayscale = grayscale
+
+    def __len__(self) -> int:
+        return len(self.data_list)
+
+    def get(self, index: int, rng: np.random.Generator) -> dict:
+        image_name = self.data_list[index]
+        if self.domain == "IR":
+            image = load_ir_image(image_name)
+        elif self.domain == "RGB":
+            image = load_rgb_image(image_name, self.grayscale)
+        else:
+            raise ValueError("Not a valid domain.")
+
+        if not self.with_label:
+            img, _ = self.transforms(rng, image, None)
+            return {"image": img}
+
+        Image = _pil_image()
+        label = Image.fromarray(np.load(self.label_list[index])).resize(
+            RAW_SIZE, Image.NEAREST)
+        label = Image.fromarray(np.array(label)[:, COL_CROP[0]:COL_CROP[1]])
+        img, lab = self.transforms(rng, image, label)
+        return {"image": img, "label": np.asarray(lab, dtype=np.int64)}

@@ -1,0 +1,86 @@
+"""Segmentation validation (counterpart of the JAX ``eval/validate.py``).
+
+Batch inference, align-corners upsample to the label's size, argmax,
+confusion-matrix accumulation, then (mean_iu, val_loss, cls_iu) under the
+``iu[:11]`` Freiburg rule. The confusion matrix (int64) and the loss sum
+accumulate on the device; they reach the host once, at the end. Optional
+palette-PNG dumps follow the reference layout
+(``<save_root>/<i>_prediction.png`` / ``_image.png`` / ``_groundtruth.png``).
+
+A ragged tail batch runs at its own size. The JAX package pads it with zero
+images labelled ``ignore_index`` to keep one compiled shape; those pixels
+are counted in the ignore row of the confusion matrix, whose predictions
+then add to the scored classes' column sums, so padding changes mIoU. Here
+there is nothing to pad, and the result is the reference's batch-1 result.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data.device_pipeline import device_prefetch
+from ..data.palette import colorize_prediction, freiburg_palette
+from ..device import resolve_device
+from ..train.seg import build_seg_eval_step
+from .metrics import scores_from_hist
+
+
+def seg_validate(model, loader, *, num_classes: int = 13,
+                 ignore_index: int = 12, visualize: Optional[str] = None,
+                 save_root: Optional[str] = None, iter_counter: int = 0,
+                 eval_step=None, device=None, bf16: bool = False, mesh=None,
+                 reduce_processes: bool = False):
+    """Returns (mean_iu, val_loss, cls_iu) like the reference seg_validate.
+
+    ``model`` lives on ``device`` (default: the CUDA device; raises without
+    one). ``loader`` yields dicts of numpy ``image`` (N, H, W, C) float32
+    and ``label`` (N, H, W) int. ``visualize``: None | 'save_all' |
+    'save_one' (the reference's flag values). ``eval_step``: a prebuilt
+    ``build_seg_eval_step`` step. ``val_loss`` is the mean of the batches'
+    mean CE weighted by their image counts, as in the JAX package.
+    ``mesh`` and ``reduce_processes`` (multi-GPU evaluation) are not yet
+    ported.
+    """
+    if mesh is not None or reduce_processes:
+        raise NotImplementedError(
+            "multi-GPU evaluation (mesh, reduce_processes) is not yet ported "
+            "to the PyTorch package (see ROADMAP.md)")
+    device = resolve_device(device)
+    if eval_step is None:
+        eval_step = build_seg_eval_step(num_classes=num_classes,
+                                        ignore_index=ignore_index,
+                                        device=device, bf16=bf16)
+    hist = torch.zeros((num_classes, num_classes), dtype=torch.int64,
+                       device=device)
+    loss_sum = torch.zeros((), dtype=torch.float64, device=device)
+    n_seen = 0
+    palette = freiburg_palette()
+
+    for i, batch in enumerate(device_prefetch(loader, device)):
+        image, label = batch["image"], batch["label"]
+        bhist, loss, pred = eval_step(model, image, label)
+        hist += bhist
+        loss_sum += loss.double() * image.shape[0]  # no per-batch host sync
+        n_seen += image.shape[0]
+        if visualize is not None and save_root:
+            os.makedirs(save_root, exist_ok=True)
+            if visualize == "save_all" or (visualize == "save_one" and i == 0):
+                suffix = f"_{iter_counter}" if visualize == "save_one" else ""
+                colorize_prediction(pred[0].cpu().numpy(), palette).save(
+                    os.path.join(save_root, f"{i}_prediction{suffix}.png"))
+                colorize_prediction(label[0].cpu().numpy(), palette).save(
+                    os.path.join(save_root, f"{i}_groundtruth.png"))
+                img8 = np.clip(image[0].cpu().numpy() * 255.0, 0,
+                               255).astype(np.uint8)
+                from PIL import Image
+                Image.fromarray(img8.squeeze(-1) if img8.shape[-1] == 1
+                                else img8).save(
+                    os.path.join(save_root, f"{i}_image.png"))
+
+    scores = scores_from_hist(hist.cpu().numpy())
+    val_loss = float(loss_sum) / max(n_seen, 1)
+    return scores.mean_iu, val_loss, scores.cls_iu
