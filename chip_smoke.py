@@ -18,7 +18,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      scores seeded images with the loader and ``seg_validate`` (a ragged
      tail batch included); its confusion matrix and val_loss are held
      against the plain path and a float64 recomputation, and the kernels'
-     launch counts show every batch went through them.
+     launch counts show every batch went through them;
+  6. train: the train CLI's epoch loop, from a reference .pth loaded with
+     -load_model, trains the same model for two epochs on seeded images
+     (the second resuming from the checkpoint the first saved) and
+     validates after each, the kernels' launch counts showing every
+     validation batch went through them; checks finite losses, a loss that
+     falls on a repeated batch, the checkpoint round trip, the plateau
+     scheduler's steps, and one train step of a tiny model on the card
+     against the CPU; prints images/s (float32, and bfloat16 autocast),
+     peak memory and a per-stage step breakdown.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -52,6 +61,12 @@ CONF_RTOL, CONF_ATOL = 1e-4, 1e-5
 EVAL_IMAGES, EVAL_BATCH = 20, 8      # batches of 8, 8 and 4
 NUM_CLASSES, IGNORE = 13, 12
 LOSS_RTOL = 1e-5
+# 96 source images split 77 / 19: 9 train steps of 8 (drop_last) and val
+# batches of 8, 8, 3; 20 target images (8, 8, 4)
+TRAIN_SOURCE, TRAIN_TARGET, TRAIN_BATCH = 96, 20, 8
+TRAIN_LR = 1e-4                      # the train CLI's default -lr
+REPEAT_STEPS = 10
+PARITY_HW = (64, 128)                # card-vs-CPU step: layers 1,1,1,1
 
 
 def fail(msg: str) -> None:
@@ -361,11 +376,11 @@ def batch_breakdown(server, images, reps: int = 5) -> dict:
                     (float(v) for v in med)))
 
 
-class SeededEvalImages:
-    """What ``val_transform`` gives for Freiburg test frames, made with numpy
-    from a seed: float32 (H, W, 1) images in [0, 1] and int64 (H, W) labels
-    in 0..12, about 5% of them 255 (outside the classes, so the loss and the
-    confusion matrix must drop them)."""
+class SeededImages:
+    """What ``val_transform`` and ``train_transform`` give for IR frames,
+    made with numpy from a seed: float32 (H, W, 1) images in [0, 1] and
+    int64 (H, W) labels in 0..12, about 5% of them 255 (outside the
+    classes, so the loss and the confusion matrix must drop them)."""
 
     def __init__(self, n: int, hw, seed: int):
         import numpy as np
@@ -410,7 +425,7 @@ def phase_eval(card: str) -> dict:
         build_seg_eval_step)
 
     hw = SERVE_OUT
-    data = SeededEvalImages(EVAL_IMAGES, hw, seed=1)
+    data = SeededImages(EVAL_IMAGES, hw, seed=1)
     # ResNet-101, 1 channel, 13 classes, module2 head: random weights from
     # seed 0, saved in the reference .pth schema and loaded back the way the
     # eval CLI loads a checkpoint
@@ -588,12 +603,299 @@ def eval_breakdown(model, images, labels, reps: int = 5) -> dict:
                     (float(v) for v in med)))
 
 
+def phase_train(card: str) -> dict:
+    """Train the full-width model through the train CLI's epoch loop and
+    check it; returns the kernels' launch counts from the two epochs."""
+    import math
+    import os
+    import tempfile
+
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        build_deeplab, load_seg_checkpoint)
+    from thermal_semantic_segmentation_torch.cli.options import seg_parse
+    from thermal_semantic_segmentation_torch.cli.segmentation_train import (
+        make_loaders, train_epochs)
+    from thermal_semantic_segmentation_torch.data.loader import split_indices
+    from thermal_semantic_segmentation_torch.kernels import build
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        make_seg_train_step)
+    from thermal_semantic_segmentation_torch.utils.logging import get_logger
+
+    source = SeededImages(TRAIN_SOURCE, SERVE_OUT, seed=2)
+    target = SeededImages(TRAIN_TARGET, SERVE_OUT, seed=3)
+    n_train, n_val = map(len, split_indices(TRAIN_SOURCE))
+    steps = n_train // TRAIN_BATCH
+    val_batches = (math.ceil(n_val / TRAIN_BATCH)
+                   + math.ceil(TRAIN_TARGET / TRAIN_BATCH))
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+        # ResNet-101, 1 channel, 13 classes, module2 head: random weights
+        # from seed 0 in a reference .pth, loaded with -load_model
+        ref_model = create_deeplab(0)
+        torch.save({"epoch": -1,
+                    "sem_net_state_dict": ref_model.state_dict()},
+                   f"{root}/start.pth")
+        del ref_model
+        logdir = os.path.join(root, "logs")
+        logger = get_logger(logdir)
+
+        def run(checkpoint, *flags):
+            args = seg_parse().parse_args(
+                ["-load_model", "true", "-checkpoint_name", checkpoint,
+                 "-new_checkpoint_name", "smoke_train.pth",
+                 "--model_root_path", root, "-batch_size", str(TRAIN_BATCH),
+                 "-val_batch_size", str(TRAIN_BATCH), *flags])
+            args.logdir = logdir
+            state, history = train_epochs(
+                args, logger, *make_loaders(args, source, target))
+            return args, state, history
+
+        upsample_argmax.launches = 0      # counts from the main path only
+        args, state, first = run("start.pth", "-epochs", "1")
+        # the checkpoint epoch 0 saved, reloaded strictly into a new model
+        path = os.path.join(root, "smoke_train.pth")
+        state_dict, meta = load_seg_checkpoint(path)
+        reloaded = build_deeplab(args)
+        reloaded.load_state_dict(state_dict, strict=True)
+        ckpt_diff = [k for k, v in state.model.state_dict().items()
+                     if not torch.equal(reloaded.state_dict()[k], v)]
+        del reloaded, state_dict, state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, state, second = run("smoke_train.pth", "-epochs", "1")
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches = {"upsample_argmax": upsample_argmax.launches}
+        history = first + second
+
+        # the same loop under bfloat16 autocast: its second epoch's speed
+        _, _, bf16_history = run("smoke_train.pth", "-epochs", "2",
+                                 "--bf16", "true")
+
+    print(f"train check: epochs {[h['epoch'] for h in history]}, losses "
+          f"{[h['train_losses'] for h in history]}, val_loss "
+          f"{[h['val_loss'] for h in history]}, scheduler steps "
+          f"{[h['scheduler_steps'] for h in history]}, checkpoint epoch "
+          f"{meta['epoch']} val_loss {meta['val_loss']} ({len(ckpt_diff)} "
+          f"tensors differ from the model's); launches {launches}",
+          flush=True)
+    if [h["epoch"] for h in history] != [0, 1]:
+        fail(f"trained epochs {[h['epoch'] for h in history]}, not [0, 1]")
+    for h in history:
+        if len(h["train_losses"]) != steps or \
+                h["train_images"] != steps * TRAIN_BATCH:
+            fail(f"epoch {h['epoch']} ran {h['train_images']} images in "
+                 f"{len(h['train_losses'])} steps")
+        if not all(map(math.isfinite, h["train_losses"] + [h["val_loss"]])):
+            fail(f"epoch {h['epoch']}: non-finite loss")
+        if h["scheduler_steps"] != 1 or h["lr_scale"] != 1.0:
+            fail(f"epoch {h['epoch']}: the plateau scheduler stepped "
+                 f"{h['scheduler_steps']} times")
+    if ckpt_diff or meta["epoch"] != 0 or \
+            meta["val_loss"] != history[0]["val_loss"]:
+        fail(f"the epoch-0 checkpoint does not reload as the model: "
+             f"{ckpt_diff[:5]}, epoch {meta['epoch']}")
+    if launches["upsample_argmax"] < 2 * val_batches:
+        fail(f"upsample_argmax launched {launches['upsample_argmax']} times "
+             f"for {2 * val_batches} validation batches")
+
+    # the loss falls on one repeated batch
+    image = torch.from_numpy(source.images[:TRAIN_BATCH]).cuda()
+    label = torch.from_numpy(source.labels[:TRAIN_BATCH]).cuda()
+    step = make_seg_train_step(ignore_index=IGNORE, label_hw=SERVE_OUT,
+                               base_lr=TRAIN_LR)
+    repeated = torch.stack([step(state, image, label)
+                            for _ in range(REPEAT_STEPS)]).tolist()
+    print(f"train check: {REPEAT_STEPS} steps on one batch: losses "
+          f"{repeated}", flush=True)
+    if not (all(map(math.isfinite, repeated)) and repeated[-1] < repeated[0]):
+        fail(f"the loss did not fall on a repeated batch: {repeated}")
+    train_step_parity()
+
+    h = second[0]
+    bf = bf16_history[-1]
+    print(f"train: epoch 1, {h['train_images']} images in {steps} steps of "
+          f"{TRAIN_BATCH} at {h['train_images'] / h['train_s']:.2f} images/s "
+          f"({h['train_s']:.3f} s), float32, on {card}", flush=True)
+    print(f"train bf16: epoch {bf['epoch']}, {bf['train_images']} images at "
+          f"{bf['train_images'] / bf['train_s']:.2f} images/s "
+          f"({bf['train_s']:.3f} s), bfloat16 autocast, losses "
+          f"{bf['train_losses']}, on {card}", flush=True)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"train peak device memory: {peak_gb:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated over epoch 1; {n_params} "
+          f"parameters) on {card}", flush=True)
+    print(f"train step breakdown: "
+          f"{json.dumps(train_breakdown(state, image, label))} on {card}",
+          flush=True)
+    print(f"train step kernels: {json.dumps(train_kernels(state, image, label))}"
+          f" on {card}", flush=True)
+    return launches
+
+
+def train_step_parity() -> None:
+    """One train step of a tiny model (layers 1,1,1,1, 64x128, batch 2,
+    dropout off, lr_groups) on the card and on the CPU, from the same
+    weights and batch: the loss within rtol 1e-5; each parameter inside
+    one step's lr envelope (10 x for the head) but for at most 0.05% of
+    them, where Adam moves a parameter whose gradient sits at float noise
+    by lr either way, so those land up to 2 x outside; BatchNorm buffers
+    within lr."""
+    import torch
+
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        backbone_and_head_params, create_deeplab)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        create_seg_state, make_seg_train_step)
+
+    data = SeededImages(2, PARITY_HW, seed=4)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = create_deeplab(7, device=dev, layers=(1, 1, 1, 1))
+        model.layer5.head[0].p = 0.0
+        state = create_seg_state(model, learning_rate=TRAIN_LR,
+                                 lr_groups=True, device=dev)
+        step = make_seg_train_step(ignore_index=IGNORE, label_hw=PARITY_HW,
+                                   base_lr=TRAIN_LR, device=dev)
+        loss = step(state, torch.from_numpy(data.images).to(dev),
+                    torch.from_numpy(data.labels).to(dev))
+        head = {id(p) for p in backbone_and_head_params(model)[1]}
+        mult = {n: 10.0 if id(p) in head else 1.0
+                for n, p in model.named_parameters()}
+        out[dev] = (float(loss), {k: v.detach().cpu()
+                                  for k, v in model.state_dict().items()})
+    (card_loss, card_sd), (cpu_loss, cpu_sd) = out["cuda"], out["cpu"]
+    worst = outside = total = 0
+    buffer_err = 0.0
+    for k, v in card_sd.items():
+        diff = (v.double() - cpu_sd[k].double()).abs()
+        if k in mult:
+            ratio = diff / (TRAIN_LR * mult[k])
+            worst = max(worst, float(ratio.max()))
+            outside += int((ratio > 1.0).sum())
+            total += ratio.numel()
+        else:
+            buffer_err = max(buffer_err, float(diff.max()))
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"train parity card vs CPU: loss {card_loss} vs {cpu_loss} (rel "
+          f"err {loss_err:.3g}); {outside} of {total} parameters outside "
+          f"the one-step lr envelope, worst {worst:.4f} of it; BatchNorm "
+          f"buffers max abs err {buffer_err:.3g}", flush=True)
+    if not loss_err <= LOSS_RTOL:
+        fail(f"train step loss on the card {card_loss} vs the CPU {cpu_loss}")
+    # a first Adam step moves each parameter by under lr: 2 x lr apart at
+    # most (a flipped sign), plus float32 rounding of the parameter
+    if outside > 5e-4 * total or worst > 2.01 or not buffer_err <= TRAIN_LR:
+        fail("the card's train step left the CPU's lr envelope")
+
+
+def train_breakdown(state, image, label, reps: int = 5) -> dict:
+    """Median per-stage times of one batch-8 train step, its stages
+    bracketed by CUDA events: host->device copy (pinned), forward,
+    upsample + CE, backward, optimizer step; and the host wall time of the
+    whole step, whose remainder is device idle time."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.losses import cross_entropy
+    from thermal_semantic_segmentation_torch.ops.resize import upsample_logits
+    from thermal_semantic_segmentation_torch.train.seg import seed_dropout
+
+    model, opt = state.model, state.optimizer
+    model.train()
+    host_image = image.cpu().pin_memory()
+    host_label = label.cpu().pin_memory()
+    stages = ("h2d_ms", "forward_ms", "upsample_ce_ms", "backward_ms",
+              "optimizer_ms")
+    rows = []
+    for k in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        x = host_image.to(image.device, non_blocking=True)
+        y = host_label.to(image.device, non_blocking=True)
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        seed_dropout(model, 0, k)
+        out = model(x.permute(0, 3, 1, 2))["out"]
+        ev[2].record()
+        loss = cross_entropy(upsample_logits(out.float().permute(0, 2, 3, 1),
+                                             *y.shape[1:3]), y,
+                             ignore_index=IGNORE)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        opt.step()
+        ev[5].record()
+        ev[5].synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        times = [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+        rows.append(times + [wall, 1.0 - sum(times) / wall])
+    med = np.median(np.asarray(rows), axis=0)
+    return dict(zip(stages + ("wall_ms", "device_idle_share"),
+                    (float(v) for v in med)))
+
+
+def train_kernels(state, image, label, top: int = 12) -> dict:
+    """Device time of one train step by kernel, from ``torch.profiler``:
+    the total, the ``top`` kernels, and the share of the layout
+    conversions and copies (cuDNN's nchwToNhwc / nhwcToNchw kernels,
+    ATen's copy kernels), which a channels_last step should keep small."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from thermal_semantic_segmentation_torch.train.seg import (
+        make_seg_train_step)
+
+    step = make_seg_train_step(ignore_index=IGNORE, label_hw=SERVE_OUT,
+                               base_lr=TRAIN_LR)
+    step(state, image, label)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, image, label)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except RuntimeError as e:
+        return {"not measured": repr(e)}
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the kernels themselves (the operators that launched them carry
+    # their time too)
+    kernels = [(e.key, device_us(e)) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and device_us(e) > 0]
+    total = sum(t for _, t in kernels)
+    if not total:
+        return {"not measured": "the profiler recorded no device time"}
+    layout = re.compile(r"nchwToNhwc|nhwcToNchw|copy_kernel")
+    kernels.sort(key=lambda kt: -kt[1])
+    return {"device_ms": total / 1e3,
+            "layout_copy_share": sum(t for k, t in kernels
+                                     if layout.search(k)) / total,
+            "top": [[k[:90], round(t / 1e3, 4)] for k, t in kernels[:top]]}
+
+
 def main() -> int:
     import torch
+    t0 = time.perf_counter()
     card = phase_device()
     phase_build()
     kernels = phase_kernels()
-    by_path = {"serve": phase_slice(card), "eval": phase_eval(card)}
+    by_path = {"serve": phase_slice(card), "eval": phase_eval(card),
+               "train": phase_train(card)}
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]]
                                  for path, launches in by_path.items()}
@@ -602,6 +904,8 @@ def main() -> int:
             if not n:
                 fail(f"kernel {k['name']} was not launched on the {path} "
                      f"path")
+    print(f"smoke: every phase passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)     # nvidia-smi's name, power.limit
     print(json.dumps({"ok": True, "device": {

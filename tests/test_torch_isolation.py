@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 import thermal_semantic_segmentation_torch as port  # noqa: E402
 from thermal_semantic_segmentation_torch.cli import (  # noqa: E402
-    segmentation_evaluate)
+    segmentation_evaluate, segmentation_train)
 from thermal_semantic_segmentation_torch.eval.validate import (  # noqa: E402
     seg_validate)
 from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
@@ -23,7 +23,7 @@ from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
 from thermal_semantic_segmentation_torch.serving.batcher import (  # noqa: E402
     InferenceServer)
 from thermal_semantic_segmentation_torch.train.seg import (  # noqa: E402
-    build_seg_eval_step)
+    build_seg_eval_step, create_seg_state, make_seg_train_step)
 
 BANNED = ("jax", "jaxlib", "flax", "optax", "thermal_semantic_segmentation_tpu")
 PORT_DIR = Path(port.__file__).parent
@@ -53,7 +53,9 @@ def test_importing_every_module_loads_no_banned_package():
         [str(PORT_DIR)], prefix=f"{port.__name__}.")]
     assert len(modules) >= 30, modules
     for new in ("cli.segmentation_evaluate", "eval.validate", "train.seg",
-                "data.loader", "data.device_pipeline", "ops.confmat"):
+                "data.loader", "data.device_pipeline", "ops.confmat",
+                "cli.segmentation_train", "core.schedule", "data.cityscapes",
+                "utils.meters", "utils.logging", "utils.observability"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -69,7 +71,8 @@ def test_importing_every_module_loads_no_banned_package():
 
 @pytest.mark.parametrize("entry", [
     "create_deeplab", "InferenceServer", "build_seg_eval_step",
-    "seg_validate", "seg_evaluation"])
+    "seg_validate", "seg_evaluation", "make_seg_train_step",
+    "create_seg_state", "segmentation_train"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -83,6 +86,14 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         elif entry == "seg_validate":
             seg_validate(create_deeplab(0, device="cpu", layers=(1, 1, 1, 1)),
                          [])
+        elif entry == "make_seg_train_step":
+            make_seg_train_step(ignore_index=12, base_lr=1e-4)
+        elif entry == "create_seg_state":
+            create_seg_state(create_deeplab(0, device="cpu",
+                                            layers=(1, 1, 1, 1)),
+                             learning_rate=1e-4)
+        elif entry == "segmentation_train":
+            segmentation_train.main(["-dataset", "freiburg_ir"])
         else:
             segmentation_evaluate.main(["-dataset", "freiburg_ir"])
 
@@ -96,6 +107,28 @@ def test_eval_cli_refuses_flags_not_yet_ported(argv, capsys):
         segmentation_evaluate.main(argv + ["--device", "cpu"])
     assert exit_info.value.code != 0
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--distributed", "true"], ["--data_parallel", "true"],
+    ["--native_decode", "true"], ["--wire", "packed_bf16"],
+    ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"],
+    ["-device_aug", "true"], ["-bn_mode", "per_replica"],
+    ["--remat", "full"], ["--remat", "dots"]])
+def test_train_cli_refuses_flags_not_yet_ported(argv, capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        segmentation_train.main(argv + ["--device", "cpu"])
+    assert exit_info.value.code != 0
+    err = capsys.readouterr().err
+    assert f"error: {argv[0]} " in err and "is not yet ported" in err
+
+
+def test_train_step_refuses_modes_not_yet_ported():
+    for kw in ({"device_augment": True}, {"bn_mode": "per_replica"},
+               {"mesh": object()}):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            make_seg_train_step(ignore_index=12, base_lr=1e-4, device="cpu",
+                                **kw)
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

@@ -1,16 +1,19 @@
-"""Shared CLI plumbing: dataset selection, checkpoint loading and model
-construction (counterpart of the JAX ``cli/_common.py``)."""
+"""Shared CLI plumbing: dataset selection, checkpoint loading and saving,
+and model construction (counterpart of the JAX ``cli/_common.py``)."""
 
 from __future__ import annotations
 
+import os
 import re
+import tempfile
 import zipfile
 
 import numpy as np
 import torch
 
 from ..data import transforms as T
-from ..data.freiburg import FreiburgTest
+from ..data.cityscapes import Cityscapes, CityscapesTranslation
+from ..data.freiburg import Freiburg, FreiburgTest
 from ..models.deeplab import create_deeplab
 
 _BLOCK_KEY = re.compile(r"layer([1-4])\.(\d+)\.conv1\.weight$")
@@ -23,27 +26,55 @@ _NUMPY_SAFE = [(getattr(np, "_core", None) or np.core).multiarray._reconstruct,
     ("b1", "i1", "i2", "i4", "i8", "u1", "u2", "u4", "u8", "f2", "f4", "f8")]
 
 
+def train_transform():
+    """The train augmentation (reference segmentation_train.py:89-94):
+    RandomResizedCrop to 256x512 with scale (0.5, 1) and ratio (1.5, 8/3),
+    a horizontal flip, ToArray."""
+    return T.Compose([
+        T.RandomResizedCrop(size=(256, 512), ratio=(1.5, 8 / 3.),
+                            scale=(0.5, 1.0)),
+        T.RandomHorizontalFlip(),
+        T.ToArray(),
+    ])
+
+
 def val_transform():
     """Resize((512, 256)) + ToArray (reference segmentation_train.py:96-99)."""
     return T.Compose([T.Resize((512, 256)), T.ToArray()])
 
 
 def build_seg_dataset(args, transform, *, for_eval: bool = False):
-    """The dataset switch of the reference (segmentation_evaluate.py:99-118):
-    the Freiburg IR and RGB test splits so far."""
+    """The dataset switch of the reference (segmentation_train.py:104-123,
+    segmentation_evaluate.py:99-118). Train: Cityscapes (original or
+    translated) and the Freiburg train split (IR, RGB, translated RGB).
+    Eval: the Freiburg IR and RGB test splits; the eval CLI's other
+    datasets are not yet ported."""
     name = args.dataset
-    if name in ("freiburg_ir", "freiburg_rgb"):
-        if for_eval:
-            return FreiburgTest(args.freiburg_root, "test",
-                                "IR" if name == "freiburg_ir" else "RGB",
-                                transforms=transform, with_label=True,
-                                grayscale=args.grayscale)
-    elif name not in ("cityscapes", "cityscapes_translation",
-                      "freiburg_translation", "freiburg_t2s"):
+    if name not in ("cityscapes", "cityscapes_translation", "freiburg_ir",
+                    "freiburg_rgb", "freiburg_translation", "freiburg_t2s"):
         raise ValueError("dataset does not exist.")
-    raise NotImplementedError(
-        f"the {name} {'test' if for_eval else 'train'} dataset is not yet "
-        f"ported to the PyTorch package (see ROADMAP.md)")
+    if for_eval and name in ("freiburg_ir", "freiburg_rgb"):
+        return FreiburgTest(args.freiburg_root, "test",
+                            "IR" if name == "freiburg_ir" else "RGB",
+                            transforms=transform, with_label=True,
+                            grayscale=args.grayscale)
+    if for_eval or name == "freiburg_t2s":
+        raise NotImplementedError(
+            f"the {name} {'test' if for_eval else 'train'} dataset is not "
+            f"yet ported to the PyTorch package (see ROADMAP.md)")
+    if name == "cityscapes_translation":
+        return CityscapesTranslation(args.source_root, transforms=transform)
+    if name == "cityscapes":
+        return Cityscapes(args.source_root, transforms=transform)
+    if name == "freiburg_translation":
+        return Freiburg(args.freiburg_root, "train", "RGB",
+                        transforms=transform, with_label=True,
+                        segmentation_mode=True,
+                        translation_name=args.translation_name)
+    return Freiburg(args.freiburg_root, "train",
+                    "IR" if name == "freiburg_ir" else "RGB",
+                    transforms=transform, with_label=True,
+                    grayscale=args.grayscale)
 
 
 def model_meta_from_state_dict(sd) -> dict:
@@ -87,6 +118,38 @@ def load_seg_checkpoint(path: str):
         sd, meta = ckpt, {}
     meta.update(model_meta_from_state_dict(sd))
     return sd, meta
+
+
+def save_seg_checkpoint(path: str, state_dict, *, epoch: int,
+                        val_loss: float) -> None:
+    """Write the reference seg ``.pth`` schema ``{'epoch',
+    'sem_net_state_dict', 'val_loss'}`` (reference
+    segmentation_train.py:182-190), tensors on the CPU, atomically: into a
+    temporary file beside ``path``, then ``os.replace``. The state_dict
+    carries the architecture (``model_meta_from_state_dict``)."""
+    payload = {"epoch": int(epoch),
+               "sem_net_state_dict": {k: v.detach().cpu()
+                                      for k, v in state_dict.items()},
+               "val_loss": float(val_loss)}
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(payload, f)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def model_meta(args) -> dict:
+    """The architecture ``args`` builds, in ``model_meta_from_state_dict``'s
+    keys, so a saved checkpoint can be held to it."""
+    return {"layers": list(getattr(args, "layers", (3, 4, 23, 3))),
+            "num_channels": 1 if args.net_mode == "one_channel" else 3,
+            "num_classes": int(args.num_classes),
+            "bn_clr": bool(getattr(args, "bn_clr", False))}
 
 
 def apply_model_meta(args, meta) -> None:

@@ -19,6 +19,9 @@ NOT_YET_PORTED = {
     "wire": lambda v: v == "packed_bf16",
     "decode_cache_mb": bool,
     "decode_cache_dir": bool,
+    "device_aug": bool,
+    "bn_mode": lambda v: v == "per_replica",
+    "remat": lambda v: v != "none",
 }
 
 
@@ -32,7 +35,9 @@ class HostConfigParser(argparse.ArgumentParser):
         for flag, refused in NOT_YET_PORTED.items():
             value = getattr(args, flag, None)
             if value is not None and refused(value):
-                self.error(f"--{flag} {value} is not yet ported to the "
+                option = next(a.option_strings[0] for a in self._actions
+                              if a.dest == flag)
+                self.error(f"{option} {value} is not yet ported to the "
                            f"PyTorch package (see ROADMAP.md)")
         return args
 
@@ -71,6 +76,10 @@ def _add_roots(parser: argparse.ArgumentParser):
                         help='not yet ported: refused when not 0.')
     parser.add_argument('--decode_cache_dir', type=str, default='',
                         help='not yet ported: refused when set.')
+    parser.add_argument('--remat', type=str, default='none',
+                        choices=['none', 'dots', 'full'],
+                        help='backbone rematerialization: only none is '
+                             'ported; dots and full are refused.')
     parser.add_argument('--layers', type=lambda s: tuple(
                             int(x) for x in s.split(',')),
                         default=(3, 4, 23, 3),
@@ -82,6 +91,54 @@ def _add_roots(parser: argparse.ArgumentParser):
     parser.add_argument('--distributed', type=str2bool, default=False,
                         help='not yet ported: refused when true.')
     parser.add_argument('--seed', type=int, default=0)
+
+
+def seg_parse():
+    """Segmentation training options (reference options.py:51-80)."""
+    parser = HostConfigParser(description='segmentation options')
+    parser.add_argument('--root', type=str, default='')
+    parser.add_argument('-load_model', type=str2bool, default=False)
+    parser.add_argument('-epochs', type=int, default=50)
+    parser.add_argument('-batch_size', type=int, default=8)
+    parser.add_argument('-val_batch_size', type=int, default=8)
+    parser.add_argument('-checkpoint_name', type=str,
+                        default='256_cityscapes_rgb2freiburg_ir_segmentation.pth')
+    parser.add_argument('-new_checkpoint_name', type=str,
+                        default='256_cityscapes_rgb2freiburg_ir_segmentation.pth')
+    parser.add_argument('-num_samples_show', type=int, default=3)
+    parser.add_argument('-net_mode', type=str, default='one_channel')
+    parser.add_argument('-dataset', type=str, default='cityscapes_translation')
+    parser.add_argument('-num_classes', type=int, default=13)
+    parser.add_argument('-lr', type=float, default=0.0001)
+    parser.add_argument('-data_split', type=str2bool, default=False)
+    parser.add_argument('-translation_name', type=str,
+                        default='freiburg_rgb2ir_130epochs')
+    parser.add_argument('-visualize_prediction', type=str2bool, default=False)
+    parser.add_argument('-ignore_index', type=int, default=12)
+    parser.add_argument('-generator_type', type=str, default='s2t')
+    parser.add_argument('-t2s_folder', type=str,
+                        default='test_cityscapes_rgb2freiburg_ir/')
+    parser.add_argument('-baseline', type=str2bool, default=False)
+    parser.add_argument('-source_domain', type=str, default='Thermal')
+    parser.add_argument('-target_domain', type=str, default='Grayscale')
+    parser.add_argument('-with_feat', type=str2bool, default=False)
+    parser.add_argument('-logdir', type=str, default='./logs')
+    parser.add_argument('-grayscale', type=str2bool, default=False)
+    parser.add_argument('-log_interval', type=int, default=10)
+    parser.add_argument('-max_steps', type=int, default=0)
+    parser.add_argument('-device_aug', type=str2bool, default=False,
+                        help='not yet ported: refused when true.')
+    parser.add_argument('-lr_groups', type=str2bool, default=False,
+                        help='1x backbone / 10x head LR split.')
+    parser.add_argument('-bn_mode', type=str, default='sync',
+                        choices=['sync', 'per_replica'],
+                        help="batch-norm statistics: 'sync' (the one card's "
+                             "batch); 'per_replica' is not yet ported.")
+    parser.add_argument('-grad_accum', type=int, default=1,
+                        help='microbatches per optimizer step (grads '
+                             'averaged, BN statistics in sequence).')
+    _add_roots(parser)
+    return parser
 
 
 def evaluation_parse():

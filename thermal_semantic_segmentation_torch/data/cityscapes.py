@@ -1,0 +1,89 @@
+"""Cityscapes source dataset, original and translated (counterpart of the
+JAX ``data/cityscapes.py``).
+
+The 19-class label ids merge into the 13-class Freiburg taxonomy through a
+256-entry lookup table (reference data/source_dataset.py:45-49); unmapped
+ids become the ignore label 12. PIL is imported where it is used, so the
+package imports on a host without it.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional
+
+import numpy as np
+
+from .list_files import cityscapes_list, parse_list_file
+
+# 19-class label ids -> the merged 13-class Freiburg train ids
+ID_TO_TRAIN_ID = {
+    7: 0, 8: 1, 11: 2, 12: 3, 13: 4, 17: 5,
+    19: 5, 20: 5, 21: 6, 22: 7, 23: 8, 24: 9, 25: 9,
+    26: 10, 27: 10, 28: 10, 31: 10, 32: 11, 33: 11,
+}
+IGNORE_LABEL = 12
+
+
+def _build_lut(mapping: dict, ignore: int) -> np.ndarray:
+    lut = np.full(256, ignore, dtype=np.int64)
+    for k, v in mapping.items():
+        lut[k] = v
+    lut.setflags(write=False)
+    return lut
+
+
+_LUT = _build_lut(ID_TO_TRAIN_ID, IGNORE_LABEL)
+
+
+def remap_label(label) -> np.ndarray:
+    """Label ids -> train ids (int64); ids without a train id -> 12."""
+    return _LUT[np.asarray(label, dtype=np.int64).clip(0, 255)]
+
+
+class Cityscapes:
+    """Original (or translated) Cityscapes frames with merged 13-class
+    labels. The label path swaps ``data_folder`` for ``label_folder``
+    (reference source_dataset.py:73-76)."""
+
+    def __init__(self, root: str, *, split: str = "train",
+                 data_folder: str = "leftImg8bit",
+                 label_folder: str = "gtFine_labelIds",
+                 transforms: Optional[Callable] = None,
+                 train_mode: bool = True):
+        if split not in ("train", "val"):
+            raise ValueError(f"invalid split {split!r}")
+        list_path = os.path.join(root, "image_list",
+                                 f"{data_folder}_{split}.txt")
+        if not os.path.exists(list_path):
+            cityscapes_list(root, data_folder, split, list_root=root)
+        self.data_list = parse_list_file(list_path)
+        self.label_list = [p.replace(data_folder, label_folder)
+                           for p in self.data_list]
+        self.data_folder = data_folder
+        self.transforms = transforms
+        self.train_mode = train_mode
+
+    def __len__(self) -> int:
+        return len(self.data_list)
+
+    def get(self, index: int, rng: np.random.Generator) -> dict:
+        from PIL import Image
+
+        image_name = self.data_list[index]
+        image = Image.open(image_name)
+        if self.data_folder == "leftImg8bit":
+            image = image.convert("RGB")
+        if not self.train_mode:
+            img, _ = self.transforms(rng, image, None)
+            return {"image": img, "img_path": image_name.replace(
+                "leftImg8bit", "translation")}
+        label = Image.open(self.label_list[index])
+        img, lab = self.transforms(rng, image, label)
+        return {"image": img, "label": remap_label(lab)}
+
+
+def CityscapesTranslation(root: str, data_folder: str = "translation",
+                          **kwargs) -> Cityscapes:
+    """Translated Cityscapes: the frames under ``translation``."""
+    return Cityscapes(root, data_folder=data_folder, **kwargs)

@@ -1,6 +1,6 @@
-"""Freiburg list files in the reference's directory grammar (counterpart of
-the JAX ``data/list_files.py``; the Cityscapes, KITTI and FLIR lists come
-with their datasets).
+"""Freiburg and Cityscapes list files in the reference's directory grammar
+(counterpart of the JAX ``data/list_files.py``; the KITTI and FLIR lists
+come with their datasets).
 
 The reference writes ``image_list/*.txt`` manifests on first use and derives
 label paths by string substitution. The same rules apply here, with sorted
@@ -72,6 +72,25 @@ def freiburg_lists(root: str, split: str, domain: str,
     with open(label_file, "w") as f:
         f.write("".join(lab + "\n" for _, lab in pairs))
     return data_file, label_file
+
+
+def cityscapes_list(root: str, data_folder: str, split: str,
+                    list_root: str = "datasets/source_dataset") -> str:
+    """Write the Cityscapes manifest ``<list_root>/image_list/
+    <data_folder>_<split>.txt``: every file under
+    ``<root>/<data_folder>/<split>``, sorted. ``data_folder`` is
+    'leftImg8bit', 'translation' or 'gtFine_labelIds'; for the last, only
+    files ending in 'gtFine_labelIds.png' are listed."""
+    im_dir = os.path.join(root, data_folder, split)
+    list_dir = os.path.join(list_root, "image_list")
+    os.makedirs(list_dir, exist_ok=True)
+    list_path = os.path.join(list_dir, f"{data_folder}_{split}.txt")
+    paths = _walk_files(im_dir)
+    if data_folder == "gtFine_labelIds":
+        paths = [p for p in paths if p.endswith("gtFine_labelIds.png")]
+    with open(list_path, "w") as f:
+        f.write("".join(p + "\n" for p in paths))
+    return list_path
 
 
 def parse_list_file(path: str) -> List[str]:

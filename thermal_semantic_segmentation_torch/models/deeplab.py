@@ -16,7 +16,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn.aspp import ASPPModule2
-from ..nn.resnet import BN_EPS, ResNetBackbone
+from ..nn.resnet import BN_EPS, BatchNorm2d, ResNetBackbone
 
 
 class DeepLabV2(ResNetBackbone):
@@ -35,7 +35,7 @@ class DeepLabV2(ResNetBackbone):
         if head != "module2":
             raise ValueError(f"unknown head {head!r}")
         super().__init__(layers=layers, num_channels=num_channels)
-        self.bn_pretrain = nn.BatchNorm2d(2048, eps=BN_EPS) if bn_clr else None
+        self.bn_pretrain = BatchNorm2d(2048, eps=BN_EPS) if bn_clr else None
         self.layer5 = ASPPModule2(2048, num_classes)
 
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -65,3 +65,18 @@ def create_deeplab(seed=0, *, device=None, num_classes: int = 13,
                       head=head, bn_clr=bn_clr, layers=tuple(layers))
     model.init_weights_(generator)   # on the CPU: the same weights anywhere
     return model.to(device=dev, memory_format=torch.channels_last).eval()
+
+
+HEAD_MODULES = ("layer5", "bn_pretrain")
+
+
+def backbone_and_head_params(model: nn.Module):
+    """Split ``model.named_parameters()`` into (backbone, head) lists: the
+    reference's optim_parameters split, as the JAX package's
+    ``backbone_and_head_masks`` makes it. ``conv1``, ``bn1`` and
+    ``layer1``-``layer4`` train at the base lr; ``layer5`` (the ASPP head)
+    and ``bn_pretrain`` at the head's multiple."""
+    backbone, head = [], []
+    for name, p in model.named_parameters():
+        (head if name.split(".")[0] in HEAD_MODULES else backbone).append(p)
+    return backbone, head

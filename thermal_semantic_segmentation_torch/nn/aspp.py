@@ -2,8 +2,9 @@
 ``nn/aspp.py::ASPPModule2``).
 
 1x1 + four dilated 3x3 branches -> 256 channels each with GroupNorm(32) and
-ReLU, channel concat, SE gate, 3x3 bottleneck conv + GroupNorm, Dropout2d
-(training only), 1x1 classifier without bias. Returns both the 256-channel
+ReLU, channel concat, SE gate, 3x3 bottleneck conv + GroupNorm, channel
+dropout (training only, drawn from an explicit generator), 1x1 classifier
+without bias. Returns both the 256-channel
 pre-classifier feature ('feat') and the logits ('out'). Submodule names give
 the reference state_dict keys: ``conv2d_list.{i}.{0,1}``,
 ``bottleneck.{0.se.0, 0.se.2, 1, 2}`` and ``head.1``.
@@ -20,6 +21,32 @@ BRANCH_WIDTH = 256
 DILATIONS = (6, 12, 18, 24)
 DROPRATE = 0.1
 HEAD_STD = 0.001
+
+
+class Dropout2d(nn.Module):
+    """Train-mode dropout of whole channels (p = ``DROPRATE``), as the JAX
+    package's ``nn.Dropout(broadcast_dims=(1, 2))``: kept channels scale by
+    1/(1-p). The mask comes from ``generator``, a ``torch.Generator`` on the
+    input's device that the train step seeds before each forward; a
+    train-mode forward without one raises. Setting ``p`` to 0 switches it
+    off (the parity tests do). It has no parameters, so ``head.1`` stays
+    the classifier's key."""
+
+    def __init__(self, p: float = DROPRATE):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("train-mode dropout needs a seeded generator "
+                               "(train.seg.seed_dropout)")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape[:2], generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask[:, :, None, None], x / keep, 0.0)
 
 
 class SEBlock(nn.Module):
@@ -57,7 +84,7 @@ class ASPPModule2(nn.Module):
             nn.Conv2d(concat, BRANCH_WIDTH, 3, padding=1, bias=True),
             nn.GroupNorm(GN_GROUPS, BRANCH_WIDTH, eps=GN_EPS))
         self.head = nn.Sequential(
-            nn.Dropout2d(DROPRATE),
+            Dropout2d(DROPRATE),
             nn.Conv2d(BRANCH_WIDTH, num_classes, 1, bias=False))
 
     def init_weights_(self, generator: torch.Generator) -> None:

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pool import ceil_max_pool
@@ -21,6 +22,32 @@ BN_EPS = 1e-5
 CONV_STD = 0.01
 # (planes, stride, dilation) of the four stages
 STAGES = ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance follows flax's
+    ``nn.BatchNorm``: a train-mode forward folds the BIASED batch variance
+    into ``running_var`` (torch folds the unbiased one, n/(n-1) larger).
+
+    The normalisation stays ``F.batch_norm``'s (cuDNN on the card). It
+    folds into a copy of the C old values, which autograd keeps, and the
+    buffer then gets ``(1-m) * old + (copy - (1-m) * old) * (n-1)/n``: O(C)
+    work. The state_dict keys are ``nn.BatchNorm2d``'s.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        m = self.momentum
+        folded = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, folded, self.weight, self.bias,
+                         True, m, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.mul_(1.0 - m).add_(
+                (folded - self.running_var) * ((n - 1) / n))
+        return y
 
 
 class Bottleneck(nn.Module):
@@ -35,16 +62,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         d = dilation
         self.conv1 = nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=d, dilation=d,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(planes * 4, eps=BN_EPS)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
             nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-            nn.BatchNorm2d(planes * 4, eps=BN_EPS)) if downsample else None
+            BatchNorm2d(planes * 4, eps=BN_EPS)) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
@@ -63,7 +90,7 @@ class ResNetBackbone(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(num_channels, 64, 7, stride=2, padding=3,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = ceil_max_pool(3, 2, 1)
         inplanes = 64
