@@ -6,7 +6,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every kernel under csrc/ with nvcc (in parallel);
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the serving shape and at the shapes that exercise its tiling (ragged
+     the serving shape, at the pseudo-label and prototype shapes (the
+     logits' own size) and at the shapes that exercise its tiling (ragged
      edges, downsampling, one output row or column, a runtime class count,
      a strided view), with its timings, its bound, the timing floor of a
      one-element launch and its SASS counts;
@@ -27,7 +28,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      falls on a repeated batch, the checkpoint round trip, the plateau
      scheduler's steps, and one train step of a tiny model on the card
      against the CPU; prints images/s (float32, and bfloat16 autocast),
-     peak memory and a per-stage step breakdown.
+     peak memory and a per-stage step breakdown;
+  7. pseudo: the same model, loaded through the pseudo-label CLI's
+     checkpoint path, writes hard, soft and hard+flip pseudo-labels of
+     seeded images (a ragged tail batch included) through
+     ``generate_pseudo_labels``; the ids read back from its PNGs and its
+     confidences are held to the plain version (flip: a float64
+     recomputation), the soft maps to a float64 softmax, and the kernel's
+     launch count to the hard batches; prints images/s per mode and a
+     per-stage batch breakdown;
+  8. prototypes: the same model folds class prototypes of seeded images at
+     batch 64 through ``calc_prototypes``, held to a float64 recomputation
+     from the same features and the kernel's classes; the prototype file
+     round trip; prints images/s and the masked-means and fold times.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -44,10 +57,14 @@ H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 
 SERVE_SHAPE = (8, 33, 65, 13)   # stride-8 logits of a batch-8 256x512 request
 SERVE_OUT = (256, 512)
+# the pseudo-label (batch 4) and prototype (batch 64) launches: the kernel at
+# the logits' own size gives their argmax and confidence
+IDENTITY_SHAPES = [(4, 33, 65, 13), (64, 33, 65, 13)]
 # (shape, out_hw, strided): "strided" holds the logits as NCHW-contiguous
 # memory viewed as NHWC, so the kernel reads them through general strides
 PARITY_CASES = [
     (SERVE_SHAPE, SERVE_OUT, False),
+    *[(s, s[1:3], False) for s in IDENTITY_SHAPES],
     ((3, 9, 17, 13), (61, 127), False),
     ((2, 33, 65, 13), (250, 509), False),    # ragged row and column tiles
     ((1, 40, 70, 13), (17, 31), False),      # downsampling
@@ -67,6 +84,10 @@ TRAIN_SOURCE, TRAIN_TARGET, TRAIN_BATCH = 96, 20, 8
 TRAIN_LR = 1e-4                      # the train CLI's default -lr
 REPEAT_STEPS = 10
 PARITY_HW = (64, 128)                # card-vs-CPU step: layers 1,1,1,1
+PSEUDO_IMAGES, PSEUDO_BATCH = 22, 4  # batches of 4 x 5 and a tail of 2
+PROTO_IMAGES, PROTO_BATCH = 128, 64  # the prototype CLI's default batch
+SOFT_SUM_ATOL = 1e-5
+PROTO_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -85,8 +106,9 @@ def phase_device():
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
     print(f"card: {card}", flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} cudnn "
+          f"{torch.backends.cudnn.version()} python {sys.version.split()[0]}",
+          flush=True)
     return card
 
 
@@ -121,6 +143,16 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def tempfile_dir():
+    """A temporary directory under the kernels' build directory (the
+    checkout's own, gitignored), removed when its block ends."""
+    import tempfile
+
+    from thermal_semantic_segmentation_torch.kernels import build
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
 
 
 def upsample_argmax_bound(shape, out_hw):
@@ -231,21 +263,38 @@ def phase_kernels():
     except (OSError, subprocess.SubprocessError) as e:
         sass = f"not measured ({e!r})"
     print(f"sass upsample_argmax: {sass}", flush=True)
+
+    # the pseudo-label and prototype shapes: out_hw == in_hw, where the
+    # library call computing the same function is softmax().max()
+    identity = []
+    for shape in IDENTITY_SHAPES:
+        y = torch.randn(shape, generator=gen).cuda()
+        oh, ow = shape[1:3]
+        k_ms = time_ms(lambda: upsample_argmax(y, oh, ow))
+        p_ms = time_ms(lambda: upsample_argmax_reference(y, oh, ow))
+        l_ms = time_ms(lambda: torch.softmax(y, dim=-1).max(dim=-1))
+        b_ms, b_by = upsample_argmax_bound(shape, (oh, ow))
+        print(f"upsample_argmax {shape}->{(oh, ow)}: kernel {k_ms} ms "
+              f"(bound_share {b_ms / k_ms:.4f}), plain {p_ms} ms, library "
+              f"softmax().max() {l_ms} ms, bound {b_ms} ms ({b_by})",
+              flush=True)
+        identity.append({"shape": f"{shape}->{(oh, ow)}", "ms": k_ms,
+                         "plain_ms": p_ms, "library_ms": l_ms,
+                         "bound_ms": b_ms, "bound_by": b_by})
     return [{
         "name": "upsample_argmax", "route": "cuda",
         "source": "thermal_semantic_segmentation_torch/csrc/upsample_argmax.cu",
-        "replaces": "thermal_semantic_segmentation_tpu/ops/pallas_kernels.py:63",
+        "replaces": "thermal_semantic_segmentation_tpu/ops/pallas_kernels.py:64",
         "shape": f"{SERVE_SHAPE}->{SERVE_OUT}", "launches": None,
         "max_abs_err": max_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "library_ms": library_ms, "identity_shapes": identity,
     }]
 
 
 def phase_slice(card: str) -> dict:
     """Drive the seg server end to end at full width; returns the kernels'
     launch counts from this run."""
-    import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -253,7 +302,6 @@ def phase_slice(card: str) -> dict:
 
     from thermal_semantic_segmentation_torch.cli.serve import (
         build_seg_server, serve_parse)
-    from thermal_semantic_segmentation_torch.kernels import build
     from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
         upsample_argmax, upsample_argmax_reference)
     from thermal_semantic_segmentation_torch.models.deeplab import (
@@ -264,8 +312,7 @@ def phase_slice(card: str) -> dict:
     # ResNet-101 layers=(3, 4, 23, 3), 1 channel, 13 classes, module2 head:
     # random weights from a seed, saved in the reference .pth schema and
     # loaded back through the CLI's checkpoint path
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+    with tempfile_dir() as root:
         ref_model = create_deeplab(0)
         torch.save({"epoch": 0, "sem_net_state_dict": ref_model.state_dict()},
                    f"{root}/smoke.pth")
@@ -400,7 +447,6 @@ def phase_eval(card: str) -> dict:
     """Score seeded images with the full-width model through the eval path;
     returns the kernels' launch counts from this run."""
     import os
-    import tempfile
 
     import numpy as np
     import torch
@@ -415,7 +461,6 @@ def phase_eval(card: str) -> dict:
         scores_from_hist)
     from thermal_semantic_segmentation_torch.eval.validate import (
         seg_validate)
-    from thermal_semantic_segmentation_torch.kernels import build
     from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
         upsample_argmax, upsample_argmax_reference)
     from thermal_semantic_segmentation_torch.models.deeplab import (
@@ -429,8 +474,7 @@ def phase_eval(card: str) -> dict:
     # ResNet-101, 1 channel, 13 classes, module2 head: random weights from
     # seed 0, saved in the reference .pth schema and loaded back the way the
     # eval CLI loads a checkpoint
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+    with tempfile_dir() as root:
         ref_model = create_deeplab(0)
         torch.save({"epoch": 0, "sem_net_state_dict": ref_model.state_dict()},
                    f"{root}/smoke.pth")
@@ -608,7 +652,6 @@ def phase_train(card: str) -> dict:
     check it; returns the kernels' launch counts from the two epochs."""
     import math
     import os
-    import tempfile
 
     import torch
 
@@ -618,7 +661,6 @@ def phase_train(card: str) -> dict:
     from thermal_semantic_segmentation_torch.cli.segmentation_train import (
         make_loaders, train_epochs)
     from thermal_semantic_segmentation_torch.data.loader import split_indices
-    from thermal_semantic_segmentation_torch.kernels import build
     from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
         upsample_argmax)
     from thermal_semantic_segmentation_torch.models.deeplab import (
@@ -633,8 +675,7 @@ def phase_train(card: str) -> dict:
     steps = n_train // TRAIN_BATCH
     val_batches = (math.ceil(n_val / TRAIN_BATCH)
                    + math.ceil(TRAIN_TARGET / TRAIN_BATCH))
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+    with tempfile_dir() as root:
         # ResNet-101, 1 channel, 13 classes, module2 head: random weights
         # from seed 0 in a reference .pth, loaded with -load_model
         ref_model = create_deeplab(0)
@@ -888,6 +929,467 @@ def train_kernels(state, image, label, top: int = 12) -> dict:
             "top": [[k[:90], round(t / 1e3, 4)] for k, t in kernels[:top]]}
 
 
+class NamedImages:
+    """Seeded float32 (H, W, 1) images in [0, 1] with file names, what
+    ``val_transform`` gives for IR frames and the pseudo-label loader
+    carries (the card's machine has no PIL)."""
+
+    def __init__(self, n: int, hw, seed: int):
+        import numpy as np
+        self.images = np.random.default_rng(seed).random((n, *hw, 1),
+                                                         dtype=np.float32)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def get(self, index: int, rng) -> dict:
+        return {"image": self.images[index], "img_path": f"{index:04d}.png"}
+
+
+def read_png_ids(path: str):
+    """The pixels of an 8-bit grayscale or palette PNG of filter-0 rows
+    (what ``data/png.py`` writes), decoded here with zlib alone."""
+    import struct
+    import zlib
+
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, idat, size = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, colour = struct.unpack(">IIBB", body[:10])
+            if depth != 8 or colour not in (0, 3):
+                fail(f"{path}: depth {depth} colour type {colour}")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(
+        size[0], size[1] + 1)
+    if rows[:, 0].any():
+        fail(f"{path}: a row with a filter other than 0")
+    return rows[:, 1:]
+
+
+def load_smoke_model(parse, root: str):
+    """The full-width model from ``root``/smoke.pth, through the checkpoint
+    path the CLIs take (``parse``: the CLI's parser)."""
+    import os
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        apply_model_meta, build_deeplab, load_seg_checkpoint)
+    args = parse().parse_args(["-checkpoint_name", "smoke.pth",
+                               "--model_root_path", root])
+    state_dict, meta = load_seg_checkpoint(
+        os.path.join(args.model_root_path, args.checkpoint_name))
+    apply_model_meta(args, meta)
+    model = build_deeplab(args)
+    model.load_state_dict(state_dict, strict=True)
+    return model
+
+
+def phase_pseudo(card: str, root: str) -> dict:
+    """Hard, soft and hard+flip pseudo-labels of seeded images with the
+    full-width model through ``generate_pseudo_labels``; returns the
+    kernels' launch counts from the three runs."""
+    import math
+    import os
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from thermal_semantic_segmentation_torch.cli.options import (
+        pseudo_generation_parse)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_reference)
+    from thermal_semantic_segmentation_torch.train.pseudo import (
+        generate_pseudo_labels)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        forward_nhwc, frozen_inference)
+
+    model = load_smoke_model(pseudo_generation_parse, root)
+    dev = next(model.parameters()).device
+    data = NamedImages(PSEUDO_IMAGES, SERVE_OUT, seed=5)
+    n_batches = math.ceil(PSEUDO_IMAGES / PSEUDO_BATCH)
+    with frozen_inference(model):   # warm-up: cuDNN at the tail's batch
+        x = torch.from_numpy(data.images[:PSEUDO_IMAGES % PSEUDO_BATCH])
+        forward_nhwc(model, x.to(dev))
+    for mode in ("hard", "soft", "flip"):   # and one batch of each mode
+        generate_pseudo_labels(
+            model, DataLoader(data, PSEUDO_BATCH, shuffle=False,
+                              drop_last=False),
+            save_path=os.path.join(root, "warm-up", mode), max_steps=1,
+            soft=mode == "soft", flip=mode == "flip")
+    torch.cuda.synchronize()
+
+    upsample_argmax.launches = 0      # counts from the main path only
+    rates, dirs = {}, {}
+    for mode in ("hard", "soft", "flip"):
+        dirs[mode] = os.path.join(root, "pseudo_labels", mode)
+        loader = DataLoader(data, PSEUDO_BATCH, shuffle=False,
+                            drop_last=False)
+        t0 = time.perf_counter()
+        n = generate_pseudo_labels(model, loader, save_path=dirs[mode],
+                                   soft=mode == "soft", flip=mode == "flip")
+        secs = time.perf_counter() - t0
+        if n != PSEUDO_IMAGES:
+            fail(f"pseudo {mode}: {n} of {PSEUDO_IMAGES} images")
+        rates[mode] = (PSEUDO_IMAGES / secs, secs)
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    if launches["upsample_argmax"] != n_batches:
+        fail(f"upsample_argmax launched {launches['upsample_argmax']} times "
+             f"for {n_batches} hard pseudo-label batches")
+
+    # each file against the plain path on the same images: hard ids (read
+    # back from the PNGs) and confidences against the plain version,
+    # flip ids and confidences against a float64 recomputation, soft maps
+    # against a float64 softmax
+    wrong = ties = flip_wrong = flip_ties = 0
+    conf_ulps = flip_ulps = soft_err = sum_err = 0.0
+    hw = SERVE_OUT
+
+    def ulps(got16, want):
+        want16 = want.astype(np.float16)
+        return float((np.abs(got16.astype(np.float64) - want)
+                      / np.spacing(want16).astype(np.float64)).max())
+
+    with frozen_inference(model):
+        for start in range(0, PSEUDO_IMAGES, PSEUDO_BATCH):
+            x = torch.from_numpy(
+                data.images[start:start + PSEUDO_BATCH]).to(dev)
+            logits = forward_nhwc(model, x)["out"]
+            if not bool(torch.isfinite(logits).all()):
+                fail("non-finite logits in pseudo")
+            want_pred, want_conf = upsample_argmax_reference(
+                logits, *logits.shape[1:3])
+            top2 = logits.topk(2, dim=-1).values
+            decided = ((top2[..., 0] - top2[..., 1]) > TIE_GAP).cpu().numpy()
+            probs64 = torch.softmax(logits.double(), dim=-1)
+            logits_f = forward_nhwc(model, torch.flip(x, (2,)))["out"]
+            probs_f64 = torch.softmax(logits_f.double(), dim=-1)
+            up = F.interpolate(probs64.permute(0, 3, 1, 2), size=hw,
+                               mode="bilinear", align_corners=True)
+            up_f = F.interpolate(probs_f64.permute(0, 3, 1, 2), size=hw,
+                                 mode="bilinear", align_corners=True)
+            avg = ((up + torch.flip(up_f, (3,))) / 2.0).permute(0, 2, 3, 1)
+            top2f = avg.topk(2, dim=-1).values
+            decided_f = ((top2f[..., 0] - top2f[..., 1])
+                         > TIE_GAP).cpu().numpy()
+            flip_conf, flip_pred = (t.cpu().numpy() for t in avg.max(dim=-1))
+            want_pred, want_conf = (want_pred.cpu().numpy(),
+                                    want_conf.double().cpu().numpy())
+            probs64 = probs64.cpu().numpy()
+            for k in range(x.shape[0]):
+                name = f"{start + k:04d}"
+                ids = read_png_ids(os.path.join(dirs["hard"], name + ".png"))
+                color = read_png_ids(os.path.join(dirs["hard"],
+                                                  name + "_color.png"))
+                if not np.array_equal(ids, color):
+                    fail(f"{name}: the colour PNG holds other ids")
+                wrong += int(((ids != want_pred[k]) & decided[k]).sum())
+                ties += int((~decided[k]).sum())
+                conf = np.load(os.path.join(dirs["hard"], name + "_conf.npy"))
+                conf_ulps = max(conf_ulps, ulps(conf, want_conf[k]))
+                ids = read_png_ids(os.path.join(dirs["flip"], name + ".png"))
+                flip_wrong += int(((ids != flip_pred[k]) & decided_f[k]).sum())
+                flip_ties += int((~decided_f[k]).sum())
+                conf = np.load(os.path.join(dirs["flip"], name + "_conf.npy"))
+                flip_ulps = max(flip_ulps, ulps(conf, flip_conf[k]))
+                soft = np.load(os.path.join(dirs["soft"], name + ".npy"))
+                if soft.shape != (NUM_CLASSES, *logits.shape[1:3]):
+                    fail(f"{name}: soft map of shape {soft.shape}")
+                sum_err = max(sum_err, float(np.abs(soft.sum(0) - 1.0).max()))
+                soft_err = max(soft_err, float(np.abs(
+                    soft - probs64[k].transpose(2, 0, 1)).max()))
+    print(f"pseudo check: hard ids vs plain version outside {ties} "
+          f"near-ties: {wrong} pixels, conf {conf_ulps:.3f} float16 ulps; "
+          f"flip ids vs float64 outside {flip_ties} near-ties: {flip_wrong} "
+          f"pixels, conf {flip_ulps:.3f} ulps; soft maps sum to 1 within "
+          f"{sum_err:.3g}, vs float64 softmax {soft_err:.3g}; launches "
+          f"{launches}", flush=True)
+    if wrong or flip_wrong:
+        fail(f"pseudo ids disagree outside near-ties: hard {wrong}, flip "
+             f"{flip_wrong} pixels")
+    if conf_ulps > 1.0 or flip_ulps > 1.0:
+        fail(f"pseudo confidences {conf_ulps}, {flip_ulps} float16 ulps off")
+    if not (sum_err <= SOFT_SUM_ATOL and soft_err <= SOFT_SUM_ATOL):
+        fail(f"soft maps: sums {sum_err}, vs float64 {soft_err} over "
+             f"{SOFT_SUM_ATOL}")
+    for mode, (rate, secs) in rates.items():
+        print(f"pseudo {mode}: {PSEUDO_IMAGES} images at batch "
+              f"{PSEUDO_BATCH} at {rate:.2f} images/s ({secs:.3f} s, files "
+              f"written) on {card}", flush=True)
+    for mode in ("hard", "soft"):
+        print(f"pseudo {mode} batch breakdown: "
+              f"{json.dumps(pseudo_breakdown(model, data, mode))} on {card}",
+              flush=True)
+    print(f"pseudo hard loop: {json.dumps(pseudo_loop(model, data, root))} "
+          f"on {card}", flush=True)
+    return launches
+
+
+def pseudo_loop(model, data, root: str) -> dict:
+    """The hard pseudo-label loop as a whole: its device busy share under
+    ``torch.profiler`` (kernel time over the profiled run's wall time), and
+    its images/s unprofiled with 8 writer threads and with 1."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.train.pseudo import (
+        generate_pseudo_labels)
+
+    def run(tag, threads):
+        loader = DataLoader(data, PSEUDO_BATCH, shuffle=False,
+                            drop_last=False)
+        t0 = time.perf_counter()
+        generate_pseudo_labels(model, loader, writer_threads=threads,
+                               save_path=os.path.join(root, "loop", tag))
+        return time.perf_counter() - t0
+
+    out = {}
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = run("profiled", 8)
+        device_us = sum(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0))
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        out["profiled_device_busy_share"] = device_us / 1e3 / (wall * 1e3)
+        out["profiled_wall_ms"] = wall * 1e3
+    except RuntimeError as e:
+        out["profiled_device_busy_share"] = f"not measured ({e!r})"
+    for threads in (8, 1):
+        out[f"images_per_s_{threads}_writers"] = PSEUDO_IMAGES / run(
+            f"w{threads}", threads)
+    return out
+
+
+def pseudo_breakdown(model, data, mode: str, reps: int = 5) -> dict:
+    """Median per-stage times of one batch-4 pseudo-label step, its device
+    stages bracketed by CUDA events: host->device copy (pinned), forward,
+    the kernel (hard) or the softmax (soft), device->host copy; then the
+    host time to write the batch's files through the 8-thread pool; and the
+    host wall time of the whole step, whose remainder is device idle
+    time."""
+    import concurrent.futures as cf
+    import os
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.data.palette import (
+        freiburg_palette)
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.train.pseudo import (
+        write_hard, write_soft)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        forward_nhwc, frozen_inference)
+
+    dev = next(model.parameters()).device
+    host = torch.from_numpy(data.images[:PSEUDO_BATCH]).pin_memory()
+    palette = freiburg_palette()
+    stages = ("h2d_ms", "forward_ms",
+              "kernel_ms" if mode == "hard" else "softmax_ms", "d2h_ms")
+    rows = []
+    with tempfile_dir() as out, cf.ThreadPoolExecutor(8) as pool:
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            x = host.to(dev, non_blocking=True)
+            ev[1].record()
+            with frozen_inference(model):
+                logits = forward_nhwc(model, x)["out"]
+                ev[2].record()
+                if mode == "hard":
+                    pred, conf = upsample_argmax(logits, *logits.shape[1:3])
+                    ev[3].record()
+                    pred, conf = pred.cpu().numpy(), conf.cpu().numpy()
+                else:
+                    probs = torch.softmax(logits, dim=-1)
+                    ev[3].record()
+                    probs = probs.contiguous().cpu().numpy()
+            ev[4].record()
+            t_w = time.perf_counter()
+            if mode == "hard":
+                futures = [pool.submit(write_hard, out, f"{k:04d}.png",
+                                       pred[k], conf[k], palette)
+                           for k in range(PSEUDO_BATCH)]
+            else:
+                futures = [pool.submit(write_soft, out, f"{k:04d}.png",
+                                       probs[k])
+                           for k in range(PSEUDO_BATCH)]
+            for f in futures:
+                f.result()
+            end = time.perf_counter()
+            write = (end - t_w) * 1e3
+            wall = (end - t0) * 1e3
+            times = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+            rows.append(times + [write, wall, 1.0 - sum(times) / wall])
+            if not os.listdir(out):
+                fail("the breakdown wrote no files")
+    med = np.median(np.asarray(rows), axis=0)
+    return dict(zip(stages + ("write_ms", "wall_ms", "device_idle_share"),
+                    (float(v) for v in med)))
+
+
+def phase_prototypes(card: str, root: str) -> dict:
+    """Class prototypes of seeded images with the full-width model through
+    ``calc_prototypes``, checked against a float64 recomputation; returns
+    the kernels' launch counts from the run."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli.options import (
+        calc_proto_parse)
+    from thermal_semantic_segmentation_torch.core.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_reference)
+    from thermal_semantic_segmentation_torch.ops.class_means import (
+        fold_prototypes, masked_class_means)
+    from thermal_semantic_segmentation_torch.train.prototypes import (
+        calc_prototypes)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        forward_nhwc, frozen_inference)
+
+    model = load_smoke_model(calc_proto_parse, root)
+    dev = next(model.parameters()).device
+    data = NamedImages(PROTO_IMAGES, SERVE_OUT, seed=6)
+    steps = PROTO_IMAGES // PROTO_BATCH
+    with frozen_inference(model):   # warm-up: cuDNN at batch 64
+        forward_nhwc(model, torch.from_numpy(
+            data.images[:PROTO_BATCH]).to(dev))
+    seen = []
+    hook = model.register_forward_hook(lambda m, i, out: seen.append(
+        {k: v.float().permute(0, 2, 3, 1).clone() for k, v in out.items()}))
+    torch.cuda.synchronize()
+    upsample_argmax.launches = 0      # counts from the main path only
+    t0 = time.perf_counter()
+    protos, counts = calc_prototypes(
+        model, DataLoader(data, PROTO_BATCH, shuffle=True, drop_last=True,
+                          seed=0), num_classes=NUM_CLASSES, epochs=1)
+    secs = time.perf_counter() - t0
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    hook.remove()
+    if len(seen) != steps or launches["upsample_argmax"] != steps:
+        fail(f"prototypes ran {len(seen)} forwards and "
+             f"{launches['upsample_argmax']} kernel launches for {steps} "
+             f"steps")
+
+    # float64 masked means and the sequential 'mean' fold from the same
+    # features and the kernel's own classes; the kernel's classes against
+    # the plain version's outside near-ties
+    p64 = np.zeros((NUM_CLASSES, 256))
+    n64 = np.zeros(NUM_CLASSES)
+    wrong = ties = 0
+    for out in seen:
+        logits = out["out"]
+        n, h, w, _ = logits.shape
+        pred, _ = upsample_argmax(logits, h, w)
+        want, _ = upsample_argmax_reference(logits, h, w)
+        top2 = logits.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > TIE_GAP
+        wrong += int(((pred != want) & decided).sum())
+        ties += int((~decided).sum())
+        pred = pred.reshape(n, h * w).cpu().numpy()
+        feat = out["feat"].reshape(n, h * w, -1).double().cpu().numpy()
+        for i in range(n):
+            onehot = (pred[i][:, None] == np.arange(NUM_CLASSES)).astype(
+                np.float64)
+            cnt = onehot.sum(0)
+            vec = (onehot.T @ feat[i]) / np.maximum(cnt, 1.0)[:, None]
+            ok = (cnt > 0) & (cnt >= 10) & (vec.sum(1) != 0.0)
+            p64[ok] = (p64[ok] * n64[ok, None] + vec[ok]) / (n64[ok, None]
+                                                             + 1.0)
+            n64[ok] = np.minimum(n64[ok] + 1.0, 3000.0)
+    rel_err = float(np.abs(protos - p64).max() / np.abs(p64).max())
+    with tempfile_dir() as tmp:
+        path = f"{tmp}/prototypes_on_smoke"
+        save_checkpoint(path, {"objective_vectors": protos, "counts": counts})
+        back = load_checkpoint(path)
+    round_trip = (np.array_equal(back["objective_vectors"], protos)
+                  and np.array_equal(back["counts"], counts)
+                  and back["objective_vectors"].dtype == protos.dtype)
+    print(f"prototypes check: kernel classes vs plain outside {ties} "
+          f"near-ties: {wrong} pixels; prototypes vs float64 rel err "
+          f"{rel_err:.3g}, counts {counts.astype(int).tolist()} (float64 "
+          f"{'equal' if np.array_equal(counts, n64) else n64.tolist()}); "
+          f"checkpoint round trip {'equal' if round_trip else 'DIFFERS'}; "
+          f"launches {launches}", flush=True)
+    if wrong:
+        fail(f"prototype classes disagree with the plain path at {wrong} "
+             f"pixels")
+    if not (rel_err <= PROTO_RTOL and np.array_equal(counts, n64)
+            and counts.sum() > 0):
+        fail(f"prototypes vs float64: rel err {rel_err}, counts {counts} "
+             f"vs {n64}")
+    if not round_trip:
+        fail("the prototype file does not read back as written")
+
+    # masked means and fold of one batch, by CUDA events
+    feat, logits = seen[0]["feat"], seen[0]["out"]
+    p0 = torch.zeros((NUM_CLASSES, 256), device=dev)
+    n0 = torch.zeros((NUM_CLASSES,), device=dev)
+    vectors, valid = masked_class_means(feat, logits, num_classes=NUM_CLASSES)
+    means_ms = time_ms(lambda: masked_class_means(
+        feat, logits, num_classes=NUM_CLASSES), reps=10)
+    fold_ms = time_ms(lambda: fold_prototypes(p0, n0, vectors, valid,
+                                              mode="mean"), reps=10)
+    with frozen_inference(model):
+        x = torch.from_numpy(data.images[:PROTO_BATCH]).to(dev)
+        forward_ms = time_ms(lambda: forward_nhwc(model, x), reps=3,
+                             warmup=1)
+    aspp_branch_times(card)
+    print(f"prototypes: {PROTO_IMAGES} images in {steps} steps of "
+          f"{PROTO_BATCH} at {PROTO_IMAGES / secs:.2f} images/s "
+          f"({secs:.3f} s) on {card}; per batch: forward {forward_ms} ms, "
+          f"masked means {means_ms} ms, fold {fold_ms} ms", flush=True)
+    return launches
+
+
+def aspp_branch_times(card: str) -> None:
+    """One dilated ASPP branch conv (2048 -> 256 channels, 3x3, dilation 6,
+    float32, channels_last, 33x65 maps) at batch 10 and 11, where cuDNN
+    changes kernels, and at batch 64 split as ``nn/aspp.py`` splits it
+    (``MAX_BRANCH_PIXELS``)."""
+    import torch
+
+    from thermal_semantic_segmentation_torch.nn.aspp import MAX_BRANCH_PIXELS
+
+    conv = torch.nn.Conv2d(2048, 256, 3, padding=6, dilation=6).cuda().to(
+        memory_format=torch.channels_last)
+    per_call = MAX_BRANCH_PIXELS // (33 * 65)
+    times = {}
+    with torch.inference_mode():
+        for n in (10, 11, 64):
+            x = torch.rand(n, 2048, 33, 65, device="cuda").contiguous(
+                memory_format=torch.channels_last)
+            if n < 64:
+                times[f"batch {n}"] = time_ms(lambda: conv(x), reps=2,
+                                              warmup=1)
+        times[f"batch 64 in calls of {per_call}"] = time_ms(
+            lambda: [conv(p) for p in x.split(per_call)], reps=3)
+    print(f"ASPP dilated branch conv (ms): {json.dumps(times)} on {card}",
+          flush=True)
+
+
+
+
 def main() -> int:
     import torch
     t0 = time.perf_counter()
@@ -896,6 +1398,16 @@ def main() -> int:
     kernels = phase_kernels()
     by_path = {"serve": phase_slice(card), "eval": phase_eval(card),
                "train": phase_train(card)}
+    with tempfile_dir() as root:
+        from thermal_semantic_segmentation_torch.models.deeplab import (
+            create_deeplab)
+        # ResNet-101, 1 channel, 13 classes, module2 head: random weights
+        # from seed 0 in a reference .pth, for both offline phases
+        torch.save({"epoch": 0,
+                    "sem_net_state_dict": create_deeplab(0).state_dict()},
+                   f"{root}/smoke.pth")
+        by_path["pseudo"] = phase_pseudo(card, root)
+        by_path["prototypes"] = phase_prototypes(card, root)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]]
                                  for path, launches in by_path.items()}

@@ -126,6 +126,26 @@ def test_create_deeplab_is_seeded_channels_last_and_shaped():
     assert out["out"].is_contiguous(memory_format=torch.channels_last)
 
 
+def test_aspp_branches_split_large_batches_with_the_same_result(monkeypatch):
+    """Past MAX_BRANCH_PIXELS the ASPP branches run on parts of the batch
+    (each image alone through them), so the forward is the same."""
+    from thermal_semantic_segmentation_torch.nn import aspp
+
+    model = create_deeplab(3, device="cpu", **TINY)
+    x = torch.rand(5, 1, *HW, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = model(x)
+    calls = []
+    model.layer5.conv2d_list[1].register_forward_hook(
+        lambda m, i, o: calls.append(o.shape[0]))
+    monkeypatch.setattr(aspp, "MAX_BRANCH_PIXELS", 2 * 9 * 17)
+    with torch.no_grad():
+        got = model(x)
+    assert calls == [2, 2, 1]
+    for key in ("out", "feat"):
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-5)
+
+
 def test_legacy_head_is_not_yet_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DeepLabV2(head="legacy", **TINY)

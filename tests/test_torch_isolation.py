@@ -15,17 +15,23 @@ torch = pytest.importorskip("torch")
 
 import thermal_semantic_segmentation_torch as port  # noqa: E402
 from thermal_semantic_segmentation_torch.cli import (  # noqa: E402
-    segmentation_evaluate, segmentation_train)
+    cal_prototype, generate_pseudo_label, segmentation_evaluate,
+    segmentation_train)
 from thermal_semantic_segmentation_torch.eval.validate import (  # noqa: E402
     seg_validate)
 from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
     create_deeplab)
 from thermal_semantic_segmentation_torch.serving.batcher import (  # noqa: E402
     InferenceServer)
+from thermal_semantic_segmentation_torch.train.prototypes import (  # noqa: E402,E501
+    calc_prototypes)
+from thermal_semantic_segmentation_torch.train.pseudo import (  # noqa: E402
+    generate_pseudo_labels)
 from thermal_semantic_segmentation_torch.train.seg import (  # noqa: E402
     build_seg_eval_step, create_seg_state, make_seg_train_step)
 
-BANNED = ("jax", "jaxlib", "flax", "optax", "thermal_semantic_segmentation_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack",
+          "thermal_semantic_segmentation_tpu")
 PORT_DIR = Path(port.__file__).parent
 REPO = PORT_DIR.parent
 SOURCES = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -55,7 +61,10 @@ def test_importing_every_module_loads_no_banned_package():
     for new in ("cli.segmentation_evaluate", "eval.validate", "train.seg",
                 "data.loader", "data.device_pipeline", "ops.confmat",
                 "cli.segmentation_train", "core.schedule", "data.cityscapes",
-                "utils.meters", "utils.logging", "utils.observability"):
+                "utils.meters", "utils.logging", "utils.observability",
+                "core.checkpoint", "data.png", "data.simple",
+                "ops.class_means", "train.pseudo", "train.prototypes",
+                "cli.generate_pseudo_label", "cli.cal_prototype"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -72,7 +81,8 @@ def test_importing_every_module_loads_no_banned_package():
 @pytest.mark.parametrize("entry", [
     "create_deeplab", "InferenceServer", "build_seg_eval_step",
     "seg_validate", "seg_evaluation", "make_seg_train_step",
-    "create_seg_state", "segmentation_train"])
+    "create_seg_state", "segmentation_train", "generate_pseudo_labels",
+    "calc_prototypes", "generate_pseudo_label", "cal_prototype"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -94,6 +104,14 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
                              learning_rate=1e-4)
         elif entry == "segmentation_train":
             segmentation_train.main(["-dataset", "freiburg_ir"])
+        elif entry == "generate_pseudo_labels":
+            generate_pseudo_labels(None, [], save_path="unused")
+        elif entry == "calc_prototypes":
+            calc_prototypes(None, [])
+        elif entry == "generate_pseudo_label":
+            generate_pseudo_label.main([])
+        elif entry == "cal_prototype":
+            cal_prototype.main([])
         else:
             segmentation_evaluate.main(["-dataset", "freiburg_ir"])
 
@@ -118,6 +136,22 @@ def test_eval_cli_refuses_flags_not_yet_ported(argv, capsys):
 def test_train_cli_refuses_flags_not_yet_ported(argv, capsys):
     with pytest.raises(SystemExit) as exit_info:
         segmentation_train.main(argv + ["--device", "cpu"])
+    assert exit_info.value.code != 0
+    err = capsys.readouterr().err
+    assert f"error: {argv[0]} " in err and "is not yet ported" in err
+
+
+@pytest.mark.parametrize("cli", [generate_pseudo_label, cal_prototype],
+                         ids=["generate_pseudo_label", "cal_prototype"])
+@pytest.mark.parametrize("argv", [
+    ["--distributed", "true"], ["--data_parallel", "true"],
+    ["--native_decode", "true"], ["--native_encode", "true"],
+    ["--wire", "packed_bf16"], ["--decode_cache_mb", "512"],
+    ["--decode_cache_dir", "cache"]])
+def test_pseudo_and_prototype_clis_refuse_flags_not_yet_ported(cli, argv,
+                                                               capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main(argv + ["--device", "cpu"])
     assert exit_info.value.code != 0
     err = capsys.readouterr().err
     assert f"error: {argv[0]} " in err and "is not yet ported" in err

@@ -294,10 +294,22 @@ def test_exported_checkpoint_loads_and_serves(exported):
                                rtol=0, atol=FORWARD_ATOL)
 
 
-def test_native_msgpack_checkpoint_is_refused(exported):
+def test_native_msgpack_checkpoint_is_refused(exported, tmp_path):
+    """A native msgpack checkpoint is no longer refused: it loads into the
+    same state_dict and meta as its .pth export. A file that is neither
+    checkpoint format still is."""
     root, _, _ = exported
-    with pytest.raises(ValueError, match="export_torch"):
-        load_seg_checkpoint(str(root / "s.msgpack"))
+    native_sd, native_meta = load_seg_checkpoint(str(root / "s.msgpack"))
+    export_sd, export_meta = load_seg_checkpoint(str(root / "s.pth"))
+    assert native_sd.keys() == export_sd.keys()
+    for k, v in export_sd.items():
+        assert torch.equal(native_sd[k], v), k
+    assert int(native_meta["epoch"]) == 3
+    assert float(native_meta["val_loss"]) == 0.5
+    assert native_meta["layers"] == export_meta["layers"] == [1, 1, 1, 1]
+    (tmp_path / "notes.txt").write_text("not a checkpoint")
+    with pytest.raises(ValueError, match="neither a torch .pth nor"):
+        load_seg_checkpoint(str(tmp_path / "notes.txt"))
 
 
 @pytest.mark.parametrize("argv", [

@@ -34,6 +34,9 @@ TILING_CASES = [
     ((2, 9, 17, 13), (1, 128)),
     ((2, 9, 17, 13), (64, 1)),
     ((2, 9, 17, 19), (64, 128)),
+    # the logits' own size: hard pseudo-labels (batch 4), prototypes (64)
+    ((4, 33, 65, 13), (33, 65)),
+    ((64, 33, 65, 13), (33, 65)),
 ]
 
 

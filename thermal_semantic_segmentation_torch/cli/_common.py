@@ -11,9 +11,11 @@ import zipfile
 import numpy as np
 import torch
 
+from ..core.checkpoint import load_checkpoint
 from ..data import transforms as T
 from ..data.cityscapes import Cityscapes, CityscapesTranslation
 from ..data.freiburg import Freiburg, FreiburgTest
+from ..models.convert import jax_variables_to_state_dict
 from ..models.deeplab import create_deeplab
 
 _BLOCK_KEY = re.compile(r"layer([1-4])\.(\d+)\.conv1\.weight$")
@@ -96,26 +98,35 @@ def model_meta_from_state_dict(sd) -> dict:
 
 
 def load_seg_checkpoint(path: str):
-    """Load a reference-schema seg ``.pth``
+    """Load a seg checkpoint: a reference-schema ``.pth``
     (``{'sem_net_state_dict', 'epoch', 'val_loss', ...}`` or a bare
-    state_dict) with ``torch.load(weights_only=True)``.
+    state_dict, read with ``torch.load(weights_only=True)``), or the JAX
+    package's native msgpack checkpoint (``{'variables', 'epoch', ...}``,
+    its variables converted by ``jax_variables_to_state_dict``).
 
     Returns (state_dict, meta); meta carries the checkpoint's extra keys plus
     the architecture read from the state_dict.
     """
-    if not zipfile.is_zipfile(path):
-        raise ValueError(
-            f"{path!r} is not a torch .pth checkpoint. A native msgpack "
-            f"checkpoint of the JAX package converts to one with "
-            f"`python -m thermal_semantic_segmentation_tpu.cli.export_torch "
-            f"--kind seg --src {path} --dst <out>.pth`")
-    with torch.serialization.safe_globals(_NUMPY_SAFE):
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if "sem_net_state_dict" in ckpt:
-        sd = ckpt["sem_net_state_dict"]
-        meta = {k: v for k, v in ckpt.items() if not k.endswith("state_dict")}
+    if zipfile.is_zipfile(path):
+        with torch.serialization.safe_globals(_NUMPY_SAFE):
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if "sem_net_state_dict" in ckpt:
+            sd = ckpt["sem_net_state_dict"]
+            meta = {k: v for k, v in ckpt.items()
+                    if not k.endswith("state_dict")}
+        else:
+            sd, meta = ckpt, {}
     else:
-        sd, meta = ckpt, {}
+        try:
+            ckpt = load_checkpoint(path)
+        except ValueError as e:
+            raise ValueError(f"{path!r} is neither a torch .pth nor a "
+                             f"msgpack checkpoint: {e}") from e
+        if not isinstance(ckpt, dict) or "variables" not in ckpt:
+            raise ValueError(f"{path!r} is a msgpack file without the seg "
+                             f"checkpoint's 'variables'")
+        meta = dict(ckpt)
+        sd = jax_variables_to_state_dict(meta.pop("variables"))
     meta.update(model_meta_from_state_dict(sd))
     return sd, meta
 

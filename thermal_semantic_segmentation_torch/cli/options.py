@@ -16,6 +16,7 @@ NOT_YET_PORTED = {
     "data_parallel": bool,
     "distributed": bool,
     "native_decode": bool,
+    "native_encode": bool,
     "wire": lambda v: v == "packed_bf16",
     "decode_cache_mb": bool,
     "decode_cache_dir": bool,
@@ -56,6 +57,9 @@ def _add_roots(parser: argparse.ArgumentParser):
     parser.add_argument('--freiburg_root', type=str, default='datasets/freiburg')
     parser.add_argument('--source_root', type=str,
                         default='datasets/source_dataset')
+    parser.add_argument('--kitti_root', type=str, default='datasets/kitti')
+    parser.add_argument('--flir_root', type=str,
+                        default='datasets/target_dataset')
     parser.add_argument('--model_root_path', type=str,
                         default='./checkpoints/semantic_segmentation')
     parser.add_argument('--device', type=str, default='',
@@ -65,6 +69,8 @@ def _add_roots(parser: argparse.ArgumentParser):
     parser.add_argument('--bf16', type=str2bool, default=False,
                         help='run the forward under bfloat16 autocast.')
     parser.add_argument('--native_decode', type=str2bool, default=False,
+                        help='not yet ported: refused when true.')
+    parser.add_argument('--native_encode', type=str2bool, default=False,
                         help='not yet ported: refused when true.')
     parser.add_argument('--wire', type=str, default='packed',
                         choices=['none', 'packed', 'packed_bf16'],
@@ -165,5 +171,45 @@ def evaluation_parse():
     parser.add_argument('-baseline', type=str2bool, default=False)
     parser.add_argument('-source_domain', type=str, default='Thermal')
     parser.add_argument('-target_domain', type=str, default='Grayscale')
+    _add_roots(parser)
+    return parser
+
+
+def calc_proto_parse():
+    """Prototype computation options (reference options.py:105-118).
+    ``-normalize`` and ``-with_feat`` are accepted and unused, as in the JAX
+    package."""
+    parser = HostConfigParser(description='prototype computation options.')
+    parser.add_argument('-normalize', type=float, nargs='+', default=[0.5])
+    parser.add_argument('-net_mode', type=str, default='one_channel')
+    parser.add_argument('-dataset', type=str, default='freiburg_ir')
+    parser.add_argument('-num_classes', type=int, default=13)
+    parser.add_argument('-root', type=str, default='')
+    parser.add_argument('-epochs', type=int, default=4)
+    parser.add_argument('-batch_size', type=int, default=64)
+    parser.add_argument('-checkpoint_name', type=str,
+                        default='freiburg_rgb2ir_cityscapes_segmentation.pth')
+    parser.add_argument('-with_feat', type=str2bool, default=True)
+    parser.add_argument('-max_steps', type=int, default=0)
+    _add_roots(parser)
+    return parser
+
+
+def pseudo_generation_parse():
+    """Pseudo-label generation options (reference
+    generate_pseudo_label.py:101-108)."""
+    parser = HostConfigParser(description="config")
+    parser.add_argument('--root', type=str, default='')
+    parser.add_argument('--soft', type=str2bool, default=False)
+    parser.add_argument('--flip', type=str2bool, default=False)
+    parser.add_argument('-checkpoint_name',
+                        default='256_freiburg_rgb2ir_segmentation.pth')
+    parser.add_argument('-batch_size', type=int, default=4)
+    parser.add_argument('--dataset', default='freiburg_ir')
+    parser.add_argument('-pseudo_type', default='hard')
+    parser.add_argument('-translation_name', type=str,
+                        default='freiburg_rgb2ir_130epochs')
+    parser.add_argument('-grayscale', type=str2bool, default=False)
+    parser.add_argument('-max_steps', type=int, default=0)
     _add_roots(parser)
     return parser

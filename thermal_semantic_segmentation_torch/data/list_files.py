@@ -1,6 +1,6 @@
-"""Freiburg and Cityscapes list files in the reference's directory grammar
-(counterpart of the JAX ``data/list_files.py``; the KITTI and FLIR lists
-come with their datasets).
+"""Freiburg, Cityscapes and FLIR list files in the reference's directory
+grammar (counterpart of the JAX ``data/list_files.py``; the KITTI list comes
+with its dataset).
 
 The reference writes ``image_list/*.txt`` manifests on first use and derives
 label paths by string substitution. The same rules apply here, with sorted
@@ -90,6 +90,26 @@ def cityscapes_list(root: str, data_folder: str, split: str,
         paths = [p for p in paths if p.endswith("gtFine_labelIds.png")]
     with open(list_path, "w") as f:
         f.write("".join(p + "\n" for p in paths))
+    return list_path
+
+
+def flir_list(root: str, split: str, data_folder: str = "images") -> str:
+    """Write the FLIR ADAS manifest (reference utils/misc.py:211-233
+    grammar): every file under ``<root>/train`` into
+    ``<root>/image_list/train.txt``, or under ``<root>/test/<data_folder>``
+    into ``image_list/test_<data_folder>.txt``, sorted."""
+    if split == "train":
+        im_dir = os.path.join(root, split)
+        list_path = os.path.join(root, "image_list", "train.txt")
+    elif split == "test":
+        im_dir = os.path.join(root, split, data_folder)
+        list_path = os.path.join(root, "image_list",
+                                 f"test_{data_folder}.txt")
+    else:
+        raise ValueError("path does not exist.")
+    os.makedirs(os.path.dirname(list_path), exist_ok=True)
+    with open(list_path, "w") as f:
+        f.write("".join(p + "\n" for p in _walk_files(im_dir)))
     return list_path
 
 

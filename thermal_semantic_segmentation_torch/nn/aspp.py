@@ -21,6 +21,13 @@ BRANCH_WIDTH = 256
 DILATIONS = (6, 12, 18, 24)
 DROPRATE = 0.1
 HEAD_STD = 0.001
+# The branches run on at most this many feature-map pixels (N * H * W) per
+# call. Past about 22,000 (H100, cuDNN 9.2, float32), cuDNN leaves its
+# implicit-GEMM kernel for the 2048-channel dilated 3x3 convs for a direct
+# one ~46x slower per image (chip_smoke.py prints both). The branches
+# treat each image alone, so splitting the batch changes no result; a
+# batch of 8 at 256x512 (33x65 maps) stays one call.
+MAX_BRANCH_PIXELS = 8 * 33 * 65
 
 
 class Dropout2d(nn.Module):
@@ -104,7 +111,16 @@ class ASPPModule2(nn.Module):
         nn.init.normal_(self.head[1].weight, 0.0, HEAD_STD,
                         generator=generator)
 
+    def branches(self, x: torch.Tensor) -> torch.Tensor:
+        """The five branches' outputs, concatenated along channels."""
+        return torch.cat([b(x) for b in self.conv2d_list], dim=1)
+
     def forward(self, x: torch.Tensor) -> dict:
-        y = torch.cat([b(x) for b in self.conv2d_list], dim=1)
+        per_call = max(1, MAX_BRANCH_PIXELS // (x.shape[2] * x.shape[3]))
+        if x.shape[0] > per_call:
+            y = torch.cat([self.branches(part)
+                           for part in x.split(per_call)])
+        else:
+            y = self.branches(x)
         feat = self.head[0](self.bottleneck(y))
         return {"feat": feat, "out": self.head[1](feat)}

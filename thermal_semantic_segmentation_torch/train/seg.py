@@ -15,6 +15,7 @@ step never waits for the device.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -173,21 +174,38 @@ def build_seg_eval_step(*, num_classes: int, ignore_index: int, device=None,
 
     def eval_step(model, image: torch.Tensor, label: torch.Tensor):
         out_h, out_w = label.shape[1:3]
-        was_training = model.training
-        model.eval()
-        try:
-            with torch.inference_mode():
-                with torch.autocast(device.type, dtype=torch.bfloat16,
-                                    enabled=bf16):
-                    out = model(image.permute(0, 3, 1, 2))["out"]
-                # channels_last NCHW logits viewed as NHWC: no copy
-                logits = out.float().permute(0, 2, 3, 1)
-                loss = cross_entropy(upsample_logits(logits, out_h, out_w),
-                                     label, ignore_index=ignore_index)
-                pred, _ = upsample_argmax(logits, out_h, out_w)
-                hist = confusion_matrix(pred, label, num_classes)
-        finally:
-            model.train(was_training)
+        with frozen_inference(model):
+            logits = forward_nhwc(model, image, bf16=bf16)["out"]
+            loss = cross_entropy(upsample_logits(logits, out_h, out_w),
+                                 label, ignore_index=ignore_index)
+            pred, _ = upsample_argmax(logits, out_h, out_w)
+            hist = confusion_matrix(pred, label, num_classes)
         return hist, loss, pred
 
     return eval_step
+
+
+def forward_nhwc(model, image: torch.Tensor, *, bf16: bool = False) -> dict:
+    """``model``'s ``{'feat', 'out'}`` for an (N, H, W, C) ``image``, as
+    float32 (N, h, w, F) / (N, h, w, classes) tensors: the channels_last
+    NCHW outputs viewed as NHWC, no copy. The forward runs under bfloat16
+    autocast with ``bf16``."""
+    with torch.autocast(image.device.type, dtype=torch.bfloat16,
+                        enabled=bf16):
+        out = model(image.permute(0, 3, 1, 2))
+    return {k: v.float().permute(0, 2, 3, 1) for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def frozen_inference(model):
+    """Eval mode and ``torch.inference_mode()`` inside the block, whatever
+    mode ``model`` was in (the mode it had is restored after), as the JAX
+    package's inference steps apply ``train=False``: no BatchNorm buffer
+    moves, no dropout, no autograd graph."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            yield
+    finally:
+        model.train(was_training)
