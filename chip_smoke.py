@@ -60,11 +60,15 @@ SERVE_OUT = (256, 512)
 # the pseudo-label (batch 4) and prototype (batch 64) launches: the kernel at
 # the logits' own size gives their argmax and confidence
 IDENTITY_SHAPES = [(4, 33, 65, 13), (64, 33, 65, 13)]
+# self-training's teacher: the stride-8 logits of a batch-4 320x700 frame
+# to full/4 size, the classes of the moving prototypes
+TEACHER_SHAPE, TEACHER_OUT = (4, 41, 88, 13), (80, 175)
 # (shape, out_hw, strided): "strided" holds the logits as NCHW-contiguous
 # memory viewed as NHWC, so the kernel reads them through general strides
 PARITY_CASES = [
     (SERVE_SHAPE, SERVE_OUT, False),
     *[(s, s[1:3], False) for s in IDENTITY_SHAPES],
+    (TEACHER_SHAPE, TEACHER_OUT, False),
     ((3, 9, 17, 13), (61, 127), False),
     ((2, 33, 65, 13), (250, 509), False),    # ragged row and column tiles
     ((1, 40, 70, 13), (17, 31), False),      # downsampling
@@ -88,6 +92,14 @@ PSEUDO_IMAGES, PSEUDO_BATCH = 22, 4  # batches of 4 x 5 and a tail of 2
 PROTO_IMAGES, PROTO_BATCH = 128, 64  # the prototype CLI's default batch
 SOFT_SUM_ATOL = 1e-5
 PROTO_RTOL = 1e-5
+# self-training: -batch_size 4, 8 steps an epoch (36 target and source
+# images, so the epoch's only validation is its first step's), 8 test
+# images (2 validation batches); the CLI's lr
+ST_BATCH, ST_STEPS, ST_IMAGES, ST_VAL_IMAGES = 4, 8, 36, 8
+ST_FULL_HW = (320, 700)
+ST_LR = 1e-6
+ST_CHECK_MOMENTUM = 0.5      # the float64 check's step: a visible fold
+EMA_ULPS = 2.0
 
 
 def fail(msg: str) -> None:
@@ -281,6 +293,27 @@ def phase_kernels():
         identity.append({"shape": f"{shape}->{(oh, ow)}", "ms": k_ms,
                          "plain_ms": p_ms, "library_ms": l_ms,
                          "bound_ms": b_ms, "bound_by": b_by})
+    # self-training's teacher: the library call computing the same
+    # function is F.interpolate + softmax().max()
+    y = torch.randn(TEACHER_SHAPE, generator=gen).cuda()
+    y_nchw = y.permute(0, 3, 1, 2)
+
+    def teacher_library():
+        up = F.interpolate(y_nchw, size=TEACHER_OUT, mode="bilinear",
+                           align_corners=True)
+        return torch.softmax(up, dim=1).max(dim=1)
+
+    t_ms = time_ms(lambda: upsample_argmax(y, *TEACHER_OUT))
+    t_plain = time_ms(lambda: upsample_argmax_reference(y, *TEACHER_OUT))
+    t_lib = time_ms(teacher_library)
+    t_bound, t_by = upsample_argmax_bound(TEACHER_SHAPE, TEACHER_OUT)
+    print(f"upsample_argmax {TEACHER_SHAPE}->{TEACHER_OUT}: kernel {t_ms} ms "
+          f"(bound_share {t_bound / t_ms:.4f}), plain {t_plain} ms, library "
+          f"F.interpolate + softmax().max() {t_lib} ms, bound {t_bound} ms "
+          f"({t_by})", flush=True)
+    teacher = {"shape": f"{TEACHER_SHAPE}->{TEACHER_OUT}", "ms": t_ms,
+               "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": t_bound,
+               "bound_by": t_by}
     return [{
         "name": "upsample_argmax", "route": "cuda",
         "source": "thermal_semantic_segmentation_torch/csrc/upsample_argmax.cu",
@@ -289,6 +322,7 @@ def phase_kernels():
         "max_abs_err": max_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "identity_shapes": identity,
+        "teacher_shape": teacher,
     }]
 
 
@@ -1345,9 +1379,13 @@ def phase_prototypes(card: str, root: str) -> dict:
     feat, logits = seen[0]["feat"], seen[0]["out"]
     p0 = torch.zeros((NUM_CLASSES, 256), device=dev)
     n0 = torch.zeros((NUM_CLASSES,), device=dev)
-    vectors, valid = masked_class_means(feat, logits, num_classes=NUM_CLASSES)
+    fh, fw = logits.shape[1:3]
+    vectors, valid = masked_class_means(
+        feat, *upsample_argmax(logits, fh, fw), num_classes=NUM_CLASSES)
+    # the kernel's classes included, as a prototype step takes them
     means_ms = time_ms(lambda: masked_class_means(
-        feat, logits, num_classes=NUM_CLASSES), reps=10)
+        feat, *upsample_argmax(logits, fh, fw), num_classes=NUM_CLASSES),
+        reps=10)
     fold_ms = time_ms(lambda: fold_prototypes(p0, n0, vectors, valid,
                                               mode="mean"), reps=10)
     with frozen_inference(model):
@@ -1388,6 +1426,413 @@ def aspp_branch_times(card: str) -> None:
           flush=True)
 
 
+class SeededSelfTrainTarget:
+    """What ``Freiburg(self_train=True)`` gives with ``SelfTrainAugment``
+    at the CLI's defaults, made with numpy from (seed, index): a 256x512
+    crop of the frame and its label, the 320x700 frame itself, soft maps
+    (13, 256, 512) that sum to 1, hard labels that are ignore but for two
+    blocks of the kept classes 5 and 11, and the recorded draws (every
+    other sample flipped)."""
+
+    def __init__(self, n: int, seed: int):
+        self.n, self.seed = n, seed
+
+    def __len__(self) -> int:
+        return self.n
+
+    def get(self, index: int, rng) -> dict:
+        import numpy as np
+        rng = np.random.default_rng((self.seed, index))
+        th, tw = SERVE_OUT
+        fh, fw = ST_FULL_HW
+        w = int(rng.uniform(0.5, 1.5) * 1200)
+        h = int(w / (fw / fh))
+        if w < tw or h < th:
+            resized, crop = (th, tw), (0, th, 0, tw)
+        else:
+            y1, x1 = int(rng.integers(0, h - th + 1)), int(
+                rng.integers(0, w - tw + 1))
+            resized, crop = (h, w), (y1, y1 + th, x1, x1 + tw)
+        soft = rng.random((NUM_CLASSES, th, tw), dtype=np.float32) ** 4
+        soft /= soft.sum(0)
+        hard = np.full((th, tw), IGNORE, np.int64)
+        hard[20:90, 40:200] = 5
+        hard[150:230, 300:480] = 11
+        label = rng.integers(0, NUM_CLASSES, (th, tw))
+        return {"image": rng.random((th, tw, 1), dtype=np.float32),
+                "label": label, "label_hard": hard, "label_soft": soft,
+                "image_full": rng.random((fh, fw, 1), dtype=np.float32),
+                "weak_params": {
+                    "resized_hw": np.array(resized, np.int32),
+                    "crop": np.array(crop, np.int32),
+                    "flip": np.bool_(index % 2 == 0)}}
+
+
+def phase_self_train(card: str, root: str) -> dict:
+    """Self-train the full-width model through the self-training CLI's
+    epoch loop on seeded in-memory data and check it; returns the
+    kernels' launch counts from the two epochs."""
+    import math
+    import os
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        load_seg_checkpoint)
+    from thermal_semantic_segmentation_torch.cli.cal_prototype import (
+        prototype_path)
+    from thermal_semantic_segmentation_torch.cli.options import (
+        self_train_parse)
+    from thermal_semantic_segmentation_torch.cli.self_train_main import (
+        self_train_epochs)
+    from thermal_semantic_segmentation_torch.core.checkpoint import (
+        save_checkpoint)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.utils.logging import get_logger
+
+    source = SeededImages(ST_IMAGES, SERVE_OUT, seed=7)
+    target = SeededSelfTrainTarget(ST_IMAGES, seed=8)
+    test = SeededImages(ST_VAL_IMAGES, SERVE_OUT, seed=9)
+    val_batches = math.ceil(ST_VAL_IMAGES / ST_BATCH)
+    protos0 = (np.random.default_rng(10).standard_normal(
+        (NUM_CLASSES, 256)) * 0.1).astype(np.float32)
+    save_checkpoint(prototype_path(root, "freiburg_ir", "smoke.pth"),
+                    {"objective_vectors": protos0,
+                     "counts": np.zeros(NUM_CLASSES, np.float32)})
+    logger = get_logger(os.path.join(root, "logs", "self-training"))
+
+    def run(checkpoint):
+        args = self_train_parse().parse_args(
+            ["--root", root, "--model_root_path", root, "-checkpoint_name",
+             checkpoint, "-new_checkpoint_name", "smoke_st.pth", "--epochs",
+             "1", "-max_steps", str(ST_STEPS), "-batch_size", str(ST_BATCH)])
+        loaders = [DataLoader(data, ST_BATCH, shuffle=shuffle,
+                              drop_last=shuffle, seed=args.seed + k)
+                   for k, (data, shuffle) in enumerate(
+                       ((source, True), (target, True), (test, False)))]
+        state, history = self_train_epochs(args, logger, *loaders)
+        return args, state, history
+
+    upsample_argmax.launches = 0      # counts from the main path only
+    _, state, first = run("smoke.pth")
+    saved_path = os.path.join(root, "lastsmoke_st.pth")
+    state_dict, meta = load_seg_checkpoint(saved_path)
+    ckpt_diff = [k for k, v in state.model.state_dict().items()
+                 if not torch.equal(state_dict[k], v.cpu())]
+    round_trip = (not ckpt_diff and torch.equal(
+        meta["objective_vectors"], state.prototypes.cpu())
+        and meta["highest_mean_iu"] == first[0]["best_at_end"]
+        and meta["epoch"] == first[0]["epoch"])
+    del state, state_dict
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    args, state, second = run("lastsmoke_st.pth")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    history = first + second
+    dumps = sorted(os.listdir(os.path.join(root, "predictions", "smoke_st")))
+
+    steps = sum(h["steps"] for h in history)
+    validations = sum(len(h["validations"]) for h in history)
+    losses = [x for h in history for pair in h["losses"] for x in pair]
+    print(f"self_train check: epochs {[h['epoch'] for h in history]}, steps "
+          f"{[h['steps'] for h in history]}, validations "
+          f"{[h['validations'] for h in history]}, losses (pseudo, source) "
+          f"{[h['losses'] for h in history]}; checkpoint round trip "
+          f"{'equal' if round_trip else 'DIFFERS'} (epoch {meta['epoch']}, "
+          f"highest_mean_iu {meta['highest_mean_iu']}, resumed best "
+          f"{second[0]['best_at_start']}); dumps {dumps}; launches "
+          f"{launches} for {steps} steps and {validations} validations of "
+          f"{val_batches} batches", flush=True)
+    if [h["epoch"] for h in history] != [1, 2] or \
+            [h["steps"] for h in history] != [ST_STEPS, ST_STEPS]:
+        fail(f"self-training ran epochs {[h['epoch'] for h in history]}")
+    if not (losses and all(map(math.isfinite, losses))):
+        fail("self-training: a non-finite or missing loss")
+    if not round_trip or second[0]["best_at_start"] != meta[
+            "highest_mean_iu"]:
+        fail(f"the self-training checkpoint does not round-trip: "
+             f"{ckpt_diff[:5]}")
+    if dumps != ["0_groundtruth.png", "0_image.png", "0_prediction_0.png"]:
+        fail(f"save_one dumps: {dumps}")
+    if launches["upsample_argmax"] != steps + validations * val_batches:
+        fail(f"upsample_argmax launched {launches['upsample_argmax']} times "
+             f"for {steps} steps and {validations * val_batches} validation "
+             f"batches")
+
+    batch = next(iter(self_train_batches(target, source)))
+    self_train_float64_check(state, batch)
+    self_train_step_parity()
+    h = second[0]
+    print(f"self_train: epoch {h['epoch']}, {h['target_images']} target "
+          f"images in {h['steps']} steps of {ST_BATCH} at "
+          f"{h['target_images'] / h['train_s']:.2f} images/s "
+          f"({h['train_s']:.3f} s of steps, validation apart), float32, on "
+          f"{card}", flush=True)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"self_train peak device memory: {peak_gb:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated over the resumed epoch; student "
+          f"and teacher of {n_params} parameters each) on {card}", flush=True)
+    breakdown = self_train_breakdown(state, batch)
+    print(f"self_train step breakdown: {json.dumps(breakdown)} on {card}",
+          flush=True)
+    # the epoch loop's step (host data, copies and Python included) against
+    # the device work of one step: the share of the loop the card is busy
+    loop_ms = h["train_s"] / h["steps"] * 1e3
+    device_ms = sum(v for k, v in breakdown.items()
+                    if k not in ("wall_ms", "device_idle_share"))
+    print(f"self_train loop: {loop_ms:.3f} ms a step in the resumed epoch "
+          f"against {device_ms:.3f} ms of device work a step in the "
+          f"breakdown: device busy ~{device_ms / loop_ms:.3f} of the loop, on "
+          f"{card}", flush=True)
+    return launches
+
+
+def self_train_batches(target, source):
+    """The CLI's merged batches of ``target`` and ``source`` on the card."""
+    from thermal_semantic_segmentation_torch.cli.self_train_main import (
+        merged_batches)
+    from thermal_semantic_segmentation_torch.data.device_pipeline import (
+        device_prefetch)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+
+    loaders = [DataLoader(d, ST_BATCH, shuffle=False) for d in (target,
+                                                                 source)]
+    return device_prefetch(merged_batches(*loaders), "cuda")
+
+
+def run_step(step, state, b, **kw):
+    return step(state, b["s_image"], b["s_label"], b["t_image"], b["t_full"],
+                b["t_soft"], b["t_hard"], b["wp"], **kw)
+
+
+def self_train_float64_check(state, b) -> None:
+    """One more self-training step of the full-width model (its fold at
+    momentum ``ST_CHECK_MOMENTUM``): the EMA teacher's parameters against
+    ``0.999 old + 0.001 new`` in float64 within ``EMA_ULPS`` float32 ulps,
+    its buffers equal to the student's; the prototypes against float64
+    masked means and a sequential moving-average fold from the teacher's
+    own features and the kernel's classes (rel err ``PROTO_RTOL``), the
+    counts exact; the teacher's logits of the shape the kernels phase
+    times."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_reference)
+    from thermal_semantic_segmentation_torch.ops.resize import (
+        resize_bilinear, upsample_logits)
+    from thermal_semantic_segmentation_torch.train.self_train import (
+        make_self_train_step)
+
+    step = make_self_train_step(num_classes=NUM_CLASSES, ignore_index=IGNORE,
+                                base_lr=ST_LR,
+                                proto_momentum=ST_CHECK_MOMENTUM)
+    every = [k for k, _ in state.teacher.named_parameters()]
+    names = ["conv1.weight", every[len(every) // 2], "layer5.head.1.weight",
+             "bn1.weight"]
+    old = {k: v.detach().double().cpu()
+           for k, v in state.teacher.named_parameters() if k in names}
+    protos = state.prototypes.double().cpu().numpy()
+    counts = state.proto_counts.double().cpu().numpy()
+    seen = []
+    hook = state.teacher.register_forward_hook(lambda m, i, out: seen.append(
+        {k: v.float().permute(0, 2, 3, 1).clone() for k, v in out.items()}))
+    run_step(step, state, b)
+    hook.remove()
+    torch.cuda.synchronize()
+
+    new_student = dict(state.model.named_parameters())
+    new_teacher = dict(state.teacher.named_parameters())
+    ema_ulps = 0.0
+    for k in names:
+        want = 0.999 * old[k] + 0.001 * new_student[k].detach().double().cpu()
+        got = new_teacher[k].detach().double().cpu()
+        ulp = torch.from_numpy(np.spacing(want.float().abs().numpy())).double()
+        ema_ulps = max(ema_ulps, float(((got - want).abs() / ulp).max()))
+    buffers_equal = all(torch.equal(a, b_) for a, b_ in zip(
+        state.teacher.buffers(), state.model.buffers()))
+
+    logits = seen[0]["out"]
+    fh, fw = b["t_full"].shape[1] // 4, b["t_full"].shape[2] // 4
+    pred, _ = upsample_argmax(logits, fh, fw)
+    want_pred, _ = upsample_argmax_reference(logits, fh, fw)
+    top2 = upsample_logits(logits, fh, fw).topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > TIE_GAP
+    wrong = int(((pred != want_pred) & decided).sum())
+    feat = resize_bilinear(seen[0]["feat"], fh, fw).double().cpu().numpy()
+    pred = pred.cpu().numpy()
+    n = feat.shape[0]
+    for i in range(n):
+        onehot = (pred[i].reshape(-1)[:, None] == np.arange(NUM_CLASSES))
+        cnt = onehot.sum(0)
+        vec = (onehot.T.astype(np.float64) @ feat[i].reshape(fh * fw, -1)) \
+            / np.maximum(cnt, 1)[:, None]
+        ok = (cnt >= 10) & (vec.sum(1) != 0.0)
+        protos[ok] = (protos[ok] * (1.0 - ST_CHECK_MOMENTUM)
+                      + ST_CHECK_MOMENTUM * vec[ok])
+        counts[ok] = np.minimum(counts[ok] + 1.0, 3000.0)
+    got = state.prototypes.double().cpu().numpy()
+    rel_err = float(np.abs(got - protos).max() / np.abs(protos).max())
+    counts_equal = np.array_equal(state.proto_counts.cpu().numpy(), counts)
+    print(f"self_train float64 check: teacher logits "
+          f"{tuple(logits.shape)} -> ({fh}, {fw}); EMA teacher vs float64 "
+          f"{ema_ulps:.3f} float32 ulps over {names}, buffers "
+          f"{'equal' if buffers_equal else 'DIFFER'}; kernel classes vs "
+          f"plain outside {int((~decided).sum())} near-ties: {wrong} pixels; "
+          f"prototypes rel err {rel_err:.3g}, counts "
+          f"{state.proto_counts.cpu().numpy().astype(int).tolist()} "
+          f"({'equal' if counts_equal else counts.tolist()})", flush=True)
+    if tuple(logits.shape) != TEACHER_SHAPE or (fh, fw) != TEACHER_OUT:
+        fail(f"the teacher's logits {tuple(logits.shape)} -> ({fh}, {fw}) "
+             f"are not the kernels phase's {TEACHER_SHAPE} -> {TEACHER_OUT}")
+    if ema_ulps > EMA_ULPS or not buffers_equal:
+        fail(f"EMA teacher: {ema_ulps} ulps, buffers equal {buffers_equal}")
+    if wrong:
+        fail(f"the teacher's kernel classes disagree at {wrong} pixels")
+    if not (rel_err <= PROTO_RTOL and counts_equal and counts.sum() > 0):
+        fail(f"moving prototypes vs float64: rel err {rel_err}, counts "
+             f"{state.proto_counts.tolist()} vs {counts.tolist()}")
+
+
+def self_train_step_parity() -> None:
+    """One self-training step of a tiny model (layers 1,1,1,1, label_hw
+    64x128, 80x176 frames, batch 2, dropout off, fold momentum
+    ``ST_CHECK_MOMENTUM``, lr ``TRAIN_LR``) on the card and on the CPU
+    from the same weights and batch: losses within rtol ``LOSS_RTOL``;
+    each parameter inside one step's lr envelope wherever the CPU's
+    gradient is at least 1e-4 (elsewhere float noise may flip the sign of
+    Adam's first step: at most 0.05% outside, none past 2 x lr); the EMA
+    teacher within 0.001 x 2 lr, BatchNorm buffers within lr; prototypes
+    rel err ``PROTO_RTOL``, counts equal."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.train.self_train import (
+        create_self_train_state, make_self_train_step)
+
+    rng = np.random.default_rng(11)
+    hw, full = PARITY_HW, (80, 176)
+    soft = rng.random((2, NUM_CLASSES, *hw), dtype=np.float32) ** 4
+    hard = np.full((2, *hw), IGNORE, np.int64)
+    hard[0, 10:30, 20:60], hard[1, 40:60, 90:120] = 5, 11
+    batch = {"s_image": rng.random((2, *hw, 1), dtype=np.float32),
+             "s_label": rng.integers(0, NUM_CLASSES, (2, *hw)),
+             "t_image": rng.random((2, *hw, 1), dtype=np.float32),
+             "t_full": rng.random((2, *full, 1), dtype=np.float32),
+             "t_soft": soft / soft.sum(1, keepdims=True), "t_hard": hard,
+             "wp": {"resized_hw": np.array([[96, 160], [120, 200]], np.int32),
+                    "crop": np.array([[8, 72, 16, 144], [4, 68, 8, 136]],
+                                     np.int32),
+                    "flip": np.array([True, False])}}
+    protos = (rng.standard_normal((NUM_CLASSES, 256)) * 0.1).astype(
+        np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = create_deeplab(12, device=dev, layers=(1, 1, 1, 1))
+        model.layer5.head[0].p = 0.0
+        state = create_self_train_state(model, prototypes=protos,
+                                        learning_rate=TRAIN_LR, device=dev)
+        step = make_self_train_step(
+            num_classes=NUM_CLASSES, ignore_index=IGNORE, base_lr=TRAIN_LR,
+            train_thred=0.1, label_hw=hw, proto_momentum=ST_CHECK_MOMENTUM,
+            device=dev)
+        b = {k: ({kk: torch.from_numpy(vv).to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else torch.from_numpy(v).to(dev))
+             for k, v in batch.items()}
+        lp, ls = run_step(step, state, b)
+        out[dev] = dict(
+            losses=[float(lp), float(ls)],
+            grads={n: p.grad.detach().cpu() for n, p in
+                   model.named_parameters()},
+            student={k: v.detach().cpu() for k, v in
+                     model.state_dict().items()},
+            teacher={k: v.detach().cpu() for k, v in
+                     state.teacher.state_dict().items()},
+            protos=state.prototypes.cpu(), counts=state.proto_counts.cpu())
+    card, cpu = out["cuda"], out["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                       cpu["losses"]))
+    outside = total = 0
+    worst = teacher_err = buffer_err = 0.0
+    sure_ok = True
+    for k, v in card["student"].items():
+        diff = (v.double() - cpu["student"][k].double()).abs()
+        tdiff = (card["teacher"][k].double()
+                 - cpu["teacher"][k].double()).abs()
+        if k in cpu["grads"]:
+            ratio = diff / TRAIN_LR
+            worst = max(worst, float(ratio.max()))
+            outside += int((ratio > 1.0).sum())
+            total += ratio.numel()
+            sure = cpu["grads"][k].abs() >= 1e-4
+            sure_ok &= bool((ratio[sure] <= 1.0).all())
+            teacher_err = max(teacher_err, float(tdiff.max()))
+        else:
+            buffer_err = max(buffer_err, float(diff.max()), float(tdiff.max()))
+    proto_err = float((card["protos"] - cpu["protos"]).abs().max()
+                      / cpu["protos"].abs().max())
+    counts_equal = torch.equal(card["counts"], cpu["counts"])
+    print(f"self_train parity card vs CPU: losses {card['losses']} vs "
+          f"{cpu['losses']} (rel err {loss_err:.3g}); {outside} of {total} "
+          f"parameters outside the one-step lr envelope (worst {worst:.4f} "
+          f"of it; those with a gradient >= 1e-4 "
+          f"{'all inside' if sure_ok else 'NOT all inside'}); EMA teacher "
+          f"max abs err {teacher_err:.3g}, BatchNorm buffers {buffer_err:.3g}; "
+          f"prototypes rel err {proto_err:.3g}, counts "
+          f"{'equal' if counts_equal else 'DIFFER'}", flush=True)
+    if not loss_err <= LOSS_RTOL:
+        fail("self-training step losses on the card differ from the CPU's")
+    if (not sure_ok or outside > 5e-4 * total or worst > 2.01
+            or not teacher_err <= 0.002 * TRAIN_LR + 1e-6
+            or not buffer_err <= TRAIN_LR):
+        fail("the card's self-training step left the CPU's lr envelope")
+    if not (proto_err <= PROTO_RTOL and counts_equal):
+        fail("the card's moving prototypes differ from the CPU's")
+
+
+def self_train_breakdown(state, b, reps: int = 5) -> dict:
+    """Median per-stage times of one batch-4 self-training step at the
+    CLI's settings, its stages bracketed by CUDA events at the marks the
+    step sets (teacher forward, rectification, the student's source and
+    target passes, backward, Adam, masked means + fold, EMA); and the host
+    wall time of the whole step, whose remainder is device idle time."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.train.self_train import (
+        make_self_train_step)
+
+    step = make_self_train_step(num_classes=NUM_CLASSES, ignore_index=IGNORE,
+                                base_lr=ST_LR, proto_momentum=1e-4)
+    rows, stages = [], []
+    for _ in range(reps):
+        marks = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        run_step(step, state, b, mark=mark)
+        marks[-1][1].synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        stages = [f"{name}_ms" for name, _ in marks[1:]]
+        times = [a.elapsed_time(b_) for (_, a), (_, b_) in zip(marks,
+                                                               marks[1:])]
+        rows.append(times + [wall, 1.0 - sum(times) / wall])
+    med = np.median(np.asarray(rows), axis=0)
+    return dict(zip(stages + ["wall_ms", "device_idle_share"],
+                    (float(v) for v in med)))
+
 
 
 def main() -> int:
@@ -1408,6 +1853,7 @@ def main() -> int:
                    f"{root}/smoke.pth")
         by_path["pseudo"] = phase_pseudo(card, root)
         by_path["prototypes"] = phase_prototypes(card, root)
+        by_path["self_train"] = phase_self_train(card, root)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]]
                                  for path, launches in by_path.items()}

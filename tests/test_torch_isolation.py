@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -16,7 +17,9 @@ torch = pytest.importorskip("torch")
 import thermal_semantic_segmentation_torch as port  # noqa: E402
 from thermal_semantic_segmentation_torch.cli import (  # noqa: E402
     cal_prototype, generate_pseudo_label, segmentation_evaluate,
-    segmentation_train)
+    segmentation_train, self_train_main)
+from thermal_semantic_segmentation_torch.data.device_pipeline import (  # noqa: E402,E501
+    device_prefetch)
 from thermal_semantic_segmentation_torch.eval.validate import (  # noqa: E402
     seg_validate)
 from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
@@ -29,6 +32,8 @@ from thermal_semantic_segmentation_torch.train.pseudo import (  # noqa: E402
     generate_pseudo_labels)
 from thermal_semantic_segmentation_torch.train.seg import (  # noqa: E402
     build_seg_eval_step, create_seg_state, make_seg_train_step)
+from thermal_semantic_segmentation_torch.train.self_train import (  # noqa: E402,E501
+    create_self_train_state, make_self_train_step)
 
 BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack",
           "thermal_semantic_segmentation_tpu")
@@ -64,7 +69,9 @@ def test_importing_every_module_loads_no_banned_package():
                 "utils.meters", "utils.logging", "utils.observability",
                 "core.checkpoint", "data.png", "data.simple",
                 "ops.class_means", "train.pseudo", "train.prototypes",
-                "cli.generate_pseudo_label", "cli.cal_prototype"):
+                "cli.generate_pseudo_label", "cli.cal_prototype",
+                "data.self_train_aug", "train.self_train",
+                "cli.self_train_main"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -82,7 +89,8 @@ def test_importing_every_module_loads_no_banned_package():
     "create_deeplab", "InferenceServer", "build_seg_eval_step",
     "seg_validate", "seg_evaluation", "make_seg_train_step",
     "create_seg_state", "segmentation_train", "generate_pseudo_labels",
-    "calc_prototypes", "generate_pseudo_label", "cal_prototype"])
+    "calc_prototypes", "generate_pseudo_label", "cal_prototype",
+    "make_self_train_step", "create_self_train_state", "self_train_main"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -112,6 +120,16 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             generate_pseudo_label.main([])
         elif entry == "cal_prototype":
             cal_prototype.main([])
+        elif entry == "make_self_train_step":
+            make_self_train_step(num_classes=13, ignore_index=12,
+                                 base_lr=1e-6)
+        elif entry == "create_self_train_state":
+            create_self_train_state(
+                create_deeplab(0, device="cpu", layers=(1, 1, 1, 1)),
+                prototypes=np.zeros((13, 256), np.float32),
+                learning_rate=1e-6)
+        elif entry == "self_train_main":
+            self_train_main.main([])
         else:
             segmentation_evaluate.main(["-dataset", "freiburg_ir"])
 
@@ -155,6 +173,59 @@ def test_pseudo_and_prototype_clis_refuse_flags_not_yet_ported(cli, argv,
     assert exit_info.value.code != 0
     err = capsys.readouterr().err
     assert f"error: {argv[0]} " in err and "is not yet ported" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--distributed", "true"], ["--data_parallel", "true"],
+    ["--native_decode", "true"], ["--wire", "packed_bf16"],
+    ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"],
+    ["--remat", "full"]])
+def test_self_train_cli_refuses_flags_not_yet_ported(argv, capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        self_train_main.main(argv + ["--device", "cpu"])
+    assert exit_info.value.code != 0
+    err = capsys.readouterr().err
+    assert f"error: {argv[0]} " in err and "is not yet ported" in err
+
+
+def test_device_prefetch_carries_nested_dicts():
+    """A nested dict of arrays (self-training's weak_params) arrives as
+    tensors; a flat batch arrives as before, other values untouched."""
+    flat = {"image": np.ones((2, 3), np.float32), "img_path": ["a", "b"]}
+    nested = dict(flat, weak_params={
+        "crop": np.arange(8, dtype=np.int32).reshape(2, 4),
+        "flip": np.array([True, False]), "deeper": {"x": np.zeros(2)}})
+    got = list(device_prefetch([flat, nested], "cpu"))
+    assert got[0].keys() == flat.keys() and got[0]["img_path"] == ["a", "b"]
+    assert torch.equal(got[0]["image"], torch.ones((2, 3)))
+    wp = got[1]["weak_params"]
+    assert torch.equal(wp["crop"], torch.arange(8, dtype=torch.int32)
+                       .reshape(2, 4))
+    assert wp["flip"].dtype == torch.bool and wp["flip"].tolist() == [
+        True, False]
+    assert torch.equal(wp["deeper"]["x"], torch.zeros(2, dtype=torch.float64))
+
+
+def test_validation_dumps_load_no_pil(tmp_path):
+    """seg_validate's save_all dumps, as the self-training CLI writes its
+    save_one dumps, need no PIL (the card's machine has none)."""
+    code = (
+        "import sys, numpy as np\n"
+        "from thermal_semantic_segmentation_torch.eval.validate import "
+        "seg_validate\n"
+        "from thermal_semantic_segmentation_torch.models.deeplab import "
+        "create_deeplab\n"
+        "m = create_deeplab(0, device='cpu', layers=(1, 1, 1, 1))\n"
+        "b = [{'image': np.zeros((1, 16, 32, 1), np.float32),"
+        " 'label': np.zeros((1, 16, 32), np.int64)}]\n"
+        f"seg_validate(m, b, device='cpu', visualize='save_all', "
+        f"save_root={str(tmp_path)!r})\n"
+        "sys.exit(1 if 'PIL' in sys.modules else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "0_groundtruth.png", "0_image.png", "0_prediction.png"]
 
 
 def test_train_step_refuses_modes_not_yet_ported():

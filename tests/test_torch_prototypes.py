@@ -19,6 +19,8 @@ from thermal_semantic_segmentation_tpu.ops import (  # noqa: E402
     class_means as jax_class_means)
 from thermal_semantic_segmentation_tpu.train.prototypes import (  # noqa: E402
     calc_prototypes as jax_calc_prototypes)
+from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (  # noqa: E402
+    upsample_argmax)
 from thermal_semantic_segmentation_torch.ops.class_means import (  # noqa: E402
     MAX_PROTOTYPE_COUNT, fold_prototypes, masked_class_means)
 from thermal_semantic_segmentation_torch.train.prototypes import (  # noqa: E402
@@ -45,8 +47,10 @@ def test_masked_class_means_match_jax(thresh, with_labels):
     want_v, want_ok = jax_class_means.masked_class_means(
         jnp.asarray(feat), jnp.asarray(logits),
         labels=None if labels is None else jnp.asarray(labels), **kw)
+    # the port takes the classes from the kernel, as its prototype step does
+    pred, conf = upsample_argmax(torch.from_numpy(logits), h, w)
     got_v, got_ok = masked_class_means(
-        torch.from_numpy(feat), torch.from_numpy(logits),
+        torch.from_numpy(feat), pred, conf,
         labels=None if labels is None else torch.from_numpy(labels), **kw)
     want_ok = np.asarray(want_ok)
     assert got_v.shape == (n, C, f) and got_v.dtype == torch.float32

@@ -7,6 +7,7 @@ import os
 import re
 import tempfile
 import zipfile
+from typing import Optional
 
 import numpy as np
 import torch
@@ -132,16 +133,28 @@ def load_seg_checkpoint(path: str):
 
 
 def save_seg_checkpoint(path: str, state_dict, *, epoch: int,
-                        val_loss: float) -> None:
+                        val_loss: Optional[float] = None,
+                        highest_mean_iu: Optional[float] = None,
+                        objective_vectors=None) -> None:
     """Write the reference seg ``.pth`` schema ``{'epoch',
     'sem_net_state_dict', 'val_loss'}`` (reference
     segmentation_train.py:182-190), tensors on the CPU, atomically: into a
     temporary file beside ``path``, then ``os.replace``. The state_dict
-    carries the architecture (``model_meta_from_state_dict``)."""
+    carries the architecture (``model_meta_from_state_dict``). The
+    self-training saves carry ``highest_mean_iu`` and the moving prototypes
+    ``objective_vectors`` (a float32 CPU tensor) instead of ``val_loss``
+    (JAX cli/self_train_main.py:120-127); a key left at None is not
+    written."""
     payload = {"epoch": int(epoch),
                "sem_net_state_dict": {k: v.detach().cpu()
-                                      for k, v in state_dict.items()},
-               "val_loss": float(val_loss)}
+                                      for k, v in state_dict.items()}}
+    if val_loss is not None:
+        payload["val_loss"] = float(val_loss)
+    if highest_mean_iu is not None:
+        payload["highest_mean_iu"] = float(highest_mean_iu)
+    if objective_vectors is not None:
+        payload["objective_vectors"] = torch.as_tensor(
+            objective_vectors, dtype=torch.float32).detach().cpu().clone()
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")

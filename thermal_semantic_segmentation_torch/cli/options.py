@@ -213,3 +213,58 @@ def pseudo_generation_parse():
     parser.add_argument('-max_steps', type=int, default=0)
     _add_roots(parser)
     return parser
+
+
+def self_train_parse():
+    """Self-training options (reference self_train_main.py:145-181), with
+    the two the JAX ``cli/self_train_main.main`` adds:
+    ``--initial_best_miou`` and ``--early_stop_patience``."""
+    parser = HostConfigParser(description="config")
+    parser.add_argument('--root', type=str, default='')
+    parser.add_argument('--resize', type=int, default=1200)
+    parser.add_argument('--rcrop', type=int, nargs=2, default=[512, 256])
+    parser.add_argument('--hflip', type=float, default=0.5)
+    parser.add_argument('--proto_rectify', type=str2bool, default=True)
+    parser.add_argument('--load_model', type=str2bool, default=True)
+    parser.add_argument('-checkpoint_name',
+                        default='256_freiburg_rgb2ir_segmentation.pth')
+    parser.add_argument(
+        '-new_checkpoint_name',
+        default='256_freiburg_rgb2ir_tem_0.5_thres_0.3_segmentation.pth')
+    parser.add_argument('-batch_size', type=int, default=4)
+    parser.add_argument('--use_saved_pseudo', type=str2bool, default=True)
+    parser.add_argument('--self_train', type=str2bool, default=True)
+    parser.add_argument('--path_soft', type=str, default='')
+    parser.add_argument('--path_lp', type=str, default='')
+    parser.add_argument('-pseudo_type', default='soft')
+    parser.add_argument('-translation_name', type=str,
+                        default='freiburg_rgb2ir_130epochs')
+    parser.add_argument('--epochs', type=int, default=10)
+    parser.add_argument('--lr', type=float, default=0.000001)
+    parser.add_argument('--num_classes', type=int, default=13)
+    parser.add_argument('--ignore_index', type=int, default=12)
+    parser.add_argument('--ema', type=str2bool, default=True)
+    parser.add_argument('--proto_temperature', type=float, default=0.5)
+    parser.add_argument('--train_thred', type=float, default=0)
+    parser.add_argument('--rce', type=str2bool, default=True)
+    parser.add_argument('--rce_alpha', type=float, default=0.1)
+    parser.add_argument('--rce_beta', type=float, default=1.0)
+    parser.add_argument('--moving_prototype', type=str2bool, default=True)
+    parser.add_argument('--proto_momentum', type=float, default=0.0001)
+    parser.add_argument('--visualize_prediction', default='save_one')
+    parser.add_argument('--iter_counter', type=int, default=0)
+    parser.add_argument('--baseline', type=str2bool, default=False)
+    parser.add_argument('--generator_type', default=None)
+    parser.add_argument('--target_dataset', default='freiburg_ir')
+    parser.add_argument('--threshold', type=float, default=0.3)
+    parser.add_argument('--val_interval', type=int, default=500)
+    parser.add_argument('-max_steps', type=int, default=0)
+    parser.add_argument('--initial_best_miou', type=float, default=0.0,
+                        help='save threshold (the reference hardcodes 0.52, '
+                             'self_train_main.py:53).')
+    parser.add_argument('--early_stop_patience', type=int, default=0,
+                        help='stop after N consecutive non-improving target '
+                             'validations (0 = off, the reference '
+                             'behaviour).')
+    _add_roots(parser)
+    return parser

@@ -19,22 +19,34 @@ import torch
 def device_prefetch(batches: Iterable[dict], device, *,
                     size: int = 2) -> Iterator[dict]:
     """Yield ``batches`` with their numpy arrays as tensors on ``device``
-    (other values pass through), ``size`` copies in flight. On a CUDA
+    (nested dicts of arrays too, such as self-training's ``weak_params``;
+    other values pass through), ``size`` copies in flight. On a CUDA
     device, a yielded batch is ready for the current stream."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     stream = torch.cuda.Stream(device) if cuda else None
 
-    def put(batch):
-        out, ready = {}, None
+    def to_device(v):
+        if isinstance(v, dict):
+            return {k: to_device(x) for k, x in v.items()}
+        if not isinstance(v, np.ndarray):
+            return v
         if not cuda:
-            return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
-                    for k, v in batch.items()}, ready
+            return torch.from_numpy(v)
+        return torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+
+    def tensors(v):
+        if isinstance(v, dict):
+            for x in v.values():
+                yield from tensors(x)
+        elif isinstance(v, torch.Tensor):
+            yield v
+
+    def put(batch):
+        if not cuda:
+            return to_device(batch), None
         with torch.cuda.stream(stream):
-            for k, v in batch.items():
-                out[k] = (torch.from_numpy(v).pin_memory().to(
-                    device, non_blocking=True)
-                    if isinstance(v, np.ndarray) else v)
+            out = to_device(batch)
             ready = stream.record_event()
         return out, ready
 
@@ -43,11 +55,10 @@ def device_prefetch(batches: Iterable[dict], device, *,
         if ready is not None:
             current = torch.cuda.current_stream(device)
             current.wait_event(ready)
-            for v in batch.values():
-                if isinstance(v, torch.Tensor):
-                    # made on the side stream, used on this one: the
-                    # allocator must not reuse it before this stream is done
-                    v.record_stream(current)
+            for v in tensors(batch):
+                # made on the side stream, used on this one: the
+                # allocator must not reuse it before this stream is done
+                v.record_stream(current)
         return batch
 
     it = iter(batches)

@@ -66,11 +66,22 @@ def load_label(path: str):
 
 class Freiburg:
     """Train-split Freiburg (reference data/freiburg_dataset.py:12-152), in
-    plain IR or RGB mode and in translation mode (``segmentation_mode=True``:
+    plain IR or RGB mode, in translation mode (``segmentation_mode=True``:
     the RGB frames' translated copies under ``translation_name``, with the
-    RGB labels). The offline-translator mode (``translation_mode``), the
-    self-training mode (``self_train``) and the native batch decoder
-    (``native_decode``) are not yet ported and raise."""
+    RGB labels) and in self-training mode (``self_train=True``, below). The
+    offline-translator mode (``translation_mode``) and the native batch
+    decoder (``native_decode``) are not yet ported and raise.
+
+    Self-training mode (reference :107-134) reads the IR frame and its
+    label, the hard pseudo-label PNG under ``path_lp`` and, with
+    ``proto_rectify``, the soft maps ``.npy`` under ``path_soft``. With a
+    ``threshold``, the hard labels whose ``_conf.npy`` confidence is at most
+    the threshold become ``ignore_index``, only ``hard_keep_classes`` are
+    kept (the reference's (5, 11)), and the map is resized NEAREST to the
+    frame's size. ``augmentations`` (``data/self_train_aug
+    .SelfTrainAugment``) then transforms them together; a sample also
+    carries the frame before augmentation (``image_full``) and the recorded
+    draws (``weak_params``)."""
 
     def __init__(self, root: str, split: str, domain: str, *,
                  transforms: Optional[Callable] = None,
@@ -78,10 +89,15 @@ class Freiburg:
                  segmentation_mode: bool = False,
                  translation_mode: bool = False,
                  translation_name: str = "translation",
-                 self_train: bool = False, native_decode: bool = False):
+                 self_train: bool = False,
+                 augmentations: Optional[Callable] = None,
+                 path_soft: Optional[str] = None,
+                 path_lp: Optional[str] = None, threshold: float = 0.0,
+                 ignore_index: int = 12, proto_rectify: bool = True,
+                 hard_keep_classes: Sequence[int] = (5, 11),
+                 native_decode: bool = False):
         for flag, name, slice_ in (
                 (translation_mode, "translation_mode", "translator"),
-                (self_train, "self_train", "self-training"),
                 (native_decode, "native_decode", "native loader")):
             if flag:
                 raise NotImplementedError(
@@ -106,6 +122,14 @@ class Freiburg:
         self.grayscale = grayscale
         self.segmentation_mode = segmentation_mode
         self.translation_name = translation_name
+        self.self_train = self_train
+        self.augmentations = augmentations
+        self.path_soft = path_soft
+        self.path_lp = path_lp
+        self.threshold = threshold
+        self.ignore_index = ignore_index
+        self.proto_rectify = proto_rectify
+        self.hard_keep_classes = tuple(hard_keep_classes)
 
     def __len__(self) -> int:
         return len(self.data_list)
@@ -120,6 +144,8 @@ class Freiburg:
         return os.path.join(self.root, *parts)
 
     def _load_image(self, image_name: str):
+        if self.self_train:
+            return load_ir_image(image_name)
         if self.segmentation_mode:
             Image = _pil_image()
             return Image.fromarray(np.asarray(Image.open(
@@ -143,10 +169,49 @@ class Freiburg:
             out["image"], _ = self.transforms(rng, image, None)
             return out
         label = load_label(self.label_list[index])
+        if self.self_train:
+            return self._self_train_sample(out, image, label, rng)
         img, lab = self.transforms(rng, image, label)
         out["image"] = img
         out["label"] = np.asarray(lab, dtype=np.int64)
         return out
+
+    def _self_train_sample(self, out: dict, image, label, rng) -> dict:
+        Image = _pil_image()
+        name = out["img_path"]
+        label_soft = None
+        if self.proto_rectify:
+            label_soft = np.load(os.path.join(
+                self.path_soft, name.replace(".png", ".npy")))
+        label_hard = np.array(Image.open(os.path.join(self.path_lp, name)),
+                              dtype=np.uint8)
+        if self.threshold:
+            conf = np.load(os.path.join(self.path_lp,
+                                        name.replace(".png", "_conf.npy")))
+            label_hard[conf <= self.threshold] = self.ignore_index
+            keep = np.full(label_hard.shape, self.ignore_index, np.uint8)
+            for cid in self.hard_keep_classes:
+                keep[label_hard == cid] = cid
+            label_hard = np.array(Image.fromarray(keep).resize(
+                image.size, Image.NEAREST), dtype=np.uint8)
+        image_full = np.asarray(image, dtype=np.float32)
+        img, mask, mask_hard, lpsoft, params = self.augmentations(
+            rng, image, np.array(label, dtype=np.uint8), label_hard,
+            label_soft)
+        out["image"] = _with_channel(img)
+        out["label"] = mask
+        if mask_hard is not None:
+            out["label_hard"] = mask_hard
+        if lpsoft is not None:
+            out["label_soft"] = lpsoft
+        out["weak_params"] = params
+        out["image_full"] = _with_channel(image_full)
+        return out
+
+
+def _with_channel(arr: np.ndarray) -> np.ndarray:
+    """HW(C) float32 -> HWC with an explicit channel axis."""
+    return arr[..., None] if arr.ndim == 2 else arr
 
 
 class FreiburgTest:

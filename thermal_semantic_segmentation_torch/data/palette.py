@@ -26,10 +26,11 @@ def freiburg_palette() -> list:
     return palette
 
 
-def colorize_prediction(prediction: np.ndarray, palette=None):
-    """Class-id map -> palettised PIL image (P mode)."""
-    from PIL import Image
+def colorize_prediction(prediction: np.ndarray, palette=None) -> bytes:
+    """Class-id map -> the bytes of an 8-bit palette PNG (the JAX package's
+    palettised PIL image, written without PIL by ``data/png.py``); ids are
+    taken modulo 256, as ``astype(uint8)`` takes them."""
+    from .png import palette_png_bytes
 
-    img = Image.fromarray(np.asarray(prediction).astype(np.uint8)).convert("P")
-    img.putpalette(palette or freiburg_palette())
-    return img
+    return palette_png_bytes(np.asarray(prediction).astype(np.uint8),
+                             palette or freiburg_palette())

@@ -5,7 +5,8 @@ confusion-matrix accumulation, then (mean_iu, val_loss, cls_iu) under the
 ``iu[:11]`` Freiburg rule. The confusion matrix (int64) and the loss sum
 accumulate on the device; they reach the host once, at the end. Optional
 palette-PNG dumps follow the reference layout
-(``<save_root>/<i>_prediction.png`` / ``_image.png`` / ``_groundtruth.png``).
+(``<save_root>/<i>_prediction.png`` / ``_image.png`` / ``_groundtruth.png``),
+written by ``data/png.py`` (no PIL).
 
 A ragged tail batch runs at its own size. The JAX package pads it with zero
 images labelled ``ignore_index`` to keep one compiled shape; those pixels
@@ -24,6 +25,7 @@ import torch
 
 from ..data.device_pipeline import device_prefetch
 from ..data.palette import colorize_prediction, freiburg_palette
+from ..data.png import write_gray_png, write_rgb_png
 from ..device import resolve_device
 from ..train.seg import build_seg_eval_step
 from .metrics import scores_from_hist
@@ -70,16 +72,18 @@ def seg_validate(model, loader, *, num_classes: int = 13,
             os.makedirs(save_root, exist_ok=True)
             if visualize == "save_all" or (visualize == "save_one" and i == 0):
                 suffix = f"_{iter_counter}" if visualize == "save_one" else ""
-                colorize_prediction(pred[0].cpu().numpy(), palette).save(
-                    os.path.join(save_root, f"{i}_prediction{suffix}.png"))
-                colorize_prediction(label[0].cpu().numpy(), palette).save(
-                    os.path.join(save_root, f"{i}_groundtruth.png"))
+                for name, ids in ((f"{i}_prediction{suffix}.png", pred[0]),
+                                  (f"{i}_groundtruth.png", label[0])):
+                    with open(os.path.join(save_root, name), "wb") as f:
+                        f.write(colorize_prediction(ids.cpu().numpy(),
+                                                    palette))
                 img8 = np.clip(image[0].cpu().numpy() * 255.0, 0,
                                255).astype(np.uint8)
-                from PIL import Image
-                Image.fromarray(img8.squeeze(-1) if img8.shape[-1] == 1
-                                else img8).save(
-                    os.path.join(save_root, f"{i}_image.png"))
+                path = os.path.join(save_root, f"{i}_image.png")
+                if img8.shape[-1] == 1:
+                    write_gray_png(path, img8[..., 0])
+                else:
+                    write_rgb_png(path, img8)
 
     scores = scores_from_hist(hist.cpu().numpy())
     val_loss = float(loss_sum) / max(n_seen, 1)

@@ -1,10 +1,13 @@
-"""Loss functions (counterpart of the JAX ``losses/__init__.py``; only the
-pixel cross entropy so far, the other losses come with their slices).
+"""Loss functions (counterpart of the JAX ``losses/__init__.py``; the pixel
+cross entropy and self-training's reverse cross entropy so far, the other
+losses come with their slices).
 
 Segmentation losses take NHWC logits and (N, H, W) integer labels.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,3 +31,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     nll = -logp.gather(-1, picked).squeeze(-1)
     nll = torch.where(valid, nll, 0.0)
     return nll.sum() / valid.sum().clamp_min(1)
+
+
+def reverse_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                          num_classes: int, ignore_index: int) -> torch.Tensor:
+    """Symmetric reverse CE of self-training (reference
+    self_training.py:167-174):
+    ``-sum_valid(sum_c p_c * log(clip(onehot_c, 1e-4, 1))) / (n_valid + 1e-6)``
+    with ``p = clip(softmax(logits), 1e-7, 1)``.
+
+    logits: (N, H, W, C); labels: (N, H, W) int. A pixel is valid where its
+    label is not ``ignore_index``. The one-hot has ``num_classes + 1``
+    columns, the last dropped, as in the JAX package: a label outside
+    [0, num_classes) has no class (an all-1e-4 row).
+    """
+    p = torch.softmax(logits.float(), dim=-1).clamp(1e-7, 1.0)
+    labels = labels.long()
+    mask = (labels != ignore_index).float()
+    onehot = labels[..., None] == torch.arange(num_classes,
+                                               device=labels.device)
+    log_onehot = torch.where(onehot, 0.0, math.log(1e-4))
+    per_pix = -(p * log_onehot).sum(dim=-1)
+    return (per_pix * mask).sum() / (mask.sum() + 1e-6)

@@ -1,12 +1,13 @@
 """Masked per-class feature means and the sequential prototype fold
 (counterpart of the JAX ``ops/class_means.py``).
 
-The per-pixel class and confidence come from the ``upsample_argmax`` kernel
-at the logits' own size (its 2-tap tables are then the identity), the
-per-class sums from one batched matmul of the one-hot masks with the
-features. The fold keeps the reference's sample-major, class-minor order:
-within one sample each class appears once, so a step over the samples that
-updates all classes at once is the same sequence. Nothing leaves the device.
+The per-pixel class and confidence are the caller's: the ``upsample_argmax``
+kernel's, at the logits' own size or at the features' (the JAX function
+takes the logits and argmaxes them itself). The per-class sums come from one
+batched matmul of the one-hot masks with the features. The fold keeps the
+reference's sample-major, class-minor order: within one sample each class
+appears once, so a step over the samples that updates all classes at once
+is the same sequence. Nothing leaves the device.
 """
 
 from __future__ import annotations
@@ -15,35 +16,34 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.upsample_argmax import upsample_argmax
-
 MAX_PROTOTYPE_COUNT = 3000.0  # reference cal_prototype.py:93 momentum-regime
 # cap: the one source for every fold and merge that must respect it
 
 
-def masked_class_means(feat: torch.Tensor, outputs: torch.Tensor, *,
-                       num_classes: int, thresh: Optional[float] = None,
+def masked_class_means(feat: torch.Tensor, pred: torch.Tensor,
+                       conf: torch.Tensor, *, num_classes: int,
+                       thresh: Optional[float] = None,
                        labels: Optional[torch.Tensor] = None,
                        min_pixels: int = 10
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample per-class means of ``feat`` over the predicted regions.
 
-    feat: (N, H, W, F); outputs: (N, H, W, C) float32 logits (same H, W).
+    feat: (N, H, W, F); pred, conf: (N, H, W) per-pixel class and
+    max-softmax confidence (the ``upsample_argmax`` kernel's at (H, W)).
     labels: optional (N, H, W) ground truth; a pixel then counts only where
     the prediction and the label agree (labels outside [0, C) count
     nowhere). thresh: when set and >= 0, a pixel adds to the sums only if
-    its max-softmax confidence is at least ``thresh``.
+    its confidence is at least ``thresh``.
 
     Returns (vectors (N, C, F) float32, valid (N, C) bool): valid where the
     masked count is > 0 and the unmasked count of predicted pixels is
     >= ``min_pixels`` (reference cal_prototype.py:133-135).
     """
-    n, h, w, _ = outputs.shape
-    pred, conf = upsample_argmax(outputs, h, w)
-    classes = torch.arange(num_classes, device=outputs.device)
-    onehot = pred[..., None] == classes                       # (N,H,W,C)
+    n, h, w = pred.shape
+    ids = torch.arange(num_classes, device=pred.device)
+    onehot = pred[..., None] == ids                       # (N,H,W,C)
     if labels is not None:
-        onehot = onehot & (labels[..., None] == classes)
+        onehot = onehot & (labels[..., None] == ids)
     onehot = onehot.reshape(n, h * w, num_classes).float()
     if thresh is None or thresh < 0:
         masked = onehot

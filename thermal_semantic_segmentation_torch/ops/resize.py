@@ -5,7 +5,10 @@ package contracts dense interpolation matrices on the MXU; here the resize
 is ``F.interpolate`` (the JAX package computes it outside Pallas, so a library
 call is the right counterpart). ``interp_taps_np`` keeps the JAX matrix
 arithmetic (float64 source coordinates, float32 weights) as 2-tap tables for
-the fused ``kernels/upsample_argmax`` kernel.
+the fused ``kernels/upsample_argmax`` kernel and ``resize_bilinear_taps``.
+Self-training adds ``resize_nearest`` and ``sample_bilinear_at``; the JAX
+package writes both as one-hot matrix products (a TPU workaround for slow
+gathers), here they are index gathers.
 """
 
 from __future__ import annotations
@@ -55,3 +58,98 @@ def upsample_logits(logits_nhwc: torch.Tensor, out_h: int,
                     out_w: int) -> torch.Tensor:
     """The canonical logits upsample: bilinear, align_corners=True."""
     return resize_bilinear(logits_nhwc, out_h, out_w, align_corners=True)
+
+
+def resize_bilinear_taps(x: torch.Tensor, out_h: int,
+                         out_w: int) -> torch.Tensor:
+    """Align-corners bilinear resize of NHWC ``x`` in the JAX package's
+    float32 arithmetic: rows, then columns, each ``x[lo] * (1 - w_hi) +
+    x[hi] * w_hi`` from ``interp_taps_np``, as two products and a sum.
+    ``F.interpolate`` rounds differently (a few ulps); where a result is
+    truncated to an integer, as the JAX self-training step truncates its
+    resized hard ids, only this arithmetic gives the reference's ids."""
+    x = x.float()
+    for axis, size in ((1, out_h), (2, out_w)):
+        lo, hi, w = _device_taps(x.shape[axis], size, x.device)
+        shape = [1, 1, 1, 1]
+        shape[axis] = size
+        w = w.reshape(shape)
+        x = x.index_select(axis, lo) * (1.0 - w) + x.index_select(axis, hi) * w
+    return x
+
+
+@functools.lru_cache(maxsize=64)
+def _device_taps(in_size: int, out_size: int, device: torch.device):
+    """``interp_taps_np`` as (lo, hi int64, w_hi float32) tensors on
+    ``device``, uploaded once per size (an upload waits for the host), as
+    ordinary tensors even when first asked for under inference mode."""
+    lo, hi, w = interp_taps_np(in_size, out_size)
+    with torch.inference_mode(False):
+        return (torch.tensor(lo, dtype=torch.int64, device=device),
+                torch.tensor(hi, dtype=torch.int64, device=device),
+                torch.tensor(w, device=device))
+
+
+@functools.lru_cache(maxsize=128)
+def nearest_index_np(in_size: int, out_size: int) -> np.ndarray:
+    """Source index per output index of torch's 'nearest' resize,
+    ``floor(i * in / out)`` in float64 (the JAX package's selection
+    matrices put their one at the same column). Read-only, int64."""
+    src = np.clip(np.floor(np.arange(out_size) * (in_size / out_size)), 0,
+                  in_size - 1).astype(np.int64)
+    src.setflags(write=False)
+    return src
+
+
+def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest resize of NHWC ``x`` (any dtype, kept), as torch
+    ``F.interpolate(mode='nearest')``: an index gather per axis."""
+    rows = _device_nearest(x.shape[1], out_h, x.device)
+    cols = _device_nearest(x.shape[2], out_w, x.device)
+    return x.index_select(1, rows).index_select(2, cols)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_nearest(in_size: int, out_size: int,
+                    device: torch.device) -> torch.Tensor:
+    """``nearest_index_np`` on ``device``, uploaded once per size, as an
+    ordinary tensor even when first asked for under inference mode."""
+    with torch.inference_mode(False):
+        return torch.tensor(nearest_index_np(in_size, out_size),
+                            device=device)
+
+
+def sample_bilinear_at(x: torch.Tensor, src_rows: torch.Tensor,
+                       src_cols: torch.Tensor) -> torch.Tensor:
+    """Per-sample separable bilinear sampling at fractional coordinates.
+
+    x: (N, H, W, C); src_rows: (N, out_h) and src_cols: (N, out_w) float
+    coordinates into H and W. Returns (N, out_h, out_w, C) float32. Each
+    axis is a 2-tap gather: ``lo = clip(floor(src), 0, size - 1)``, ``hi =
+    min(lo + 1, size - 1)``, ``w_hi = src - lo``. An align-corners resize
+    followed by a crop and a flip is such a sample (``train/self_train
+    .full2weak_coords`` gives the coordinates)."""
+    x = x.float()
+    n, h, w, c = x.shape
+
+    def taps(src, size):
+        lo = torch.floor(src).clamp(0, size - 1).long()
+        hi = (lo + 1).clamp(max=size - 1)
+        return lo, hi, (src - lo).float()
+
+    lo, hi, wr = taps(src_rows, h)
+    oh = lo.shape[1]
+
+    def rows(idx):
+        return torch.gather(x, 1, idx[:, :, None, None].expand(n, oh, w, c))
+
+    wr = wr[:, :, None, None]
+    y = rows(lo) * (1.0 - wr) + rows(hi) * wr              # (N, oh, W, C)
+    lo, hi, wc = taps(src_cols, w)
+    ow = lo.shape[1]
+
+    def cols(idx):
+        return torch.gather(y, 2, idx[:, None, :, None].expand(n, oh, ow, c))
+
+    wc = wc[:, None, :, None]
+    return cols(lo) * (1.0 - wc) + cols(hi) * wc

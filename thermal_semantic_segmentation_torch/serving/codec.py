@@ -10,11 +10,13 @@ request order (status 0 ok, 1 bad frame, 2 inference error).
 
 from __future__ import annotations
 
-import io
 import json
 import struct
 
 import numpy as np
+
+from ..data.palette import colorize_prediction
+from ..data.png import gray_png_bytes
 
 
 def encode_result(pred: np.ndarray, fmt: str, palette) -> tuple:
@@ -25,17 +27,9 @@ def encode_result(pred: np.ndarray, fmt: str, palette) -> tuple:
             "class_counts": {int(i): int(c) for i, c in zip(ids, counts)},
             "shape": list(pred.shape)}).encode()
         return body, "application/json"
-    from PIL import Image
-
-    from ..data.palette import colorize_prediction
-
-    buf = io.BytesIO()
     if fmt == "ids":
-        Image.fromarray(pred.astype(np.uint8), mode="L").save(buf,
-                                                              format="PNG")
-    else:
-        colorize_prediction(pred, palette).save(buf, format="PNG")
-    return buf.getvalue(), "image/png"
+        return gray_png_bytes(pred.astype(np.uint8)), "image/png"
+    return colorize_prediction(pred, palette), "image/png"
 
 
 def _read_exact(fp, n: int) -> bytes:

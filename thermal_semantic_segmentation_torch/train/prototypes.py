@@ -18,6 +18,7 @@ import torch
 
 from ..data.device_pipeline import device_prefetch
 from ..device import resolve_device
+from ..kernels.upsample_argmax import upsample_argmax
 from ..ops.class_means import (MAX_PROTOTYPE_COUNT, fold_prototypes,
                                masked_class_means)
 from .seg import forward_nhwc, frozen_inference
@@ -30,7 +31,9 @@ def make_prototype_step(model, *, num_classes: int, bf16: bool = False):
     def step(prototypes, counts, images):
         with frozen_inference(model):
             out = forward_nhwc(model, images, bf16=bf16)
-            vectors, valid = masked_class_means(out["feat"], out["out"],
+            _, h, w, _ = out["out"].shape
+            pred, conf = upsample_argmax(out["out"], h, w)
+            vectors, valid = masked_class_means(out["feat"], pred, conf,
                                                 num_classes=num_classes)
             return fold_prototypes(prototypes, counts, vectors, valid,
                                    mode="mean")
