@@ -40,7 +40,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   8. prototypes: the same model folds class prototypes of seeded images at
      batch 64 through ``calc_prototypes``, held to a float64 recomputation
      from the same features and the kernel's classes; the prototype file
-     round trip; prints images/s and the masked-means and fold times.
+     round trip; prints images/s and the masked-means and fold times;
+  9. self_train: two batch-4 epochs through ``self_train_epochs`` (the
+     second resumed), checked against float64 and a tiny card-vs-CPU step;
+ 10. gan: the full-width CycleGAN (UNet-256 ngf 64, PatchGAN ndf 64) with
+     the contour and module2 semantic losses, its frozen sem nets
+     full-width ResNet-101s, trains two batch-4 epochs of 8 steps through
+     ``cli/main.gan_epochs`` (the second resumed from the first's
+     checkpoint); checks finite losses, the checkpoint round trip, D's
+     buffers through a G pass, the kernel's launches (one per step: the
+     t2s labels), one step's t2s ids against the plain version and a tiny
+     card-vs-CPU step (the card's discrete decisions replayed on the
+     CPU); prints images/s, peak memory and a per-stage step
+     breakdown;
+ 11. translate: the translator's batch loop writes seeded frames at batch 8
+     to 320x700 PNGs from the gan phase's checkpoint; the pixels, read
+     back with zlib, are held to a float64 recomputation; prints images/s
+     and a forward / resize / encode breakdown.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -63,12 +79,16 @@ IDENTITY_SHAPES = [(4, 33, 65, 13), (64, 33, 65, 13)]
 # self-training's teacher: the stride-8 logits of a batch-4 320x700 frame
 # to full/4 size, the classes of the moving prototypes
 TEACHER_SHAPE, TEACHER_OUT = (4, 41, 88, 13), (80, 175)
+# the GAN's t2s labels: the frozen thermal net's stride-8 logits of a
+# batch-4 256x512 crop to the crop's size
+GAN_SHAPE, GAN_OUT = (4, 33, 65, 13), (256, 512)
 # (shape, out_hw, strided): "strided" holds the logits as NCHW-contiguous
 # memory viewed as NHWC, so the kernel reads them through general strides
 PARITY_CASES = [
     (SERVE_SHAPE, SERVE_OUT, False),
     *[(s, s[1:3], False) for s in IDENTITY_SHAPES],
     (TEACHER_SHAPE, TEACHER_OUT, False),
+    (GAN_SHAPE, GAN_OUT, False),
     ((3, 9, 17, 13), (61, 127), False),
     ((2, 33, 65, 13), (250, 509), False),    # ragged row and column tiles
     ((1, 40, 70, 13), (17, 31), False),      # downsampling
@@ -100,6 +120,14 @@ ST_FULL_HW = (320, 700)
 ST_LR = 1e-6
 ST_CHECK_MOMENTUM = 0.5      # the float64 check's step: a visible fold
 EMA_ULPS = 2.0
+# the GAN: -batch_size 4, 8 steps an epoch (36 source and target images),
+# the CLI's default lr; the translator: batch 8 to 320x700 (5 batches and
+# a tail)
+GAN_BATCH, GAN_STEPS, GAN_IMAGES = 4, 8, 36
+GAN_METRIC_RTOL, GAN_STATS_ATOL = 1e-4, 1e-5   # the CPU test's
+GAN_GRAD_RTOL = 1e-4
+TRANSLATE_IMAGES, TRANSLATE_BATCH = 44, 8
+TRANSLATE_HW = (320, 700)
 
 
 def fail(msg: str) -> None:
@@ -293,27 +321,10 @@ def phase_kernels():
         identity.append({"shape": f"{shape}->{(oh, ow)}", "ms": k_ms,
                          "plain_ms": p_ms, "library_ms": l_ms,
                          "bound_ms": b_ms, "bound_by": b_by})
-    # self-training's teacher: the library call computing the same
-    # function is F.interpolate + softmax().max()
-    y = torch.randn(TEACHER_SHAPE, generator=gen).cuda()
-    y_nchw = y.permute(0, 3, 1, 2)
-
-    def teacher_library():
-        up = F.interpolate(y_nchw, size=TEACHER_OUT, mode="bilinear",
-                           align_corners=True)
-        return torch.softmax(up, dim=1).max(dim=1)
-
-    t_ms = time_ms(lambda: upsample_argmax(y, *TEACHER_OUT))
-    t_plain = time_ms(lambda: upsample_argmax_reference(y, *TEACHER_OUT))
-    t_lib = time_ms(teacher_library)
-    t_bound, t_by = upsample_argmax_bound(TEACHER_SHAPE, TEACHER_OUT)
-    print(f"upsample_argmax {TEACHER_SHAPE}->{TEACHER_OUT}: kernel {t_ms} ms "
-          f"(bound_share {t_bound / t_ms:.4f}), plain {t_plain} ms, library "
-          f"F.interpolate + softmax().max() {t_lib} ms, bound {t_bound} ms "
-          f"({t_by})", flush=True)
-    teacher = {"shape": f"{TEACHER_SHAPE}->{TEACHER_OUT}", "ms": t_ms,
-               "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": t_bound,
-               "bound_by": t_by}
+    # self-training's teacher and the GAN's t2s labels: the library call
+    # computing the same function is F.interpolate + softmax().max()
+    teacher = upsampled_shape_times(TEACHER_SHAPE, TEACHER_OUT, gen)
+    gan = upsampled_shape_times(GAN_SHAPE, GAN_OUT, gen)
     return [{
         "name": "upsample_argmax", "route": "cuda",
         "source": "thermal_semantic_segmentation_torch/csrc/upsample_argmax.cu",
@@ -322,8 +333,36 @@ def phase_kernels():
         "max_abs_err": max_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "identity_shapes": identity,
-        "teacher_shape": teacher,
+        "teacher_shape": teacher, "gan_shape": gan,
     }]
+
+
+def upsampled_shape_times(shape, out_hw, gen) -> dict:
+    """The kernel, its plain version and F.interpolate + softmax().max() at
+    (shape -> out_hw), with the bound; printed and returned."""
+    import torch
+    import torch.nn.functional as F
+
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_reference)
+    y = torch.randn(shape, generator=gen).cuda()
+    y_nchw = y.permute(0, 3, 1, 2)
+
+    def library():
+        up = F.interpolate(y_nchw, size=out_hw, mode="bilinear",
+                           align_corners=True)
+        return torch.softmax(up, dim=1).max(dim=1)
+
+    k_ms = time_ms(lambda: upsample_argmax(y, *out_hw))
+    p_ms = time_ms(lambda: upsample_argmax_reference(y, *out_hw))
+    l_ms = time_ms(library)
+    b_ms, b_by = upsample_argmax_bound(shape, out_hw)
+    print(f"upsample_argmax {shape}->{out_hw}: kernel {k_ms} ms "
+          f"(bound_share {b_ms / k_ms:.4f}), plain {p_ms} ms, library "
+          f"F.interpolate + softmax().max() {l_ms} ms, bound {b_ms} ms "
+          f"({b_by})", flush=True)
+    return {"shape": f"{shape}->{out_hw}", "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_slice(card: str) -> dict:
@@ -1835,6 +1874,599 @@ def self_train_breakdown(state, b, reps: int = 5) -> dict:
 
 
 
+class SeededGanImages:
+    """What the GAN CLI's ``_gan_transform`` gives, made with numpy from a
+    seed: float32 (H, W, C) images in [-1, 1], and for the source int64
+    (H, W) labels in 0..12 (the s2t semantic loss's)."""
+
+    def __init__(self, n: int, hw, channels: int, seed: int,
+                 labels: bool = False):
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        self.images = rng.uniform(-1, 1, (n, *hw, channels)).astype(
+            np.float32)
+        self.labels = rng.integers(0, NUM_CLASSES, (n, *hw)) if labels \
+            else None
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def get(self, index: int, rng) -> dict:
+        out = {"image": self.images[index]}
+        if self.labels is not None:
+            out["label"] = self.labels[index]
+        return out
+
+
+def gan_argv(root: str, *extra) -> list:
+    """The CLI flags of the gan phase: the CycleGAN at the recipe's widths
+    with the contour and module2 semantic losses (the JAX gates'
+    configuration)."""
+    return ["-batch_size", str(GAN_BATCH), "-num_epoch", "1", "-max_steps",
+            str(GAN_STEPS), "-checkpoint_name", "smoke_gan.pth",
+            "-new_checkpoint_name", "smoke_gan.pth", "-with_contour", "true",
+            "-sem_loss", "true", "-sem_mode", "module2",
+            "-sem_checkpoint_s", f"{root}/sem_s.pth",
+            "-sem_checkpoint_t", f"{root}/sem_t.pth",
+            "--gan_model_root_path", root, *extra]
+
+
+def phase_gan(card: str, root: str) -> dict:
+    """Train the full-width CycleGAN through the GAN CLI's epoch loop on
+    seeded in-memory data and check it; returns the kernels' launch
+    counts from the two epochs."""
+    import math
+
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        load_gan_checkpoint)
+    from thermal_semantic_segmentation_torch.cli.main import (
+        gan_epochs, load_sem_nets)
+    from thermal_semantic_segmentation_torch.cli.options import train_parse
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.models.convert import GAN_KEYS
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+
+    # the frozen sem nets: full-width module2 ResNet-101s (RGB and
+    # thermal), random weights from seeds, in seg .pth files
+    for name, channels, seed in (("s", 3, 1), ("t", 1, 2)):
+        torch.save({"epoch": 0, "sem_net_state_dict": create_deeplab(
+            seed, num_channels=channels).state_dict()},
+            f"{root}/sem_{name}.pth")
+    source = SeededGanImages(GAN_IMAGES, SERVE_OUT, 3, seed=21, labels=True)
+    target = SeededGanImages(GAN_IMAGES, SERVE_OUT, 1, seed=22)
+
+    def run(load: bool):
+        args = train_parse().parse_args(gan_argv(
+            root, "-load_model", str(load).lower()))
+        loaders = [DataLoader(data, GAN_BATCH, shuffle=True, drop_last=True,
+                              seed=args.seed + k)
+                   for k, data in enumerate((source, target))]
+        return (args, *gan_epochs(args, *loaders))
+
+    upsample_argmax.launches = 0      # counts from the main path only
+    _, state, first = run(False)
+    ckpt = load_gan_checkpoint(f"{root}/smoke_gan.pth")
+    ckpt_diff = [f"{key}/{k}"
+                 for nets, keys in ((state.g, GAN_KEYS["g"]),
+                                    (state.d, GAN_KEYS["d"]))
+                 for name, key in keys
+                 for k, v in nets[name].state_dict().items()
+                 if not torch.equal(ckpt[key][k], v.cpu())]
+    round_trip = not ckpt_diff and ckpt["epoch"] == first[0]["epoch"]
+    del state, ckpt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    args, state, second = run(True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    history = first + second
+
+    steps = sum(h["steps"] for h in history)
+    values = [x for h in history for v in h["metrics"].values() for x in v]
+    print(f"gan check: epochs {[h['epoch'] for h in history]}, steps "
+          f"{[h['steps'] for h in history]}, metrics "
+          f"{[{k: [round(x, 5) for x in v] for k, v in h['metrics'].items()} for h in history]}; "
+          f"checkpoint round trip {'equal' if round_trip else 'DIFFERS'}; "
+          f"launches {launches} for {steps} steps", flush=True)
+    if [h["epoch"] for h in history] != [0, 0] or \
+            [h["steps"] for h in history] != [GAN_STEPS, GAN_STEPS]:
+        fail(f"the GAN ran epochs {[h['epoch'] for h in history]}, steps "
+             f"{[h['steps'] for h in history]}")
+    if len(history[0]["metrics"]) != 11 or not all(
+            map(math.isfinite, values)):
+        fail("the GAN: a non-finite or missing loss")
+    if not round_trip:
+        fail(f"the GAN checkpoint does not round-trip: {ckpt_diff[:5]}")
+    if launches["upsample_argmax"] != steps:
+        fail(f"upsample_argmax launched {launches['upsample_argmax']} "
+             f"times for {steps} GAN steps")
+
+    batch = next(iter(gan_batches(source, target)))
+    sem_nets = load_sem_nets(args, "cuda")
+    gan_read_only_check(args, state, sem_nets, batch)
+    gan_step_parity()
+    h = second[0]
+    print(f"gan: epoch {h['epoch']} (resumed), {h['images']} source images "
+          f"in {h['steps']} steps of {GAN_BATCH} at "
+          f"{h['images'] / h['train_s']:.2f} images/s ({h['train_s']:.3f} s "
+          f"of steps), float32, on {card}", flush=True)
+    n_g = sum(p.numel() for net in state.g.values() for p in net.parameters())
+    n_d = sum(p.numel() for net in state.d.values() for p in net.parameters())
+    print(f"gan peak device memory: {peak_gb:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated over the resumed epoch; "
+          f"generators {n_g} and discriminators {n_d} parameters, two "
+          f"frozen ResNet-101s) on {card}", flush=True)
+    breakdown = gan_breakdown(args, state, sem_nets, batch)
+    print(f"gan step breakdown: {json.dumps(breakdown)} on {card}",
+          flush=True)
+    loop_ms = h["train_s"] / h["steps"] * 1e3
+    device_ms = sum(v for k, v in breakdown.items()
+                    if k not in ("wall_ms", "device_idle_share"))
+    print(f"gan loop: {loop_ms:.3f} ms a step in the resumed epoch against "
+          f"{device_ms:.3f} ms of device work a step in the breakdown: "
+          f"device busy ~{device_ms / loop_ms:.3f} of the loop, on {card}",
+          flush=True)
+    return launches
+
+
+def gan_batches(source, target):
+    """The CLI's merged batches of ``source`` and ``target`` on the card."""
+    from thermal_semantic_segmentation_torch.cli.main import merged_batches
+    from thermal_semantic_segmentation_torch.data.device_pipeline import (
+        device_prefetch)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+
+    loaders = [DataLoader(d, GAN_BATCH, shuffle=False) for d in (source,
+                                                                 target)]
+    return device_prefetch(merged_batches(*loaders, True), "cuda")
+
+
+def gan_step_kwargs(args, sem_nets) -> dict:
+    return dict(cycle=args.cycle, with_contour=args.with_contour,
+                grayscale_source=args.grayscale,
+                canny_rgb_threshold=args.canny_rgb_threshold,
+                canny_thermal_threshold=args.canny_thermal_threshold,
+                sem_nets=sem_nets, sem_norm=args.sem_mode, bf16=args.bf16)
+
+
+def gan_read_only_check(args, state, sem_nets, b) -> None:
+    """One more G update of the full-width nets: D's buffers bit for bit
+    what they were, D's parameters without a gradient; the t2s ids the
+    step took from the kernel (recorded) against the plain version on the
+    same logits outside near-ties, the logits of the kernels phase's
+    shape."""
+    import torch
+
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax_reference)
+    from thermal_semantic_segmentation_torch.ops.resize import (
+        upsample_logits)
+    from thermal_semantic_segmentation_torch.train import gan
+
+    g_step, _ = gan.make_gan_steps(**gan_step_kwargs(args, sem_nets))
+    before = {n: {k: v.clone() for k, v in net.state_dict().items()}
+              for n, net in state.d.items()}
+    for net in state.d.values():      # the last D step's gradients
+        net.zero_grad(set_to_none=True)
+    seen = []
+    kernel = gan.upsample_argmax
+
+    def recording(logits, h, w):
+        out = kernel(logits, h, w)
+        seen.append((logits.detach().clone(), out[0]))
+        return out
+
+    gan.upsample_argmax = recording
+    try:
+        g_step(state, b["real_s"], b["real_t"], b["label_s"], with_sem=True)
+    finally:
+        gan.upsample_argmax = kernel
+    torch.cuda.synchronize()
+    changed = [f"{n}/{k}" for n, net in state.d.items()
+               for k, v in net.state_dict().items()
+               if not torch.equal(v, before[n][k])]
+    grads = [n for n, net in state.d.items()
+             for p in net.parameters() if p.grad is not None]
+    logits, ids = seen[0]
+    want, _ = upsample_argmax_reference(logits, *GAN_OUT)
+    top2 = upsample_logits(logits, *GAN_OUT).topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > TIE_GAP
+    wrong = int(((ids != want) & decided).sum())
+    print(f"gan G pass: D buffers {'unchanged' if not changed else changed[:5]}"
+          f", D parameters with a gradient {len(grads)}; t2s labels from "
+          f"logits {tuple(logits.shape)} -> {GAN_OUT}: {wrong} pixels off "
+          f"the plain version outside {int((~decided).sum())} near-ties",
+          flush=True)
+    if changed or grads:
+        fail(f"the G pass moved D: buffers {changed[:5]}, grads {grads[:5]}")
+    if len(seen) != 1 or tuple(logits.shape) != GAN_SHAPE:
+        fail(f"the t2s labels came from {len(seen)} kernel calls on "
+             f"{tuple(logits.shape)}, not one on {GAN_SHAPE}")
+    if wrong:
+        fail(f"the t2s labels disagree with the plain version at {wrong} "
+             f"pixels")
+
+
+def gan_step_parity() -> None:
+    """One GAN update of tiny nets (U-Net-32 ngf 8, PatchGAN ndf 8, module2
+    sem nets layers 1,1,1,1; batch 2 at 64x128, the contour and sem losses,
+    the host pool) on the card, then on the CPU from the same weights with
+    the card's discrete decisions replayed (``DecisionTape``): each metric
+    within rtol ``GAN_METRIC_RTOL``, the BatchNorm statistics within
+    ``GAN_STATS_ATOL``, every parameter inside one Adam step's lr envelope
+    (at most 5e-4 of them outside, none past 2 x lr, none with a CPU
+    gradient >= 1e-4: the CPU test's tolerances), the gradients' norm
+    within ``GAN_GRAD_RTOL`` and the Canny masks parted on at most 0.5% of
+    their pixels (the CPU test's boundary rule)."""
+    r = gan_parity_run()
+    print(f"gan parity card vs CPU: metrics {r['card']} vs {r['cpu']} (max "
+          f"rel err {r['metric_err']:.3g}); BatchNorm statistics max abs err "
+          f"{r['stats_err']:.3g}; card decisions replayed on the CPU, parted "
+          f"{r['parted']} of {r['decided']}; {r['outside']} of {r['total']} "
+          f"parameters outside the one-step lr envelope (worst "
+          f"{r['worst']:.4f} of it; {r['sure_out']} with a CPU gradient >= "
+          f"1e-4; by tensor: {r['where'][:4]}); gradient norm rel err "
+          f"{r['grad_norm_err']:.3g}", flush=True)
+    if not r["metric_err"] <= GAN_METRIC_RTOL:
+        fail("the card's GAN step metrics differ from the CPU's")
+    if not r["stats_err"] <= GAN_STATS_ATOL:
+        fail("the card's GAN step BatchNorm statistics differ from the CPU's")
+    if r["parted"]["edges"] > 0.005 * r["decided"]["edges"]:
+        fail("the card's Canny edges part from the CPU's on more than 0.5% "
+             "of the pixels")
+    if (r["outside"] > 5e-4 * r["total"] or r["worst"] > 2.001
+            or r["sure_out"] or not r["grad_norm_err"] <= GAN_GRAD_RTOL):
+        fail("the card's GAN step left the CPU's lr envelope")
+
+
+class DecisionTape:
+    """Every discrete decision of one GAN update in the order the update
+    makes it: each ReLU/LeakyReLU input's sign, each max pool's argmax,
+    each Canny edge mask and the t2s ids. Recording (the card's update)
+    keeps them; replaying (the CPU's update from the same weights) makes
+    the update take the recorded ones and counts where its own part from
+    them. Float noise may put an input on the other side of a kink, and
+    one parted decision moves a gradient by a whole term: replayed, the
+    two updates differ by float noise alone."""
+
+    def __init__(self):
+        import collections
+
+        self.tape, self.at = [], None
+        self.decided = collections.Counter()
+        self.parted = collections.Counter()
+
+    def replay(self) -> None:
+        self.at = 0
+
+    def decide(self, kind: str, own):
+        """The decision to take: ``own`` when recording, else the
+        recorded one (on ``own``'s device)."""
+        if self.at is None:
+            self.tape.append((kind, own.cpu()))
+            return own
+        if self.at >= len(self.tape) or self.tape[self.at][0] != kind or \
+                self.tape[self.at][1].shape != own.shape:
+            fail(f"the CPU's GAN update made decision {self.at} ({kind}, "
+                 f"{tuple(own.shape)}) out of the card's order")
+        taken = self.tape[self.at][1].to(own.device)
+        self.at += 1
+        self.decided[kind] += own.numel()
+        self.parted[kind] += int((taken != own).sum())
+        return taken
+
+    def attach(self, nets) -> None:
+        """Route the activations and max pools of ``nets`` through the
+        tape."""
+        import functools
+
+        import torch
+
+        def activation(m, forward, x):
+            sign = self.decide("relu", x > 0)
+            if self.at is None:
+                return forward(x)
+            return torch.where(sign, x, x * getattr(m, "negative_slope", 0.0))
+
+        def max_pool(m, x):
+            out, idx = torch.nn.functional.max_pool2d(
+                x, m.kernel_size, m.stride, m.padding, m.dilation,
+                ceil_mode=m.ceil_mode, return_indices=True)
+            idx = self.decide("maxpool", idx)
+            if self.at is None:
+                return out
+            n, c = idx.shape[:2]
+            return x.reshape(n, c, -1).gather(2, idx.reshape(n, c, -1)) \
+                .reshape(idx.shape)
+
+        for net in nets:
+            for m in net.modules():
+                if isinstance(m, (torch.nn.ReLU, torch.nn.LeakyReLU)):
+                    m.forward = functools.partial(activation, m, m.forward)
+                elif isinstance(m, torch.nn.MaxPool2d):
+                    m.forward = functools.partial(max_pool, m)
+
+
+def gan_parity_run() -> dict:
+    """One tiny GAN update on the card and on the CPU (see
+    ``gan_step_parity``); the differences between the two."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.models import factory
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.nn import canny
+    from thermal_semantic_segmentation_torch.ops.image_pool import ImagePool
+    from thermal_semantic_segmentation_torch.train import gan
+
+    rng = np.random.default_rng(23)
+    batch = {"real_s": rng.uniform(-1, 1, (2, *PARITY_HW, 3)),
+             "real_t": rng.uniform(-1, 1, (2, *PARITY_HW, 1)),
+             "label_s": rng.integers(0, NUM_CLASSES, (2, *PARITY_HW))}
+    kernel, edge_mask = gan.upsample_argmax, canny._edge_mask
+    tape = DecisionTape()
+
+    def argmax(logits, h, w):
+        ids, conf = kernel(logits, h, w)
+        return tape.decide("ids", ids), conf
+
+    gan.upsample_argmax = argmax
+    canny._edge_mask = lambda *a: tape.decide("edges", edge_mask(*a))
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            g = {"s2t": factory.unet_32(ngf=8, output_nc=1),
+                 "t2s": factory.unet_32(ngf=8, input_nc=1, output_nc=3)}
+            d = {"t": factory.patchgan(ndf=8), "s": factory.patchgan(
+                ndf=8, input_nc=3)}
+            for i, net in enumerate((*g.values(), *d.values())):
+                factory.init_gan_net(net, 30 + i, device=dev)
+            sem = {name: create_deeplab(
+                40 + i, device=dev, num_channels=c,
+                layers=(1, 1, 1, 1)).requires_grad_(False)
+                for i, (name, c) in enumerate((("s", 3), ("t", 1)))}
+            tape.attach((*g.values(), *d.values(), *sem.values()))
+            if dev == "cpu":
+                tape.replay()
+            state = gan.create_gan_state(g_nets=g, d_nets=d,
+                                         learning_rate=TRAIN_LR, device=dev)
+            g_step, d_step = gan.make_gan_steps(
+                cycle=True, with_contour=True, sem_nets=sem,
+                sem_norm="module2")
+            b = {k: torch.from_numpy(v.astype(np.float32)
+                                     if v.dtype.kind == "f" else v).to(dev)
+                 for k, v in batch.items()}
+            metrics, outs = g_step(state, b["real_s"], b["real_t"],
+                                   b["label_s"], with_sem=True)
+            grads = {f"{n}.{k}": p.grad.detach().cpu()
+                     for n, net in g.items() for k, p in net.named_parameters()}
+            pools = {n: ImagePool(50, seed=i) for i, n in enumerate(("t", "s"))}
+            metrics.update(d_step(state, {"t": b["real_t"], "s": b["real_s"]},
+                                  {n: pools[n].query(outs[f"fake_{n}"])
+                                   for n in ("t", "s")}))
+            grads.update({f"{n}.{k}": p.grad.detach().cpu()
+                          for n, net in d.items()
+                          for k, p in net.named_parameters()})
+            out[dev] = dict(
+                metrics={k: float(v) for k, v in metrics.items()},
+                sd={f"{n}.{k}": v.detach().cpu()
+                    for n, net in {**g, **d}.items()
+                    for k, v in net.state_dict().items()},
+                params={f"{n}.{k}" for n, net in {**g, **d}.items()
+                        for k, _ in net.named_parameters()},
+                grads=grads)
+    finally:
+        gan.upsample_argmax, canny._edge_mask = kernel, edge_mask
+    if tape.at != len(tape.tape):
+        fail(f"the CPU's GAN update took {tape.at} of the card's "
+             f"{len(tape.tape)} decisions")
+    card, cpu = out["cuda"], out["cpu"]
+    r = {"card": card["metrics"], "cpu": cpu["metrics"],
+         "metric_err": max(abs(card["metrics"][k] - v) / abs(v)
+                           for k, v in cpu["metrics"].items()),
+         "decided": dict(tape.decided), "parted": dict(tape.parted),
+         "outside": 0, "total": 0, "sure_out": 0, "worst": 0.0,
+         "stats_err": 0.0, "where": []}
+    err_sq = norm_sq = 0.0
+    for k, v in cpu["sd"].items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        diff = (card["sd"][k].double() - v.double()).abs()
+        if k not in cpu["params"]:
+            r["stats_err"] = max(r["stats_err"], float(diff.max()))
+            continue
+        ratio = diff / TRAIN_LR
+        bad = ratio > 1.0
+        g_cpu = cpu["grads"][k].double()
+        g_err = card["grads"][k].double() - g_cpu
+        err_sq += float(g_err.norm()) ** 2
+        norm_sq += float(g_cpu.norm()) ** 2
+        r["worst"] = max(r["worst"], float(ratio.max()))
+        r["outside"] += int(bad.sum())
+        r["total"] += ratio.numel()
+        r["sure_out"] += int((bad & (g_cpu.abs() >= 1e-4)).sum())
+        if bad.any():
+            r["where"].append((k, int(bad.sum()), ratio.numel()))
+    r["where"].sort(key=lambda w: -w[1])
+    r["grad_norm_err"] = (err_sq / norm_sq) ** 0.5
+    return r
+
+
+def gan_breakdown(args, state, sem_nets, b, reps: int = 5) -> dict:
+    """Median per-stage times of one batch-4 GAN update at the CLI's
+    settings (device pools), its stages bracketed by CUDA events at the
+    marks the step sets: G forwards (with D's adversarial passes), Canny,
+    the sem nets (three ResNet-101 forwards, the upsampled CE terms), G
+    backward, G Adam, the pools, the D step; and the host wall time of the
+    whole update, whose remainder is device idle time."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.train import gan
+
+    step, make_pools = gan.make_gan_step(pool_size=50, **gan_step_kwargs(
+        args, sem_nets))
+    pools = make_pools({"t": tuple(b["real_t"].shape[1:]),
+                        "s": tuple(b["real_s"].shape[1:])}, device="cuda")
+    rows, stages = [], []
+    for _ in range(reps + 1):          # the first fills cuDNN's choices
+        marks = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        step(state, pools, b["real_s"], b["real_t"], b["label_s"],
+             with_sem=True, mark=mark)
+        marks[-1][1].synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        stages = [f"{name}_ms" for name, _ in marks[1:]]
+        times = [a.elapsed_time(b_) for (_, a), (_, b_) in zip(marks,
+                                                               marks[1:])]
+        rows.append(times + [wall, 1.0 - sum(times) / wall])
+    med = np.median(np.asarray(rows[1:]), axis=0)
+    return dict(zip(stages + ["wall_ms", "device_idle_share"],
+                    (float(v) for v in med)))
+
+
+class SeededFrames:
+    """What the translator's dataset gives at ``Resize((512, 256))`` with
+    ``-normalize 0.5 0.5 0.5``, made with numpy from a seed: float32
+    (256, 512, 3) frames in [-1, 1], each with its PNG destination under
+    ``root``."""
+
+    def __init__(self, n: int, seed: int, root: str):
+        import numpy as np
+        self.images = np.random.default_rng(seed).uniform(
+            -1, 1, (n, *SERVE_OUT, 3)).astype(np.float32)
+        self.root = root
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def get(self, index: int, rng) -> dict:
+        return {"image": self.images[index],
+                "img_path": f"{self.root}/{index:04d}.png"}
+
+
+def pil_bicubic_matrix(in_size: int, out_size: int):
+    """(out, in) float64 weights of PIL's BICUBIC resample along one axis
+    (a = -0.5, the support widened by the scale when reducing; each row
+    normalised), written here from PIL's algorithm."""
+    import numpy as np
+
+    def cubic(x):
+        a, x = -0.5, abs(x)
+        if x < 1.0:
+            return ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0
+        if x < 2.0:
+            return (((x - 5.0) * x + 8.0) * x - 4.0) * a
+        return 0.0
+
+    scale = in_size / out_size
+    fscale = max(scale, 1.0)
+    support = 2.0 * fscale
+    m = np.zeros((out_size, in_size))
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), in_size)
+        w = np.array([cubic((x - center + 0.5) / fscale)
+                      for x in range(lo, hi)])
+        m[i, lo:hi] = w / w.sum()
+    return m
+
+
+def phase_translate(card: str, root: str) -> None:
+    """Translate seeded frames through the translator's batch loop from
+    the gan phase's checkpoint; check the PNGs (zlib) against a float64
+    recomputation of the first batch."""
+    import copy
+    import os
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        build_generator_from_gan_checkpoint)
+    from thermal_semantic_segmentation_torch.cli.translator import (
+        translate_batches)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+
+    model, ngf = build_generator_from_gan_checkpoint(
+        f"{root}/smoke_gan.pth", "s2t", input_nc=3, output_nc=1)
+    out_dir = f"{root}/translation"
+    frames = SeededFrames(TRANSLATE_IMAGES, seed=24, root=out_dir)
+    kw = dict(denormalize=[0.5], save_hw=TRANSLATE_HW, suffix="",
+              device="cuda")
+    # a warm-up batch (cuDNN's choices), written elsewhere
+    translate_batches(model, DataLoader(SeededFrames(
+        TRANSLATE_BATCH, seed=25, root=f"{root}/warm"), TRANSLATE_BATCH),
+        **kw)
+    marks = []
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+
+    summary = translate_batches(
+        model, DataLoader(frames, TRANSLATE_BATCH, shuffle=False,
+                          drop_last=False), mark=mark, **kw)
+    torch.cuda.synchronize()
+    per = {"forward": [], "resize": []}
+    for (_, a), (stage, b) in zip(marks, marks[1:]):
+        if stage in per:      # batch -> forward -> resize
+            per[stage].append(a.elapsed_time(b))
+    files = sorted(os.listdir(out_dir))
+    pixels = [read_png_ids(f"{out_dir}/{f}") for f in files]
+
+    # float64: the generator, de-normalisation (truncated to 8 bits as the
+    # JAX translator does) and PIL's two rounded resample passes
+    model64 = copy.deepcopy(model).double()
+    x = torch.from_numpy(frames.images[:TRANSLATE_BATCH]).cuda().double()
+    with torch.no_grad():
+        fake = model64(x.permute(0, 3, 1, 2))[:, 0].cpu().numpy()
+    want = np.floor(np.clip((fake * 0.5 + 0.5) * 255.0, 0, 255))
+    for m, axis in ((pil_bicubic_matrix(SERVE_OUT[1], TRANSLATE_HW[1]), 2),
+                    (pil_bicubic_matrix(SERVE_OUT[0], TRANSLATE_HW[0]), 1)):
+        want = np.clip(np.floor(np.moveaxis(
+            np.tensordot(want, m, axes=([axis], [1])), -1, axis) + 0.5),
+            0, 255)
+    got = np.stack(pixels[:TRANSLATE_BATCH]).astype(np.int64)
+    err = np.abs(got - want)
+    print(f"translate check: {len(files)} PNGs of {pixels[0].shape} from a "
+          f"ngf {ngf} generator; the first batch against float64: max "
+          f"{int(err.max())} grey levels, {float((err > 0).mean()):.5f} of "
+          f"pixels off", flush=True)
+    if files != [f"{i:04d}.png" for i in range(TRANSLATE_IMAGES)] or any(
+            p.shape != TRANSLATE_HW for p in pixels):
+        fail(f"the translator wrote {files[:3]}... of "
+             f"{[p.shape for p in pixels[:2]]}")
+    if err.max() > 1:
+        fail(f"translated pixels {int(err.max())} grey levels off float64")
+    n = summary["images"]
+    breakdown = {"forward_ms": statistics.median(per["forward"]),
+                 "resize_ms": statistics.median(per["resize"]),
+                 "encode_ms_per_image": summary["encode_s"] / n * 1e3}
+    print(f"translate: {n} frames at batch {TRANSLATE_BATCH} to "
+          f"{TRANSLATE_HW} at {n / summary['seconds']:.2f} images/s "
+          f"({summary['seconds']:.3f} s, every PNG written), on {card}",
+          flush=True)
+    print(f"translate batch breakdown: {json.dumps(breakdown)} (median "
+          f"over batches; encode on 2 writer threads) on {card}", flush=True)
+
+
 def main() -> int:
     import torch
     t0 = time.perf_counter()
@@ -1854,6 +2486,8 @@ def main() -> int:
         by_path["pseudo"] = phase_pseudo(card, root)
         by_path["prototypes"] = phase_prototypes(card, root)
         by_path["self_train"] = phase_self_train(card, root)
+        by_path["gan"] = phase_gan(card, root)
+        phase_translate(card, root)     # launches no kernel
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]]
                                  for path, launches in by_path.items()}

@@ -1,0 +1,281 @@
+"""The port's GAN CLIs (cli/main.py, cli/main_gan.py, cli/translator.py,
+cli/options.train_parse and translation_parse, cli/_common's GAN
+checkpoints) against the JAX CLIs, on one synthetic Freiburg tree.
+
+Both packages' ``unet_256`` and ``patchgan`` are narrowed to ``unet_32``
+at ngf 8 and the PatchGAN at ndf 8, and their ``_gan_transform`` crops
+32x64 (the JAX CLI on its one-device mesh, as tests/test_gan_cli.py runs
+it). Both runs start from one JAX msgpack GAN checkpoint with
+``-load_model true`` (the packages' random inits differ) and take
+``-max_steps 2 -lr 1e-3`` with non-default Canny thresholds, the contour
+and the module2 semantic losses on (tiny sem nets, layers 1,1,1,1), and
+the host pool: the JAX device pool is sized for 256x512 crops. So a flag
+passed wrongly moves the weights.
+
+Tolerances: the saved generator and discriminator parameters inside the
+Adam envelope of 2 steps x lr (at most 5e-4 of them outside, none past
+twice it), the BatchNorm statistics 1e-4; the trained generators' outputs
+on one fixed input rtol 1e-3 (the gap observed is printed); each
+package's generator from the other's checkpoint 1e-5 of the other's own;
+the translator's files at the JAX translator's paths, within one grey
+level of its pixels.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from PIL import Image  # noqa: E402
+
+from tests.synthetic import make_freiburg_tree  # noqa: E402
+from thermal_semantic_segmentation_tpu.cli import (  # noqa: E402
+    _common as jax_common, main as jax_main, main_gan as jax_main_gan,
+    translator as jax_translator)
+from thermal_semantic_segmentation_tpu.core.checkpoint import (  # noqa: E402
+    load_checkpoint as jax_load_checkpoint, save_checkpoint)
+from thermal_semantic_segmentation_tpu.data import (  # noqa: E402
+    transforms as JT)
+from thermal_semantic_segmentation_tpu.models import (  # noqa: E402
+    factory as jax_factory)
+from thermal_semantic_segmentation_tpu.models.deeplab import (  # noqa: E402
+    create_deeplab as jax_create_deeplab)
+from thermal_semantic_segmentation_torch.cli import (  # noqa: E402
+    _common, main, main_gan, translator)
+from thermal_semantic_segmentation_torch.data import transforms as T  # noqa: E402
+from thermal_semantic_segmentation_torch.models import factory  # noqa: E402
+from thermal_semantic_segmentation_torch.models.convert import (  # noqa: E402
+    GAN_KEYS, jax_gan_checkpoint_to_torch)
+
+LR, STEPS = 1e-3, 2
+STATS_ATOL, OUT_RTOL, CROSS_ATOL = 1e-4, 1e-3, 1e-5
+HW = (32, 64)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _crop(transforms):
+    return lambda normalize: transforms.Compose([
+        transforms.RandomResizedCrop(size=HW, ratio=(1.5, 8 / 3.),
+                                     scale=(0.5, 1.0)),
+        transforms.RandomHorizontalFlip(), transforms.ToArray(),
+        transforms.Normalize(tuple(normalize), tuple(normalize))])
+
+
+@pytest.fixture
+def narrow(monkeypatch):
+    import thermal_semantic_segmentation_tpu.parallel.mesh as pmesh
+
+    monkeypatch.setattr(jax_main, "unet_256", lambda ngf=64, **kw:
+                        jax_factory.unet_32(ngf=8, **kw))
+    monkeypatch.setattr(jax_main, "patchgan", lambda input_nc, dtype:
+                        jax_factory.patchgan(ndf=8, input_nc=input_nc,
+                                             dtype=dtype))
+    monkeypatch.setattr(jax_main, "_gan_transform", _crop(JT))
+    monkeypatch.setattr(pmesh, "make_mesh", lambda *a, **k: pmesh.Mesh(
+        np.asarray(jax.devices()[:1]), ("data",)))
+    # the JAX translator builds unet_256 of the checkpoint's width
+    monkeypatch.setattr(jax_factory, "unet_256", lambda ngf=64, **kw:
+                        jax_factory.unet_32(ngf=ngf, **kw))
+    monkeypatch.setattr(main, "unet_256", lambda ngf=64, **kw:
+                        factory.unet_32(ngf=8, **kw))
+    monkeypatch.setattr(main, "patchgan", lambda input_nc:
+                        factory.patchgan(ndf=8, input_nc=input_nc))
+    monkeypatch.setattr(main, "_gan_transform", _crop(T))
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The tree, the two tiny module2 sem checkpoints (JAX msgpack) and
+    the JAX start checkpoint of both GAN shapes."""
+    root = tmp_path_factory.mktemp("gan_cli")
+    tree = make_freiburg_tree(str(root / "freiburg"), n_train=5, n_test=1)
+    for name, c, seed in (("sem_s.pth", 3, 0), ("sem_t.pth", 1, 1)):
+        _, variables = jax_create_deeplab(jax.random.key(seed),
+                                          num_classes=13, num_channels=c,
+                                          layers=(1, 1, 1, 1))
+        jax_common.save_seg_checkpoint(str(root / name), variables, epoch=0,
+                                       layers=[1, 1, 1, 1], num_channels=c,
+                                       num_classes=13)
+    nets = {"s2t": (jax_factory.unet_32(ngf=8, output_nc=1), 3),
+            "t2s": (jax_factory.unet_32(ngf=8, output_nc=3), 1),
+            "t": (jax_factory.patchgan(ndf=8), 1),
+            "s": (jax_factory.patchgan(ndf=8), 3)}
+    v = {k: jax.tree.map(np.asarray, jax_factory.init_gan_net(
+        m, jax.random.key(10 + i), (1, *HW, c)))
+        for i, (k, (m, c)) in enumerate(nets.items())}
+    save_checkpoint(str(root / "start.pth"), {
+        "epoch": 0, "g_vars": {k: v[k] for k in ("s2t", "t2s")},
+        "d_vars": {k: v[k] for k in ("t", "s")}})
+    return dict(root=str(root), tree=tree)
+
+
+def _argv(world, ckpt_dir, new_name, *extra):
+    os.makedirs(ckpt_dir, exist_ok=True)
+    start = os.path.join(ckpt_dir, "start.pth")
+    if not os.path.exists(start):
+        os.link(os.path.join(world["root"], "start.pth"), start)
+    return ["-source_dataset", "freiburg_rgb", "-target_dataset",
+            "freiburg_ir", "-batch_size", "2", "-num_epoch", "1",
+            "-max_steps", str(STEPS), "-lr", str(LR), "-load_model", "true",
+            "-checkpoint_name", "start.pth", "-new_checkpoint_name", new_name,
+            "-with_contour", "true", "-canny_rgb_threshold", "2.0",
+            "-canny_thermal_threshold", "0.5", "-sem_loss", "true",
+            "-sem_mode", "module2",
+            "-sem_checkpoint_s", os.path.join(world["root"], "sem_s.pth"),
+            "-sem_checkpoint_t", os.path.join(world["root"], "sem_t.pth"),
+            "-host_pool", "true", "--freiburg_root", world["tree"],
+            "--gan_model_root_path", ckpt_dir, *extra]
+
+
+def _generator_out(sd, x, in_nc, out_nc):
+    net = factory.unet_32(ngf=8, input_nc=in_nc, output_nc=out_nc)
+    net.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        return net.eval()(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1).numpy()
+
+
+def _jax_generator_out(variables, x, out_nc):
+    model = jax_factory.unet_32(ngf=8, output_nc=out_nc)
+    return np.asarray(model.apply(variables, jnp.asarray(x), train=False))
+
+
+@pytest.mark.parametrize("cycle", [True, False], ids=["main", "main_gan"])
+def test_gan_cli_matches_jax_cli(world, narrow, tmp_path, cycle, capsys):
+    jax_dir, port_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    (jax_main if cycle else jax_main_gan).main(
+        _argv(world, jax_dir, "jax.pth"))
+    state, history = (main if cycle else main_gan).main(
+        _argv(world, port_dir, "port.pth", "--device", "cpu"))
+    capsys.readouterr()
+    assert [h["steps"] for h in history] == [STEPS]
+    assert all(np.isfinite(v).all() for v in history[0]["metrics"].values())
+    want_keys = {"g_s2t", "con_s2t", "sem_s2t", "loss_g", "d_t"}
+    if cycle:
+        want_keys |= {"g_t2s", "cycle_s", "cycle_t", "con_t2s", "sem_t2s",
+                      "d_s"}
+    assert set(history[0]["metrics"]) == want_keys
+
+    got = _common.load_gan_checkpoint(os.path.join(port_dir, "port.pth"))
+    jax_ckpt = jax_load_checkpoint(os.path.join(jax_dir, "jax.pth"))
+    want = jax_gan_checkpoint_to_torch(jax_ckpt)
+    names = [("s2t", "t2s"), ("t", "s")] if cycle else [("s2t",), ("t",)]
+    keys = [key for group, which in zip(names, "gd")
+            for name, key in GAN_KEYS[which] if name in group]
+    assert sorted(k for k in got if k != "epoch") == sorted(keys)
+    assert got["epoch"] == want["epoch"] == 0
+    outside = total = 0
+    worst = stats_err = 0.0
+    for key in keys:
+        for k, v in got[key].items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            diff = np.abs(v.numpy() - want[key][k].numpy())
+            if k.endswith(("running_mean", "running_var")):
+                stats_err = max(stats_err, float(diff.max()))
+                continue
+            ratio = diff / (STEPS * LR)
+            worst = max(worst, float(ratio.max()))
+            outside += int((ratio > 1.0).sum())
+            total += ratio.size
+    x = np.random.default_rng(3).uniform(-1, 1, (2, *HW, 3)).astype(
+        np.float32)
+    port_out = _generator_out(got["net_g_s2t_state_dict"], x, 3, 1)
+    jax_out = _generator_out(want["net_g_s2t_state_dict"], x, 3, 1)
+    gap = np.abs(port_out - jax_out)
+    print(f"cycle={cycle}: {outside} of {total} parameters outside the "
+          f"{STEPS} x lr envelope (worst {worst:.3f} of it), BatchNorm "
+          f"statistics max abs err {stats_err:.3g}; s2t outputs max abs gap "
+          f"{gap.max():.3g}, max rel gap "
+          f"{float((gap / np.abs(jax_out).clip(1e-6)).max()):.3g} "
+          f"(outputs up to {np.abs(jax_out).max():.3g})")
+    assert outside <= 5e-4 * total and worst <= 2.0
+    assert stats_err <= STATS_ATOL
+    np.testing.assert_allclose(port_out, jax_out, rtol=OUT_RTOL,
+                               atol=OUT_RTOL * np.abs(jax_out).max())
+
+    # each package's generator from the other's checkpoint
+    jax_from_port = jax_main._load_gan_checkpoint(
+        os.path.join(port_dir, "port.pth"))
+    np.testing.assert_allclose(
+        _jax_generator_out(jax_from_port["g_vars"]["s2t"], x, 1), port_out,
+        rtol=0, atol=CROSS_ATOL)
+    model, ngf = _common.build_generator_from_gan_checkpoint(
+        os.path.join(jax_dir, "jax.pth"), "s2t", input_nc=3, output_nc=1,
+        device="cpu")
+    assert ngf == 8 and not model.training
+    with torch.no_grad():
+        port_from_jax = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(
+        port_from_jax.permute(0, 2, 3, 1).numpy(),
+        _jax_generator_out(jax_ckpt["g_vars"]["s2t"], x, 1), rtol=0,
+        atol=CROSS_ATOL)
+
+
+def test_gan_cli_resumes_its_own_checkpoint(world, narrow, tmp_path, capsys):
+    """A run saves epoch 0; a resumed run (the device pool, the default)
+    restarts at that epoch, as the reference does, and moves the
+    weights; ``-save_interval`` skips an epoch but not the last."""
+    ckpt_dir = str(tmp_path / "ckpt")
+    argv = _argv(world, ckpt_dir, "g.pth")
+    argv[argv.index("-host_pool") + 1] = "false"
+    argv[argv.index("-num_epoch") + 1] = "2"
+    main.main(argv + ["--device", "cpu", "-save_interval", "5"])
+    path = os.path.join(ckpt_dir, "g.pth")
+    first = _common.load_gan_checkpoint(path)
+    assert first["epoch"] == 1          # the last epoch saves
+    argv[argv.index("-checkpoint_name") + 1] = "g.pth"
+    argv[argv.index("-num_epoch") + 1] = "1"
+    _, history = main.main(argv + ["--device", "cpu"])
+    assert [h["epoch"] for h in history] == [1]
+    resumed = _common.load_gan_checkpoint(path)
+    assert resumed["epoch"] == 1
+    moved = [k for k, v in resumed["net_g_s2t_state_dict"].items()
+             if not torch.equal(v, first["net_g_s2t_state_dict"][k])]
+    assert moved
+    capsys.readouterr()
+
+
+def test_translator_matches_jax_translator(world, narrow, tmp_path):
+    """Both translators on one JAX msgpack checkpoint: the same files, the
+    port's pixels within one grey level of the JAX translator's (PIL's
+    BICUBIC resize against the port's two rounded passes); a tail batch of
+    one frame runs at its own size."""
+    ckpt_dir = str(tmp_path / "ckpt")
+    os.makedirs(ckpt_dir)
+    os.link(os.path.join(world["root"], "start.pth"),
+            os.path.join(ckpt_dir, "g.pth"))
+    out_dir = os.path.join(world["tree"], "translation", "seq_00_day", "00",
+                           "fl_rgb")
+    files = {}
+    for name, run in (("jax", jax_translator.main), ("port", lambda a:
+                      translator.main(a + ["--device", "cpu"]))):
+        run(["-dataset", "freiburg_rgb", "-batch_size", "2",
+             "-checkpoint_name", "g.pth", "-input_nc", "3", "-output_nc",
+             "1", "-save_image_size", "40", "72", "-translation_name_suffix",
+             name, "--freiburg_root", world["tree"],
+             "--gan_model_root_path", ckpt_dir])
+        files[name] = sorted(f for f in os.listdir(out_dir)
+                             if f.endswith(f"_{name}.png"))
+    assert files["jax"] == [f"{i:04d}_jax.png" for i in range(5)]
+    assert [f.replace("_port", "_jax") for f in files["port"]] == files["jax"]
+    worst = 0
+    for f in files["jax"]:
+        want = np.asarray(Image.open(os.path.join(out_dir, f)), np.int32)
+        got = np.asarray(Image.open(os.path.join(
+            out_dir, f.replace("_jax", "_port"))), np.int32)
+        assert got.shape == want.shape == (40, 72)
+        worst = max(worst, int(np.abs(got - want).max()))
+    print(f"translator: port pixels at most {worst} grey levels from JAX's")
+    assert worst <= 1

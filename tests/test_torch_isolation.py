@@ -16,14 +16,16 @@ torch = pytest.importorskip("torch")
 
 import thermal_semantic_segmentation_torch as port  # noqa: E402
 from thermal_semantic_segmentation_torch.cli import (  # noqa: E402
-    cal_prototype, generate_pseudo_label, segmentation_evaluate,
-    segmentation_train, self_train_main)
+    _common, cal_prototype, generate_pseudo_label, main, main_gan,
+    segmentation_evaluate, segmentation_train, self_train_main, translator)
 from thermal_semantic_segmentation_torch.data.device_pipeline import (  # noqa: E402,E501
     device_prefetch)
 from thermal_semantic_segmentation_torch.eval.validate import (  # noqa: E402
     seg_validate)
 from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
     create_deeplab)
+from thermal_semantic_segmentation_torch.models.factory import (  # noqa: E402
+    init_gan_net, patchgan)
 from thermal_semantic_segmentation_torch.serving.batcher import (  # noqa: E402
     InferenceServer)
 from thermal_semantic_segmentation_torch.train.prototypes import (  # noqa: E402,E501
@@ -34,6 +36,8 @@ from thermal_semantic_segmentation_torch.train.seg import (  # noqa: E402
     build_seg_eval_step, create_seg_state, make_seg_train_step)
 from thermal_semantic_segmentation_torch.train.self_train import (  # noqa: E402,E501
     create_self_train_state, make_self_train_step)
+from thermal_semantic_segmentation_torch.train.gan import (  # noqa: E402
+    create_gan_state)
 
 BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack",
           "thermal_semantic_segmentation_tpu")
@@ -71,7 +75,10 @@ def test_importing_every_module_loads_no_banned_package():
                 "ops.class_means", "train.pseudo", "train.prototypes",
                 "cli.generate_pseudo_label", "cli.cal_prototype",
                 "data.self_train_aug", "train.self_train",
-                "cli.self_train_main"):
+                "cli.self_train_main", "nn.norms", "nn.generators",
+                "nn.patchgan", "nn.canny", "ops.image_pool",
+                "models.factory", "train.gan", "cli.main", "cli.main_gan",
+                "cli.translator"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -90,7 +97,9 @@ def test_importing_every_module_loads_no_banned_package():
     "seg_validate", "seg_evaluation", "make_seg_train_step",
     "create_seg_state", "segmentation_train", "generate_pseudo_labels",
     "calc_prototypes", "generate_pseudo_label", "cal_prototype",
-    "make_self_train_step", "create_self_train_state", "self_train_main"])
+    "make_self_train_step", "create_self_train_state", "self_train_main",
+    "init_gan_net", "create_gan_state", "build_generator_from_gan_checkpoint",
+    "main", "main_gan", "translator"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -130,6 +139,19 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
                 learning_rate=1e-6)
         elif entry == "self_train_main":
             self_train_main.main([])
+        elif entry == "init_gan_net":
+            init_gan_net(patchgan(ndf=8), 0)
+        elif entry == "create_gan_state":
+            create_gan_state(g_nets={}, d_nets={}, learning_rate=1e-4)
+        elif entry == "build_generator_from_gan_checkpoint":
+            _common.build_generator_from_gan_checkpoint(
+                "unused.pth", "s2t", input_nc=3, output_nc=1)
+        elif entry == "main":
+            main.main([])
+        elif entry == "main_gan":
+            main_gan.main([])
+        elif entry == "translator":
+            translator.main([])
         else:
             segmentation_evaluate.main(["-dataset", "freiburg_ir"])
 
@@ -186,6 +208,63 @@ def test_self_train_cli_refuses_flags_not_yet_ported(argv, capsys):
     assert exit_info.value.code != 0
     err = capsys.readouterr().err
     assert f"error: {argv[0]} " in err and "is not yet ported" in err
+
+
+@pytest.mark.parametrize("cli", [main, main_gan, translator],
+                         ids=["main", "main_gan", "translator"])
+@pytest.mark.parametrize("argv", [
+    ["--distributed", "true"], ["--data_parallel", "true"],
+    ["--native_decode", "true"], ["--native_encode", "true"],
+    ["--wire", "packed_bf16"], ["--decode_cache_mb", "512"],
+    ["--decode_cache_dir", "cache"], ["--remat", "full"]])
+def test_gan_clis_refuse_flags_not_yet_ported(cli, argv, capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main(argv + ["--device", "cpu"])
+    assert exit_info.value.code != 0
+    err = capsys.readouterr().err
+    assert f"error: {argv[0]} " in err and "is not yet ported" in err
+
+
+@pytest.mark.parametrize("cli", [main, main_gan], ids=["main", "main_gan"])
+def test_gan_clis_refuse_the_legacy_sem_nets(cli, capsys):
+    """-sem_loss true needs -sem_mode module2: the legacy sem nets (the
+    default mode) are not yet ported."""
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main(["-sem_loss", "true", "--device", "cpu"])
+    assert exit_info.value.code != 0
+    err = capsys.readouterr().err
+    assert "error: -sem_loss true with -sem_mode legacy is not yet ported" \
+        in err
+
+
+def test_translator_writes_pngs_without_pil(tmp_path):
+    """The translator's batch loop encodes PNG destinations itself (the
+    card's machine has no PIL), a tail batch at its own size."""
+    code = (
+        "import sys, numpy as np\n"
+        "from thermal_semantic_segmentation_torch.cli import _common, "
+        "translator\n"
+        "from thermal_semantic_segmentation_torch.models import factory\n"
+        "g = factory.init_gan_net(factory.unet_32(ngf=4, output_nc=1), 0, "
+        "device='cpu')\n"
+        f"ckpt = {str(tmp_path / 'g.pth')!r}\n"
+        "_common.save_gan_checkpoint(ckpt, {'s2t': g}, {}, epoch=0)\n"
+        "model, ngf = _common.build_generator_from_gan_checkpoint(ckpt, "
+        "'s2t', input_nc=3, output_nc=1, device='cpu')\n"
+        "rng = np.random.default_rng(0)\n"
+        f"out = {str(tmp_path / 'out')!r}\n"
+        "batches = [{'image': rng.uniform(-1, 1, (n, 32, 64, 3))"
+        ".astype(np.float32), 'img_path': [f'{out}/{i}{k}.png' "
+        "for k in range(n)]} for i, n in enumerate((2, 1))]\n"
+        "s = translator.translate_batches(model, batches, denormalize=[0.5],"
+        " save_hw=(40, 72), suffix='x', device='cpu')\n"
+        "assert s['images'] == 3 and ngf == 4, s\n"
+        "sys.exit(1 if 'PIL' in sys.modules else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
+        "00_x.png", "01_x.png", "10_x.png"]
 
 
 def test_device_prefetch_carries_nested_dicts():

@@ -148,10 +148,12 @@ def test_train_datasets_match_jax(trees, dataset, grayscale):
 
 def test_freiburg_modes_not_yet_ported_raise(trees):
     from thermal_semantic_segmentation_torch.data.freiburg import Freiburg
-    for flag in ("translation_mode", "native_decode"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            Freiburg(trees[0], "train", "IR", **{flag: True})
-    # self-training mode is ported (tests/test_torch_self_train_data.py)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Freiburg(trees[0], "train", "IR", native_decode=True)
+    # self-training mode is ported (tests/test_torch_self_train_data.py),
+    # and the translator's mode (tests/test_torch_gan_cli.py)
+    assert Freiburg(trees[0], "train", "RGB",
+                    translation_mode=True).translation_mode
     assert Freiburg(trees[0], "train", "IR", self_train=True).self_train
     ds = Freiburg(trees[0], "train", "IR",
                   transforms=_common.train_transform())

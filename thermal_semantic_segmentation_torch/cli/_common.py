@@ -1,5 +1,6 @@
-"""Shared CLI plumbing: dataset selection, checkpoint loading and saving,
-and model construction (counterpart of the JAX ``cli/_common.py``)."""
+"""Shared CLI plumbing: dataset selection, checkpoint loading and saving
+(seg and GAN), and model construction (counterpart of the JAX
+``cli/_common.py``)."""
 
 from __future__ import annotations
 
@@ -16,8 +17,11 @@ from ..core.checkpoint import load_checkpoint
 from ..data import transforms as T
 from ..data.cityscapes import Cityscapes, CityscapesTranslation
 from ..data.freiburg import Freiburg, FreiburgTest
-from ..models.convert import jax_variables_to_state_dict
+from ..device import resolve_device
+from ..models.convert import (GAN_KEYS, jax_gan_checkpoint_to_torch,
+                              jax_variables_to_state_dict)
 from ..models.deeplab import create_deeplab
+from ..nn.generators import UnetGenerator
 
 _BLOCK_KEY = re.compile(r"layer([1-4])\.(\d+)\.conv1\.weight$")
 # numpy objects a reference .pth may carry beside its tensors (the JAX
@@ -109,8 +113,7 @@ def load_seg_checkpoint(path: str):
     the architecture read from the state_dict.
     """
     if zipfile.is_zipfile(path):
-        with torch.serialization.safe_globals(_NUMPY_SAFE):
-            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        ckpt = _torch_load(path)
         if "sem_net_state_dict" in ckpt:
             sd = ckpt["sem_net_state_dict"]
             meta = {k: v for k, v in ckpt.items()
@@ -130,6 +133,28 @@ def load_seg_checkpoint(path: str):
         sd = jax_variables_to_state_dict(meta.pop("variables"))
     meta.update(model_meta_from_state_dict(sd))
     return sd, meta
+
+
+def _torch_load(path: str):
+    """A ``.pth`` read with ``weights_only=True``: tensors, containers,
+    numbers and numpy's numeric arrays, nothing else."""
+    with torch.serialization.safe_globals(_NUMPY_SAFE):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _save_atomically(path: str, payload: dict) -> None:
+    """``torch.save`` into a temporary file beside ``path``, then
+    ``os.replace``: a reader never sees a half-written checkpoint."""
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(payload, f)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
 
 
 def save_seg_checkpoint(path: str, state_dict, *, epoch: int,
@@ -155,16 +180,69 @@ def save_seg_checkpoint(path: str, state_dict, *, epoch: int,
     if objective_vectors is not None:
         payload["objective_vectors"] = torch.as_tensor(
             objective_vectors, dtype=torch.float32).detach().cpu().clone()
-    directory = os.path.dirname(os.path.abspath(path))
-    os.makedirs(directory, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            torch.save(payload, f)
-        os.replace(tmp, path)
-    except BaseException:
-        os.unlink(tmp)
-        raise
+    _save_atomically(path, payload)
+
+
+def save_gan_checkpoint(path: str, g_nets, d_nets, *, epoch: int) -> None:
+    """Write the reference GAN ``.pth`` schema (reference main.py:128-136,
+    main_gan.py:110-114): ``{'epoch', 'net_g_s2t_state_dict',
+    'net_g_t2s_state_dict', 'net_d_t_state_dict', 'net_d_s_state_dict'}``
+    for the nets given ({'s2t', 't2s'} and {'t', 's'}), tensors on the CPU,
+    atomically. The JAX package's CLIs read it (its ``.pth`` path)."""
+    payload = {"epoch": int(epoch)}
+    for nets, keys in ((g_nets, GAN_KEYS["g"]), (d_nets, GAN_KEYS["d"])):
+        for name, key in keys:
+            if name in nets:
+                payload[key] = {k: v.detach().cpu()
+                                for k, v in nets[name].state_dict().items()}
+    _save_atomically(path, payload)
+
+
+def load_gan_checkpoint(path: str) -> dict:
+    """A GAN checkpoint in the reference ``.pth`` schema, read from a
+    ``.pth`` (``torch.load(weights_only=True)``) or from the JAX package's
+    msgpack GAN checkpoint (``{'epoch', 'g_vars', 'd_vars'}``, converted by
+    ``jax_gan_checkpoint_to_torch``)."""
+    if zipfile.is_zipfile(path):
+        ckpt = _torch_load(path)
+    else:
+        try:
+            ckpt = load_checkpoint(path)
+        except ValueError as e:
+            raise ValueError(f"{path!r} is neither a torch .pth nor a "
+                             f"msgpack checkpoint: {e}") from e
+        if not isinstance(ckpt, dict) or "g_vars" not in ckpt:
+            raise ValueError(f"{path!r} is a msgpack file without a GAN "
+                             f"checkpoint's 'g_vars'")
+        ckpt = jax_gan_checkpoint_to_torch(ckpt)
+    if "epoch" not in ckpt or not any(key in ckpt for _, key in
+                                      GAN_KEYS["g"]):
+        raise ValueError(f"{path!r} holds no GAN generator")
+    return ckpt
+
+
+def build_generator_from_gan_checkpoint(path: str, generator_type: str, *,
+                                        input_nc: int, output_nc: int,
+                                        device=None):
+    """The U-Net generator ``generator_type`` ('s2t' or 't2s') of a GAN
+    checkpoint, loaded strictly, in eval mode, ``channels_last`` on
+    ``device`` (default: the CUDA device; raises without one). The
+    checkpoint is authoritative for the width (``model.model.0.weight``'s
+    output channels) and the depth (the nesting of its keys), as a
+    training run's ``-ngf`` may differ from the default. Returns (model,
+    ngf)."""
+    device = resolve_device(device)
+    ckpt = load_gan_checkpoint(path)
+    key = dict(GAN_KEYS["g"])[generator_type]
+    if key not in ckpt:
+        raise KeyError(f"{path!r} has no {generator_type} generator")
+    sd = ckpt[key]
+    ngf = int(sd["model.model.0.weight"].shape[0])
+    num_downs = max(k.count(".model.") for k in sd)
+    model = UnetGenerator(input_nc, output_nc, num_downs=num_downs, ngf=ngf)
+    model.load_state_dict(sd, strict=True)
+    return model.to(device=device,
+                     memory_format=torch.channels_last).eval(), ngf
 
 
 def model_meta(args) -> dict:

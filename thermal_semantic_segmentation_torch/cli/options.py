@@ -62,6 +62,8 @@ def _add_roots(parser: argparse.ArgumentParser):
                         default='datasets/target_dataset')
     parser.add_argument('--model_root_path', type=str,
                         default='./checkpoints/semantic_segmentation')
+    parser.add_argument('--gan_model_root_path', type=str,
+                        default='./checkpoints')
     parser.add_argument('--device', type=str, default='',
                         help='torch device to run on; empty = the CUDA '
                              'device (fails without one), "cpu" runs on the '
@@ -97,6 +99,98 @@ def _add_roots(parser: argparse.ArgumentParser):
     parser.add_argument('--distributed', type=str2bool, default=False,
                         help='not yet ported: refused when true.')
     parser.add_argument('--seed', type=int, default=0)
+
+
+class _TrainParser(HostConfigParser):
+    """``-sem_loss true`` needs ``-sem_mode module2``: the legacy sem nets
+    are not yet ported."""
+
+    def parse_args(self, *a, **kw):  # type: ignore[override]
+        args = super().parse_args(*a, **kw)
+        if args.sem_loss and args.sem_mode == "legacy":
+            self.error("-sem_loss true with -sem_mode legacy is not yet "
+                       "ported to the PyTorch package (see ROADMAP.md)")
+        return args
+
+
+def train_parse():
+    """GAN translation training options (reference options.py:4-24, with
+    the JAX package's additions)."""
+    parser = _TrainParser(description='train options')
+    parser.add_argument('-batch_size', type=int, default=4)
+    parser.add_argument('-sem_loss', type=str2bool, default=False)
+    parser.add_argument('-load_model', type=str2bool, default=False)
+    parser.add_argument('-checkpoint_name', type=str,
+                        default='freiburg_rgb2ir.pth')
+    parser.add_argument('-new_checkpoint_name', type=str,
+                        default='cityscapes_rgb2freiburg_ir.pth')
+    parser.add_argument('-source_dataset', type=str, default='kitti')
+    parser.add_argument('-target_dataset', type=str, default='freiburg_ir')
+    parser.add_argument('-lr', type=float, default=0.0001)
+    parser.add_argument('-num_epoch', type=int, default=65)
+    parser.add_argument('-grayscale', type=str2bool, default=False)
+    parser.add_argument('-s2t_input_nc', type=int, default=3)
+    parser.add_argument('-t2s_input_nc', type=int, default=1)
+    parser.add_argument('-normalize', type=float, nargs='+',
+                        default=[0.5, 0.5, 0.5])
+    parser.add_argument('-with_contour', type=str2bool, default=False)
+    parser.add_argument('-canny_thermal_threshold', type=float, default=1)
+    parser.add_argument('-canny_rgb_threshold', type=float, default=2.5)
+    parser.add_argument('-cycle', type=str2bool, default=True,
+                        help='CycleGAN (main.py) vs one-direction GAN '
+                             '(main_gan.py).')
+    parser.add_argument('-host_pool', type=str2bool, default=False,
+                        help='the host image pool between separate G and D '
+                             'updates (the reference loop); default is one '
+                             'update with the pool on the device.')
+    parser.add_argument('-sem_checkpoint_s', type=str, default='',
+                        help='the frozen RGB sem net: a segmentation_train '
+                             'checkpoint (.pth or the JAX package\'s '
+                             'msgpack).')
+    parser.add_argument('-sem_checkpoint_t', type=str, default='',
+                        help='the frozen thermal sem net, likewise.')
+    parser.add_argument('-sem_mode', type=str, default='legacy',
+                        choices=('legacy', 'module2'),
+                        help="frozen sem-net architecture: 'module2' = the "
+                             "seg trainer's checkpoints (architecture from "
+                             "each checkpoint, [0, 1] input scale); "
+                             "'legacy' (the reference's zoo nets) is not yet "
+                             "ported and refused with -sem_loss true.")
+    parser.add_argument('-log_interval', type=int, default=10)
+    parser.add_argument('-ngf', type=int, default=64,
+                        help='U-Net generator base width (the reference '
+                             'hardcodes 64); the translator reads it from '
+                             'the checkpoint.')
+    parser.add_argument('-max_steps', type=int, default=0,
+                        help='cap on steps per epoch (0 = unlimited).')
+    parser.add_argument('-save_interval', type=int, default=1,
+                        help='checkpoint every N epochs (the final epoch '
+                             'always saves).')
+    _add_roots(parser)
+    return parser
+
+
+def translation_parse():
+    """Offline translator options (reference options.py:27-48)."""
+    parser = HostConfigParser(description='translation options')
+    parser.add_argument('--root', type=str, default='')
+    parser.add_argument('-dataset', type=str, default='Cityscapes')
+    parser.add_argument('-batch_size', type=int, default=1)
+    parser.add_argument('-checkpoint_name', type=str,
+                        default='cityscapes_rgb2freiburg_ir.pth')
+    parser.add_argument('-input_nc', type=int, default=3)
+    parser.add_argument('-output_nc', type=int, default=1)
+    parser.add_argument('-save_image_size', type=int, nargs=2,
+                        default=[1024, 2048])
+    parser.add_argument('-normalize', type=float, nargs='+',
+                        default=[0.5, 0.5, 0.5])
+    parser.add_argument('-denormalize', type=float, nargs='+', default=[0.5])
+    parser.add_argument('-grayscale', type=str2bool, default=False)
+    parser.add_argument('-generator_type', type=str, default='s2t')
+    parser.add_argument('-translation_name_suffix', type=str,
+                        default='cityscapes')
+    _add_roots(parser)
+    return parser
 
 
 def seg_parse():

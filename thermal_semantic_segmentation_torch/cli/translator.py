@@ -1,0 +1,147 @@
+"""Offline dataset translation (counterpart of the JAX ``cli/translator.py``;
+reference translator.py:15-68).
+
+Loads a generator from a GAN checkpoint (the port's ``.pth``, a reference
+one or the JAX package's msgpack), translates every frame of the dataset
+at 256x512 (``Resize((512, 256))``), de-normalises with ``-denormalize``,
+resizes to ``-save_image_size`` (H W) as PIL's BICUBIC does and writes each
+frame to its destination, the frame's path under the translation folder:
+
+    python -m thermal_semantic_segmentation_torch.cli.translator \\
+        -dataset freiburg_rgb -checkpoint_name g.pth [--device cpu]
+
+``translate_batches`` is the batch loop; it takes its loader, so a caller
+can drive it with data of its own. A ragged tail batch runs at its own
+size (the JAX package pads it to keep one compiled shape). The forward,
+de-normalisation and resize run on the device; PNG destinations (the
+Freiburg frames) are encoded by ``data/png.py`` on writer threads, other
+extensions through PIL.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..data import png
+from ..data import transforms as T
+from ..data.cityscapes import Cityscapes
+from ..data.device_pipeline import device_prefetch
+from ..data.freiburg import Freiburg
+from ..data.loader import DataLoader
+from ..device import resolve_device
+from ..ops.resize import resize_bicubic_8bit
+from ._common import build_generator_from_gan_checkpoint
+from .options import translation_parse
+
+MAX_PENDING_WRITES = 4
+
+
+def build_translation_dataset(args):
+    tf = T.Compose([T.Resize((512, 256)), T.ToArray(),
+                    T.Normalize(tuple(args.normalize), tuple(args.normalize))])
+    if args.dataset == "Cityscapes":
+        return Cityscapes(args.source_root, transforms=tf, train_mode=False)
+    if args.dataset == "freiburg_rgb":
+        return Freiburg(args.freiburg_root, "train", "RGB", transforms=tf,
+                        with_label=False, grayscale=args.grayscale,
+                        translation_mode=True)
+    raise ValueError("dataset does not exist.")
+
+
+def destination(path: str, suffix: str) -> str:
+    """``path`` with ``_suffix`` before its extension (none if empty)."""
+    if not suffix:
+        return path
+    base, ext = os.path.splitext(path)
+    return f"{base}_{suffix}{ext}"
+
+
+def write_frame(path: str, pixels: np.ndarray) -> None:
+    """(H, W, C) uint8 -> ``path``: a gray (C = 1) or RGB PNG by
+    ``data/png.py``, any other extension through PIL."""
+    frame = pixels[..., 0] if pixels.shape[-1] == 1 else pixels
+    if path.lower().endswith(".png"):
+        (png.write_gray_png if frame.ndim == 2 else png.write_rgb_png)(
+            path, frame)
+        return
+    from PIL import Image
+    Image.fromarray(frame).save(path)
+
+
+def translate_batches(model, loader, *, denormalize, save_hw, suffix: str,
+                      device, bf16: bool = False,
+                      mark: Optional[Callable[[str], None]] = None):
+    """Translate every batch of ``loader`` (dicts with an NHWC 'image' and
+    the destinations 'img_path') and write the frames; the forward under
+    bfloat16 autocast with ``bf16``. ``mark``, when given, is called with
+    'batch' before each batch's device work is queued, then with 'forward'
+    and 'resize' as its stages are. Returns {'images', 'seconds',
+    'encode_s'}: the frames written, the loop's seconds (every write
+    finished) and the writer threads' seconds of encoding and writing."""
+    mark = mark or (lambda stage: None)
+    device = torch.device(device)
+    denorm = torch.tensor(denormalize, dtype=torch.float32,
+                          device=device).reshape(1, -1, 1, 1)
+    encode_s = []
+
+    def write_batch(pixels, paths):
+        start = time.perf_counter()
+        for frame, path in zip(pixels, paths):
+            write_frame(path, frame)
+        encode_s.append(time.perf_counter() - start)
+
+    images, start = 0, time.perf_counter()
+    futures = []
+    with cf.ThreadPoolExecutor(max_workers=2) as pool:
+        for batch in device_prefetch(loader, device):
+            mark("batch")
+            with torch.inference_mode(), torch.autocast(
+                    device.type, dtype=torch.bfloat16, enabled=bf16):
+                fake = model(batch["image"].permute(0, 3, 1, 2)).float()
+                mark("forward")
+                pixels = ((fake * denorm + denorm) * 255.0).clamp(0.0, 255.0)
+                pixels = resize_bicubic_8bit(pixels.to(torch.uint8),
+                                             *save_hw)
+                mark("resize")
+            host = pixels.permute(0, 2, 3, 1).cpu().numpy()
+            paths = [destination(p, suffix) for p in batch["img_path"]]
+            for p in paths:
+                os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+            futures.append(pool.submit(write_batch, host, paths))
+            while len(futures) > MAX_PENDING_WRITES:
+                futures.pop(0).result()   # raise write errors promptly
+            images += host.shape[0]
+        for f in futures:
+            f.result()
+    return {"images": images, "seconds": time.perf_counter() - start,
+            "encode_s": sum(encode_s)}
+
+
+def translate(args):
+    device = resolve_device(args.device or None)
+    loader = DataLoader(build_translation_dataset(args), args.batch_size,
+                        shuffle=False, drop_last=False, seed=args.seed)
+    model, _ = build_generator_from_gan_checkpoint(
+        os.path.join(args.gan_model_root_path, args.checkpoint_name),
+        "s2t" if args.generator_type == "s2t" else "t2s",
+        input_nc=args.input_nc, output_nc=args.output_nc, device=device)
+    summary = translate_batches(
+        model, loader, denormalize=args.denormalize,
+        save_hw=tuple(args.save_image_size),
+        suffix=args.translation_name_suffix, device=device, bf16=args.bf16)
+    print("translation complete.")
+    return summary
+
+
+def main(argv=None):
+    return translate(translation_parse().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

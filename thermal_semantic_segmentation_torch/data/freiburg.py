@@ -68,9 +68,11 @@ class Freiburg:
     """Train-split Freiburg (reference data/freiburg_dataset.py:12-152), in
     plain IR or RGB mode, in translation mode (``segmentation_mode=True``:
     the RGB frames' translated copies under ``translation_name``, with the
-    RGB labels) and in self-training mode (``self_train=True``, below). The
-    offline-translator mode (``translation_mode``) and the native batch
-    decoder (``native_decode``) are not yet ported and raise.
+    RGB labels), in the offline translator's mode (``translation_mode``:
+    the frame and its destination ``img_path``, the frame's path with the
+    split segment swapped for ``translation_name``) and in self-training
+    mode (``self_train=True``, below). The native batch decoder
+    (``native_decode``) is not yet ported and raises.
 
     Self-training mode (reference :107-134) reads the IR frame and its
     label, the hard pseudo-label PNG under ``path_lp`` and, with
@@ -96,14 +98,11 @@ class Freiburg:
                  ignore_index: int = 12, proto_rectify: bool = True,
                  hard_keep_classes: Sequence[int] = (5, 11),
                  native_decode: bool = False):
-        for flag, name, slice_ in (
-                (translation_mode, "translation_mode", "translator"),
-                (native_decode, "native_decode", "native loader")):
-            if flag:
-                raise NotImplementedError(
-                    f"Freiburg({name}=True) belongs to the {slice_} slice and "
-                    f"is not yet ported to the PyTorch package (see "
-                    f"ROADMAP.md)")
+        if native_decode:
+            raise NotImplementedError(
+                "Freiburg(native_decode=True) belongs to the native loader "
+                "and is not yet ported to the PyTorch package (see "
+                "ROADMAP.md)")
         if split not in ("train", "test"):
             raise ValueError(f"invalid split {split!r}")
         data_file = os.path.join(root, "image_list",
@@ -121,6 +120,7 @@ class Freiburg:
         self.with_label = with_label
         self.grayscale = grayscale
         self.segmentation_mode = segmentation_mode
+        self.translation_mode = translation_mode
         self.translation_name = translation_name
         self.self_train = self_train
         self.augmentations = augmentations
@@ -165,6 +165,10 @@ class Freiburg:
         image_name = self.data_list[index]
         out = {"img_path": os.path.basename(image_name)}
         image = self._load_image(image_name)
+        if self.translation_mode:
+            out["image"], _ = self.transforms(rng, image, None)
+            out["img_path"] = self._swap_split(image_name)
+            return out
         if not self.with_label:
             out["image"], _ = self.transforms(rng, image, None)
             return out

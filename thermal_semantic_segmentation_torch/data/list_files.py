@@ -1,6 +1,5 @@
-"""Freiburg, Cityscapes and FLIR list files in the reference's directory
-grammar (counterpart of the JAX ``data/list_files.py``; the KITTI list comes
-with its dataset).
+"""Freiburg, Cityscapes, FLIR and KITTI list files in the reference's
+directory grammar (counterpart of the JAX ``data/list_files.py``).
 
 The reference writes ``image_list/*.txt`` manifests on first use and derives
 label paths by string substitution. The same rules apply here, with sorted
@@ -110,6 +109,18 @@ def flir_list(root: str, split: str, data_folder: str = "images") -> str:
     os.makedirs(os.path.dirname(list_path), exist_ok=True)
     with open(list_path, "w") as f:
         f.write("".join(p + "\n" for p in _walk_files(im_dir)))
+    return list_path
+
+
+def kitti_list(root: str) -> str:
+    """KITTI raw frames: <root>/2011_09_*/2011_09_*/image_02/data/*.png."""
+    list_dir = os.path.join(root, "image_list")
+    os.makedirs(list_dir, exist_ok=True)
+    list_path = os.path.join(list_dir, "kitti_data.txt")
+    files = sorted(glob.glob(os.path.join(root, "2011_09_*", "2011_09_*",
+                                          "image_02", "data", "*.png")))
+    with open(list_path, "w") as f:
+        f.write("".join(p + "\n" for p in files))
     return list_path
 
 

@@ -1,6 +1,6 @@
-"""Loss functions (counterpart of the JAX ``losses/__init__.py``; the pixel
-cross entropy and self-training's reverse cross entropy so far, the other
-losses come with their slices).
+"""Loss functions (counterpart of the JAX ``losses/__init__.py``): pixel
+cross entropy, self-training's reverse cross entropy, focal loss, CyCADA's
+semantic consistency, the LSGAN / vanilla / Wasserstein GAN losses and L1.
 
 Segmentation losses take NHWC logits and (N, H, W) integer labels.
 """
@@ -8,8 +8,10 @@ Segmentation losses take NHWC logits and (N, H, W) integer labels.
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -53,3 +55,67 @@ def reverse_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     log_onehot = torch.where(onehot, 0.0, math.log(1e-4))
     per_pix = -(p * log_onehot).sum(dim=-1)
     return (per_pix * mask).sum() / (mask.sum() + 1e-6)
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+               gamma: float = 0.0, alpha=None,
+               ignore_index: Optional[int] = None) -> torch.Tensor:
+    """Focal loss (reference utils/loss.py:153-184): the mean over valid
+    pixels of ``-(1 - pt)^gamma * log(pt) [* alpha[label]]``, ``pt`` the
+    softmax probability of the label, taken without a gradient. A pixel is
+    valid where its label is in [0, C) and is not ``ignore_index``; the
+    denominator is ``max(count, 1)``."""
+    num_classes = logits.shape[-1]
+    labels = labels.long()
+    valid = (labels >= 0) & (labels < num_classes)
+    if ignore_index is not None:
+        valid &= labels != ignore_index
+    safe = torch.where(valid, labels, 0).unsqueeze(-1)
+    logpt = torch.log_softmax(logits.float(), dim=-1).gather(-1, safe)[..., 0]
+    pt = logpt.detach().exp()
+    if alpha is not None:
+        alpha = torch.as_tensor(alpha, dtype=logpt.dtype,
+                                device=logpt.device)
+        logpt = logpt * alpha[safe[..., 0]]
+    loss = torch.where(valid, -((1.0 - pt) ** gamma) * logpt, 0.0)
+    return loss.sum() / valid.sum().clamp_min(1)
+
+
+def semantic_consistency(logits: torch.Tensor, labels: torch.Tensor, *,
+                         ignore_classes: Sequence[int] = ()) -> torch.Tensor:
+    """CyCADA semantic-consistency loss (reference utils/loss.py:102-150):
+    cross entropy with ``ignore_index`` 255, the ``ignore_classes`` ids
+    remapped to 255."""
+    labels = labels.long()
+    for cid in ignore_classes:
+        labels = torch.where(labels == cid, 255, labels)
+    return cross_entropy(logits, labels, ignore_index=255)
+
+
+def lsgan_loss(prediction: torch.Tensor, real: bool) -> torch.Tensor:
+    """Least-squares GAN loss: the MSE against all ones or all zeros."""
+    return ((prediction.float() - (1.0 if real else 0.0)) ** 2).mean()
+
+
+def vanilla_gan_loss(prediction: torch.Tensor, real: bool) -> torch.Tensor:
+    """BCE with logits against all ones or all zeros, in the stable form
+    ``max(p, 0) - p z + log1p(exp(-|p|))``."""
+    p = prediction.float()
+    z = 1.0 if real else 0.0
+    return (p.clamp_min(0) - p * z + torch.log1p(torch.exp(-p.abs()))).mean()
+
+
+def wasserstein_gan_loss(prediction: torch.Tensor, real: bool) -> torch.Tensor:
+    p = prediction.float()
+    return -p.mean() if real else p.mean()
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return F.l1_loss(a.float(), b.float())
+
+
+GAN_LOSSES = {
+    "lsgan": lsgan_loss,
+    "vanilla": vanilla_gan_loss,
+    "wgan": wasserstein_gan_loss,
+}

@@ -32,11 +32,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     The normalisation stays ``F.batch_norm``'s (cuDNN on the card). It
     folds into a copy of the C old values, which autograd keeps, and the
     buffer then gets ``(1-m) * old + (copy - (1-m) * old) * (n-1)/n``: O(C)
-    work. The state_dict keys are ``nn.BatchNorm2d``'s.
+    work. The state_dict keys are ``nn.BatchNorm2d``'s. With
+    ``track_running_stats`` set False, a train-mode forward normalises with
+    the batch's statistics and leaves every buffer as it was.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if not (self.training and self.track_running_stats):
             return super().forward(x)
         self.num_batches_tracked.add_(1)
         m = self.momentum

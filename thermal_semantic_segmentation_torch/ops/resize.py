@@ -8,7 +8,8 @@ arithmetic (float64 source coordinates, float32 weights) as 2-tap tables for
 the fused ``kernels/upsample_argmax`` kernel and ``resize_bilinear_taps``.
 Self-training adds ``resize_nearest`` and ``sample_bilinear_at``; the JAX
 package writes both as one-hot matrix products (a TPU workaround for slow
-gathers), here they are index gathers.
+gathers), here they are index gathers. The translator's PIL-style bicubic
+resize of 8-bit images is ``resize_bicubic_8bit``.
 """
 
 from __future__ import annotations
@@ -153,3 +154,23 @@ def sample_bilinear_at(x: torch.Tensor, src_rows: torch.Tensor,
 
     wc = wc[:, None, :, None]
     return cols(lo) * (1.0 - wc) + cols(hi) * wc
+
+
+def resize_bicubic_8bit(pixels: torch.Tensor, out_h: int,
+                        out_w: int) -> torch.Tensor:
+    """(N, C, H, W) 8-bit values -> (N, C, out_h, out_w) uint8, as PIL's
+    BICUBIC ``resize`` of an 8-bit image: a horizontal pass, then a
+    vertical one (a pass whose size does not change is skipped), each
+    rounded and clipped to 0..255 as PIL stores its 8-bit intermediate.
+    ``F.interpolate``'s antialiased bicubic is PIL's filter (a = -0.5,
+    widened when reducing); PIL's fixed-point sums leave at most one grey
+    level between the two."""
+    x = pixels.float()
+    h, w = x.shape[-2:]
+    for size, changes in (((h, out_w), out_w != w),
+                          ((out_h, out_w), out_h != h)):
+        if changes:
+            x = F.interpolate(x, size=size, mode="bicubic", antialias=True,
+                              align_corners=False)
+            x = torch.floor(x + 0.5).clamp_(0.0, 255.0)
+    return x.to(torch.uint8)
