@@ -53,10 +53,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      card-vs-CPU step (the card's discrete decisions replayed on the
      CPU); prints images/s, peak memory and a per-stage step
      breakdown;
- 11. translate: the translator's batch loop writes seeded frames at batch 8
+ 11. gan_legacy: the same with the GAN CLI's default -sem_mode legacy:
+     the frozen sem nets are full-width 19-class legacy ResNet-101s
+     (random weights, reference legacy .pth files), the kernel labels the
+     t2s term from their (4, 33, 65, 19) logits;
+ 12. translate: the translator's batch loop writes seeded frames at batch 8
      to 320x700 PNGs from the gan phase's checkpoint; the pixels, read
      back with zlib, are held to a float64 recomputation; prints images/s
-     and a forward / resize / encode breakdown.
+     and a forward / resize / encode breakdown;
+ 13. distance: ``evaluate_distance`` with the per-class L1 scores those
+     PNGs against seeded originals and labels at batch 1 and 8; L1, SSIM
+     and per-class L1 held to float64 on the CPU; prints pairs/s and the
+     per-batch times. It launches no kernel.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -82,6 +90,8 @@ TEACHER_SHAPE, TEACHER_OUT = (4, 41, 88, 13), (80, 175)
 # the GAN's t2s labels: the frozen thermal net's stride-8 logits of a
 # batch-4 256x512 crop to the crop's size
 GAN_SHAPE, GAN_OUT = (4, 33, 65, 13), (256, 512)
+# the same with -sem_mode legacy: the 19-class legacy thermal net's logits
+GAN_LEGACY_SHAPE = (4, 33, 65, 19)
 # (shape, out_hw, strided): "strided" holds the logits as NCHW-contiguous
 # memory viewed as NHWC, so the kernel reads them through general strides
 PARITY_CASES = [
@@ -89,6 +99,7 @@ PARITY_CASES = [
     *[(s, s[1:3], False) for s in IDENTITY_SHAPES],
     (TEACHER_SHAPE, TEACHER_OUT, False),
     (GAN_SHAPE, GAN_OUT, False),
+    (GAN_LEGACY_SHAPE, GAN_OUT, False),
     ((3, 9, 17, 13), (61, 127), False),
     ((2, 33, 65, 13), (250, 509), False),    # ragged row and column tiles
     ((1, 40, 70, 13), (17, 31), False),      # downsampling
@@ -128,6 +139,10 @@ GAN_METRIC_RTOL, GAN_STATS_ATOL = 1e-4, 1e-5   # the CPU test's
 GAN_GRAD_RTOL = 1e-4
 TRANSLATE_IMAGES, TRANSLATE_BATCH = 44, 8
 TRANSLATE_HW = (320, 700)
+# the distance eval over the translate phase's PNGs: the CLI's default
+# batch 1, then 8; held to float64
+DISTANCE_BATCHES = (1, 8)
+SSIM_ATOL, DISTANCE_RTOL = 1e-5, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -325,6 +340,7 @@ def phase_kernels():
     # computing the same function is F.interpolate + softmax().max()
     teacher = upsampled_shape_times(TEACHER_SHAPE, TEACHER_OUT, gen)
     gan = upsampled_shape_times(GAN_SHAPE, GAN_OUT, gen)
+    gan_legacy = upsampled_shape_times(GAN_LEGACY_SHAPE, GAN_OUT, gen)
     return [{
         "name": "upsample_argmax", "route": "cuda",
         "source": "thermal_semantic_segmentation_torch/csrc/upsample_argmax.cu",
@@ -334,6 +350,7 @@ def phase_kernels():
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "identity_shapes": identity,
         "teacher_shape": teacher, "gan_shape": gan,
+        "gan_legacy_shape": gan_legacy,
     }]
 
 
@@ -1898,23 +1915,29 @@ class SeededGanImages:
         return out
 
 
-def gan_argv(root: str, *extra) -> list:
-    """The CLI flags of the gan phase: the CycleGAN at the recipe's widths
-    with the contour and module2 semantic losses (the JAX gates'
-    configuration)."""
+def gan_argv(root: str, mode: str, *extra) -> list:
+    """The CLI flags of a gan phase: the CycleGAN at the recipe's widths
+    with the contour and semantic losses; ``mode`` 'module2' (the JAX
+    gates' configuration) or 'legacy' (the default -sem_mode, the
+    reference's recipe)."""
+    name = "smoke_gan.pth" if mode == "module2" else "smoke_gan_legacy.pth"
+    sem = ["-sem_mode", "module2"] if mode == "module2" else []
     return ["-batch_size", str(GAN_BATCH), "-num_epoch", "1", "-max_steps",
-            str(GAN_STEPS), "-checkpoint_name", "smoke_gan.pth",
-            "-new_checkpoint_name", "smoke_gan.pth", "-with_contour", "true",
-            "-sem_loss", "true", "-sem_mode", "module2",
-            "-sem_checkpoint_s", f"{root}/sem_s.pth",
-            "-sem_checkpoint_t", f"{root}/sem_t.pth",
+            str(GAN_STEPS), "-checkpoint_name", name,
+            "-new_checkpoint_name", name, "-with_contour", "true",
+            "-sem_loss", "true", *sem,
+            "-sem_checkpoint_s", f"{root}/sem_{mode}_s.pth",
+            "-sem_checkpoint_t", f"{root}/sem_{mode}_t.pth",
             "--gan_model_root_path", root, *extra]
 
 
-def phase_gan(card: str, root: str) -> dict:
+def phase_gan(card: str, root: str, mode: str = "module2") -> dict:
     """Train the full-width CycleGAN through the GAN CLI's epoch loop on
     seeded in-memory data and check it; returns the kernels' launch
-    counts from the two epochs."""
+    counts from the two epochs. ``mode``: the frozen sem nets, full-width
+    ResNet-101s with random weights from seeds, RGB and thermal: 'module2'
+    (13 classes, seg .pth files) or 'legacy' (19 classes, the legacy
+    head, reference legacy .pth files)."""
     import math
 
     import torch
@@ -1931,26 +1954,31 @@ def phase_gan(card: str, root: str) -> dict:
     from thermal_semantic_segmentation_torch.models.deeplab import (
         create_deeplab)
 
-    # the frozen sem nets: full-width module2 ResNet-101s (RGB and
-    # thermal), random weights from seeds, in seg .pth files
+    label = "gan" if mode == "module2" else "gan_legacy"
+    shape = GAN_SHAPE if mode == "module2" else GAN_LEGACY_SHAPE
     for name, channels, seed in (("s", 3, 1), ("t", 1, 2)):
-        torch.save({"epoch": 0, "sem_net_state_dict": create_deeplab(
-            seed, num_channels=channels).state_dict()},
-            f"{root}/sem_{name}.pth")
+        path = f"{root}/sem_{mode}_{name}.pth"
+        if mode == "module2":
+            torch.save({"epoch": 0, "sem_net_state_dict": create_deeplab(
+                seed, num_channels=channels).state_dict()}, path)
+        else:
+            torch.save(create_deeplab(seed, num_channels=channels,
+                                      num_classes=19, head="legacy")
+                       .state_dict(), path)
     source = SeededGanImages(GAN_IMAGES, SERVE_OUT, 3, seed=21, labels=True)
     target = SeededGanImages(GAN_IMAGES, SERVE_OUT, 1, seed=22)
 
     def run(load: bool):
         args = train_parse().parse_args(gan_argv(
-            root, "-load_model", str(load).lower()))
+            root, mode, "-load_model", str(load).lower()))
         loaders = [DataLoader(data, GAN_BATCH, shuffle=True, drop_last=True,
                               seed=args.seed + k)
                    for k, data in enumerate((source, target))]
         return (args, *gan_epochs(args, *loaders))
 
     upsample_argmax.launches = 0      # counts from the main path only
-    _, state, first = run(False)
-    ckpt = load_gan_checkpoint(f"{root}/smoke_gan.pth")
+    args, state, first = run(False)
+    ckpt = load_gan_checkpoint(f"{root}/{args.new_checkpoint_name}")
     ckpt_diff = [f"{key}/{k}"
                  for nets, keys in ((state.g, GAN_KEYS["g"]),
                                     (state.d, GAN_KEYS["d"]))
@@ -1968,7 +1996,7 @@ def phase_gan(card: str, root: str) -> dict:
 
     steps = sum(h["steps"] for h in history)
     values = [x for h in history for v in h["metrics"].values() for x in v]
-    print(f"gan check: epochs {[h['epoch'] for h in history]}, steps "
+    print(f"{label} check: epochs {[h['epoch'] for h in history]}, steps "
           f"{[h['steps'] for h in history]}, metrics "
           f"{[{k: [round(x, 5) for x in v] for k, v in h['metrics'].items()} for h in history]}; "
           f"checkpoint round trip {'equal' if round_trip else 'DIFFERS'}; "
@@ -1988,29 +2016,29 @@ def phase_gan(card: str, root: str) -> dict:
 
     batch = next(iter(gan_batches(source, target)))
     sem_nets = load_sem_nets(args, "cuda")
-    gan_read_only_check(args, state, sem_nets, batch)
-    gan_step_parity()
+    gan_read_only_check(args, state, sem_nets, batch, shape)
+    gan_step_parity(mode)
     h = second[0]
-    print(f"gan: epoch {h['epoch']} (resumed), {h['images']} source images "
-          f"in {h['steps']} steps of {GAN_BATCH} at "
+    print(f"{label}: epoch {h['epoch']} (resumed), {h['images']} source "
+          f"images in {h['steps']} steps of {GAN_BATCH} at "
           f"{h['images'] / h['train_s']:.2f} images/s ({h['train_s']:.3f} s "
           f"of steps), float32, on {card}", flush=True)
     n_g = sum(p.numel() for net in state.g.values() for p in net.parameters())
     n_d = sum(p.numel() for net in state.d.values() for p in net.parameters())
-    print(f"gan peak device memory: {peak_gb:.3f} GiB "
+    print(f"{label} peak device memory: {peak_gb:.3f} GiB "
           f"(torch.cuda.max_memory_allocated over the resumed epoch; "
           f"generators {n_g} and discriminators {n_d} parameters, two "
-          f"frozen ResNet-101s) on {card}", flush=True)
+          f"frozen {mode} ResNet-101s) on {card}", flush=True)
     breakdown = gan_breakdown(args, state, sem_nets, batch)
-    print(f"gan step breakdown: {json.dumps(breakdown)} on {card}",
+    print(f"{label} step breakdown: {json.dumps(breakdown)} on {card}",
           flush=True)
     loop_ms = h["train_s"] / h["steps"] * 1e3
     device_ms = sum(v for k, v in breakdown.items()
                     if k not in ("wall_ms", "device_idle_share"))
-    print(f"gan loop: {loop_ms:.3f} ms a step in the resumed epoch against "
-          f"{device_ms:.3f} ms of device work a step in the breakdown: "
-          f"device busy ~{device_ms / loop_ms:.3f} of the loop, on {card}",
-          flush=True)
+    print(f"{label} loop: {loop_ms:.3f} ms a step in the resumed epoch "
+          f"against {device_ms:.3f} ms of device work a step in the "
+          f"breakdown: device busy ~{device_ms / loop_ms:.3f} of the loop, "
+          f"on {card}", flush=True)
     return launches
 
 
@@ -2034,12 +2062,12 @@ def gan_step_kwargs(args, sem_nets) -> dict:
                 sem_nets=sem_nets, sem_norm=args.sem_mode, bf16=args.bf16)
 
 
-def gan_read_only_check(args, state, sem_nets, b) -> None:
+def gan_read_only_check(args, state, sem_nets, b, shape) -> None:
     """One more G update of the full-width nets: D's buffers bit for bit
     what they were, D's parameters without a gradient; the t2s ids the
     step took from the kernel (recorded) against the plain version on the
     same logits outside near-ties, the logits of the kernels phase's
-    shape."""
+    ``shape``."""
     import torch
 
     from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
@@ -2084,18 +2112,19 @@ def gan_read_only_check(args, state, sem_nets, b) -> None:
           flush=True)
     if changed or grads:
         fail(f"the G pass moved D: buffers {changed[:5]}, grads {grads[:5]}")
-    if len(seen) != 1 or tuple(logits.shape) != GAN_SHAPE:
+    if len(seen) != 1 or tuple(logits.shape) != shape:
         fail(f"the t2s labels came from {len(seen)} kernel calls on "
-             f"{tuple(logits.shape)}, not one on {GAN_SHAPE}")
+             f"{tuple(logits.shape)}, not one on {shape}")
     if wrong:
         fail(f"the t2s labels disagree with the plain version at {wrong} "
              f"pixels")
 
 
-def gan_step_parity() -> None:
-    """One GAN update of tiny nets (U-Net-32 ngf 8, PatchGAN ndf 8, module2
-    sem nets layers 1,1,1,1; batch 2 at 64x128, the contour and sem losses,
-    the host pool) on the card, then on the CPU from the same weights with
+def gan_step_parity(mode: str) -> None:
+    """One GAN update of tiny nets (U-Net-32 ngf 8, PatchGAN ndf 8, sem
+    nets of ``mode`` at layers 1,1,1,1; batch 2 at 64x128, the contour and
+    sem losses, the host pool) on the card, then on the CPU from the same
+    weights with
     the card's discrete decisions replayed (``DecisionTape``): each metric
     within rtol ``GAN_METRIC_RTOL``, the BatchNorm statistics within
     ``GAN_STATS_ATOL``, every parameter inside one Adam step's lr envelope
@@ -2103,8 +2132,8 @@ def gan_step_parity() -> None:
     gradient >= 1e-4: the CPU test's tolerances), the gradients' norm
     within ``GAN_GRAD_RTOL`` and the Canny masks parted on at most 0.5% of
     their pixels (the CPU test's boundary rule)."""
-    r = gan_parity_run()
-    print(f"gan parity card vs CPU: metrics {r['card']} vs {r['cpu']} (max "
+    r = gan_parity_run(mode)
+    print(f"gan parity ({mode}) card vs CPU: metrics {r['card']} vs {r['cpu']} (max "
           f"rel err {r['metric_err']:.3g}); BatchNorm statistics max abs err "
           f"{r['stats_err']:.3g}; card decisions replayed on the CPU, parted "
           f"{r['parted']} of {r['decided']}; {r['outside']} of {r['total']} "
@@ -2192,7 +2221,7 @@ class DecisionTape:
                     m.forward = functools.partial(max_pool, m)
 
 
-def gan_parity_run() -> dict:
+def gan_parity_run(mode: str) -> dict:
     """One tiny GAN update on the card and on the CPU (see
     ``gan_step_parity``); the differences between the two."""
     import numpy as np
@@ -2228,7 +2257,8 @@ def gan_parity_run() -> dict:
             for i, net in enumerate((*g.values(), *d.values())):
                 factory.init_gan_net(net, 30 + i, device=dev)
             sem = {name: create_deeplab(
-                40 + i, device=dev, num_channels=c,
+                40 + i, device=dev, num_channels=c, head=mode,
+                num_classes=19 if mode == "legacy" else NUM_CLASSES,
                 layers=(1, 1, 1, 1)).requires_grad_(False)
                 for i, (name, c) in enumerate((("s", 3), ("t", 1)))}
             tape.attach((*g.values(), *d.values(), *sem.values()))
@@ -2237,8 +2267,7 @@ def gan_parity_run() -> dict:
             state = gan.create_gan_state(g_nets=g, d_nets=d,
                                          learning_rate=TRAIN_LR, device=dev)
             g_step, d_step = gan.make_gan_steps(
-                cycle=True, with_contour=True, sem_nets=sem,
-                sem_norm="module2")
+                cycle=True, with_contour=True, sem_nets=sem, sem_norm=mode)
             b = {k: torch.from_numpy(v.astype(np.float32)
                                      if v.dtype.kind == "f" else v).to(dev)
                  for k, v in batch.items()}
@@ -2467,6 +2496,153 @@ def phase_translate(card: str, root: str) -> None:
           f"over batches; encode on 2 writer threads) on {card}", flush=True)
 
 
+class TranslationPairs:
+    """The translate phase's PNGs (read back with zlib) as the distance
+    eval's pairs: each with a seeded (H, W, 1) IR original in [0, 1] and a
+    seeded label map in 0..11 (class 12 never appears: a nan) with 5%
+    255, what ``DistanceDataset(with_label=True)`` gives."""
+
+    def __init__(self, paths, seed: int):
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        self.paths = paths
+        self.originals = rng.random((len(paths), *TRANSLATE_HW, 1),
+                                    dtype=np.float32)
+        self.labels = rng.integers(0, NUM_CLASSES - 1,
+                                   (len(paths), *TRANSLATE_HW)).astype(
+            np.int32)
+        self.labels[rng.random(self.labels.shape) < 0.05] = 255
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def get(self, index: int, rng) -> dict:
+        import numpy as np
+        trans = read_png_ids(self.paths[index]).astype(np.float32) / 255.0
+        return {"original": self.originals[index],
+                "translated": trans[..., None],
+                "label": self.labels[index]}
+
+
+def distance_float64(batches) -> tuple:
+    """(L1, SSIM, per-class sums, per-class counts) of ``batches`` in
+    float64 on the CPU: the same formulas (the float32 window of
+    ``ops/ssim.gaussian_window``), the SSIM the mean of batch means."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from thermal_semantic_segmentation_torch.ops.ssim import (
+        K1, K2, gaussian_window)
+    w = torch.from_numpy(gaussian_window().astype(np.float64))
+    l1_sum = n = 0.0
+    ssims = []
+    sums = np.zeros(NUM_CLASSES)
+    counts = np.zeros(NUM_CLASSES, np.int64)
+    for b in batches:
+        x = torch.from_numpy(b["original"]).double().permute(0, 3, 1, 2)
+        y = torch.from_numpy(b["translated"]).double().permute(0, 3, 1, 2)
+        diff = (x - y).abs()
+        l1_sum += float(diff.mean()) * x.shape[0]
+        n += x.shape[0]
+
+        def filt(m):
+            c = m.shape[1]
+            m = F.conv2d(m, w.view(1, 1, -1, 1).expand(c, 1, -1, 1),
+                         groups=c)
+            return F.conv2d(m, w.view(1, 1, 1, -1).expand(c, 1, 1, -1),
+                            groups=c)
+
+        mx, my = filt(x), filt(y)
+        vx, vy = filt(x * x) - mx ** 2, filt(y * y) - my ** 2
+        cov = filt(x * y) - mx * my
+        c1, c2 = K1 ** 2, K2 ** 2
+        ssims.append(float((((2 * mx * my + c1) * (2 * cov + c2))
+                            / ((mx ** 2 + my ** 2 + c1) * (vx + vy + c2)))
+                           .mean()))
+        lab = b["label"].reshape(-1)
+        keep = (lab >= 0) & (lab < NUM_CLASSES)
+        d = diff.mean(1).reshape(-1).numpy()
+        sums += np.bincount(lab[keep], weights=d[keep],
+                            minlength=NUM_CLASSES)
+        counts += np.bincount(lab[keep], minlength=NUM_CLASSES)
+    return l1_sum / n, float(np.mean(ssims)), sums, counts
+
+
+def phase_distance(card: str, root: str) -> None:
+    """``evaluate_distance`` with the per-class L1 over the translate
+    phase's PNGs at batch 1 and 8 (the CLI's shuffled, drop_last loader),
+    held to float64 on the CPU; prints pairs/s and the per-batch SSIM and
+    per-class times."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.eval.distance import (
+        evaluate_distance, pair_metrics, per_class_l1_sums)
+
+    out_dir = f"{root}/translation"
+    pairs = TranslationPairs(sorted(f"{out_dir}/{f}"
+                                    for f in os.listdir(out_dir)), seed=26)
+    for bs in DISTANCE_BATCHES:
+        seen = []
+
+        def recorded(loader):
+            for b in loader:
+                seen.append(b)
+                yield b
+
+        loader = DataLoader(pairs, bs, shuffle=True, drop_last=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l1, ssim_score, per_class = evaluate_distance(
+            recorded(loader), num_classes=NUM_CLASSES, device="cuda")
+        secs = time.perf_counter() - t0
+        want_l1, want_ssim, sums, counts = distance_float64(seen)
+        with np.errstate(invalid="ignore"):
+            want_class = sums / counts
+        got_counts = sum(per_class_l1_sums(
+            *(torch.from_numpy(b[k]).cuda()
+              for k in ("original", "translated", "label")),
+            NUM_CLASSES)[1].cpu() for b in seen).numpy()
+        l1_err = abs(l1 - want_l1) / want_l1
+        ssim_err = abs(ssim_score - want_ssim)
+        decided = ~np.isnan(want_class)
+        class_err = float(np.max(np.abs(per_class[decided]
+                                        - want_class[decided])
+                                 / want_class[decided]))
+        n = sum(len(b["original"]) for b in seen)
+        b0 = {k: torch.from_numpy(seen[0][k]).cuda()
+              for k in ("original", "translated", "label")}
+        ssim_ms = time_ms(lambda: pair_metrics(b0["original"],
+                                               b0["translated"]))
+        class_ms = time_ms(lambda: per_class_l1_sums(
+            b0["original"], b0["translated"], b0["label"], NUM_CLASSES))
+        print(f"distance batch {bs}: {n} pairs of {TRANSLATE_HW} in "
+              f"{len(seen)} batches; L1 {l1!r} (float64 {want_l1!r}, rel err "
+              f"{l1_err:.3g}), SSIM {ssim_score!r} (float64 {want_ssim!r}, "
+              f"abs err {ssim_err:.3g}), per-class L1 max rel err "
+              f"{class_err:.3g}, nan classes "
+              f"{np.flatnonzero(np.isnan(per_class)).tolist()}, counts "
+              f"{'equal' if np.array_equal(got_counts, counts) else 'DIFFER'}"
+              f"", flush=True)
+        print(f"distance batch {bs}: {n / secs:.2f} pairs/s ({secs:.3f} s, "
+              f"PNG decode on the loader's threads included); a batch's L1 "
+              f"+ SSIM {ssim_ms} ms, per-class sums {class_ms} ms, on {card}",
+              flush=True)
+        if n != len(pairs) // bs * bs:
+            fail(f"the distance eval scored {n} of {len(pairs)} pairs")
+        if not (l1_err <= DISTANCE_RTOL and ssim_err <= SSIM_ATOL
+                and class_err <= DISTANCE_RTOL):
+            fail("the distance eval disagrees with float64")
+        if not np.array_equal(np.isnan(per_class), ~decided) or \
+                not np.array_equal(got_counts, counts):
+            fail("the distance eval's per-class counts or nan classes "
+                 "differ from float64")
+
+
 def main() -> int:
     import torch
     t0 = time.perf_counter()
@@ -2487,7 +2663,9 @@ def main() -> int:
         by_path["prototypes"] = phase_prototypes(card, root)
         by_path["self_train"] = phase_self_train(card, root)
         by_path["gan"] = phase_gan(card, root)
+        by_path["gan_legacy"] = phase_gan(card, root, "legacy")
         phase_translate(card, root)     # launches no kernel
+        phase_distance(card, root)      # launches no kernel
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]]
                                  for path, launches in by_path.items()}

@@ -21,9 +21,9 @@ from thermal_semantic_segmentation_tpu.ops.pool import (  # noqa: E402
 from thermal_semantic_segmentation_tpu.ops.resize import (  # noqa: E402
     resize_bilinear as jax_resize_bilinear)
 from thermal_semantic_segmentation_torch.models.convert import (  # noqa: E402
-    jax_variables_to_state_dict)
+    jax_legacy_variables_to_state_dict, jax_variables_to_state_dict)
 from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
-    DeepLabV2, create_deeplab)
+    DeepLabV2, LegacyDeepLabV2, create_deeplab)
 from thermal_semantic_segmentation_torch.ops.pool import (  # noqa: E402
     max_pool_ceil)
 from thermal_semantic_segmentation_torch.ops.resize import (  # noqa: E402
@@ -146,6 +146,107 @@ def test_aspp_branches_split_large_batches_with_the_same_result(monkeypatch):
         torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-5)
 
 
-def test_legacy_head_is_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+def jax_legacy_deeplab_with_twin(seed: int, *, num_channels: int = 3,
+                                 layers=(1, 1, 1, 1)):
+    """(jax model, jax variables, port model): a JAX
+    ``DeepLabV2(head='legacy')`` of 19 classes with randomised BatchNorm
+    statistics, and the port's ``LegacyDeepLabV2`` loaded strictly through
+    ``jax_legacy_variables_to_state_dict`` (CPU, eval mode)."""
+    model, variables = jax_create_deeplab(
+        jax.random.key(seed), num_classes=19, num_channels=num_channels,
+        head="legacy", layers=layers, image_size=HW)
+    variables = jax.tree.map(np.asarray, variables)
+    rng = np.random.default_rng(seed)
+    stats = jax.tree_util.tree_map_with_path(
+        lambda p, v: (rng.normal(0, 0.05, v.shape) if p[-1].key == "mean"
+                      else rng.uniform(0.8, 1.2, v.shape)).astype(np.float32),
+        variables["batch_stats"])
+    variables = {"params": variables["params"], "batch_stats": stats}
+    twin = LegacyDeepLabV2(num_classes=19, num_channels=num_channels,
+                           layers=layers)
+    twin.load_state_dict(jax_legacy_variables_to_state_dict(variables),
+                         strict=True)
+    return model, variables, twin.to(memory_format=torch.channels_last).eval()
+
+
+@pytest.mark.parametrize("num_channels", [1, 3])
+def test_legacy_forward_matches_jax(num_channels):
+    """The legacy model on the GAN's legacy input scale (BGR
+    mean-subtracted [0, 255])."""
+    model, variables, twin = jax_legacy_deeplab_with_twin(
+        20 + num_channels, num_channels=num_channels)
+    x = (np.random.default_rng(8).uniform(0, 255, (2, *HW, num_channels))
+         - 116.7).astype(np.float32)
+    want = model.apply(variables, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        got = twin(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert got["out"].shape == (2, 19, 9, 17)
+    assert got["feat"].shape == (2, 2048, 9, 17)
+    for key in ("out", "feat"):
+        np.testing.assert_allclose(got[key].permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(want[key]), rtol=0,
+                                   atol=FORWARD_ATOL, err_msg=key)
+
+
+def test_legacy_keys_round_trip_through_jax():
+    """The port's legacy state_dict carries the reference legacy keys: the
+    JAX package's ``torch_legacy_state_dict_to_flax`` turns its keys and
+    arrays back into the JAX variables exactly."""
+    from thermal_semantic_segmentation_tpu.models.torch_convert import (
+        torch_legacy_state_dict_to_flax)
+
+    _, variables, twin = jax_legacy_deeplab_with_twin(5)
+    sd = twin.state_dict()
+    assert {k.split(".")[0] for k in sd} == {"backbone", "classifier"}
+    assert sorted(k for k in sd if k.startswith("classifier")) == sorted(
+        f"classifier.conv2d_list.{i}.{w}" for i in range(4)
+        for w in ("weight", "bias"))
+    back = torch_legacy_state_dict_to_flax(sd)
+    assert jax.tree.structure(back) == jax.tree.structure(variables)
+    for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(variables)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_legacy_factories_are_seeded_full_width_nets():
+    """``deeplabv2_resnet101`` (RGB) and ``_thermal`` (1 channel): the
+    ResNet-101 with the 19-class legacy head, seeded, eval mode; the head
+    drawn from N(0, 0.01) with zero biases. The legacy branches split
+    past MAX_BRANCH_PIXELS with the same result."""
+    from thermal_semantic_segmentation_torch.models.factory import (
+        deeplabv2_resnet101, deeplabv2_resnet101_thermal)
+    from thermal_semantic_segmentation_torch.nn import aspp
+
+    rgb = deeplabv2_resnet101(device="cpu", seed=1)
+    thermal = deeplabv2_resnet101_thermal(device="cpu", seed=1)
+    for net, c in ((rgb, 3), (thermal, 1)):
+        assert isinstance(net, LegacyDeepLabV2) and not net.training
+        assert net.backbone.conv1.weight.shape[1] == c
+        assert [len(getattr(net.backbone, f"layer{i}"))
+                for i in (1, 2, 3, 4)] == [3, 4, 23, 3]
+        heads = net.classifier.conv2d_list
+        assert [m.dilation for m in heads] == [(d, d) for d in (6, 12, 18,
+                                                                24)]
+        assert all(m.weight.shape == (19, 2048, 3, 3) for m in heads)
+        assert all(not m.bias.any() for m in heads)
+        assert abs(float(heads[0].weight.std()) - 0.01) < 5e-4
+    again = deeplabv2_resnet101_thermal(device="cpu", seed=1)
+    for k, v in thermal.state_dict().items():
+        assert torch.equal(v, again.state_dict()[k]), k
+    del rgb, again
+
+    head = LegacyDeepLabV2(num_classes=19, layers=(1, 1, 1, 1)).classifier
+    head.init_weights_(torch.Generator().manual_seed(0))
+    x = torch.rand(5, 2048, 9, 17, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = head(x)
+    calls = []
+    head.conv2d_list[1].register_forward_hook(
+        lambda m, i, o: calls.append(o.shape[0]))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(aspp, "MAX_BRANCH_PIXELS", 2 * 9 * 17)
+        with torch.no_grad():
+            got = head(x)
+    assert calls == [2, 2, 1]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="LegacyDeepLabV2"):
         DeepLabV2(head="legacy", **TINY)

@@ -320,6 +320,34 @@ def test_tail_batch_scores_equal_batch_one_where_jax_padding_does_not(
     np.testing.assert_allclose(padded[1], want[1], rtol=1e-5)  # loss agrees
 
 
+def test_float32_confusion_matrix_stops_counting_past_2_24(jx):
+    """A fault of the JAX reference, pinned: JAX ``seg_validate`` keeps the
+    confusion matrix in float32 (eval/validate.py:63, 75), so a cell past
+    2**24 pixels loses counts when a batch adds an odd number; the port's
+    int64 matrix counts them all. 20 batches of 2**20 + 1 pixels, every
+    one (road, road), accumulated as ``seg_validate`` does."""
+    n, batches = 2 ** 20 + 1, 20
+    pred = np.zeros(n, np.int32)
+    label = np.zeros(n, np.int64)
+    jnp = jx["jnp"]
+    bhist = jx["confmat"].confusion_matrix(jnp.asarray(pred),
+                                           jnp.asarray(label), 13)
+    hist = jnp.zeros((13, 13), jnp.float32)
+    port_bhist = confusion_matrix(torch.from_numpy(pred),
+                                  torch.from_numpy(label), 13)
+    port = torch.zeros((13, 13), dtype=torch.int64)
+    for _ in range(batches):
+        hist = hist + bhist
+        port = port + port_bhist
+    exact = n * batches
+    jax_count = int(np.asarray(hist)[0, 0])
+    print(f"(road, road) after {batches} batches of {n}: port "
+          f"{int(port[0, 0])}, JAX {jax_count}, exact {exact}")
+    assert int(port[0, 0]) == exact == 20_971_540
+    assert jax_count < exact
+    assert int(port.sum()) == exact
+
+
 def test_seg_validate_refuses_multi_gpu(tiny):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         seg_validate(tiny[2], [], device="cpu", reduce_processes=True)

@@ -270,14 +270,6 @@ def test_eval_cli_save_roots_follow_jax(tree, checkpoint, tmp_path,
         "0_groundtruth.png", "0_image.png", "0_prediction_0.png"]
 
 
-@pytest.mark.parametrize("dataset", [
-    "cityscapes", "cityscapes_translation", "freiburg_translation",
-    "freiburg_t2s"])
-def test_eval_cli_refuses_datasets_not_yet_ported(dataset):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        segmentation_evaluate.main(["-dataset", dataset, "--device", "cpu"])
-
-
 def test_unknown_dataset_is_refused():
     with pytest.raises(ValueError, match="does not exist"):
         segmentation_evaluate.main(["-dataset", "kitti", "--device", "cpu"])

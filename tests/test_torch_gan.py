@@ -27,7 +27,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from tests.test_torch_deeplab import jax_deeplab_with_twin  # noqa: E402
+from tests.test_torch_deeplab import (  # noqa: E402
+    jax_deeplab_with_twin, jax_legacy_deeplab_with_twin)
 from thermal_semantic_segmentation_tpu import losses as jax_losses  # noqa: E402
 from thermal_semantic_segmentation_tpu.models import (  # noqa: E402
     factory as jax_factory, torch_convert)
@@ -380,9 +381,9 @@ def test_weight_init_draws_from_the_seed(init_type):
         weight_init("uniform")
 
 
-def _gan_world(cycle: bool):
-    """JAX and port nets with the same weights, tiny sem nets (module2,
-    layers 1,1,1,1) and one batch."""
+def _gan_world(cycle: bool, sem_mode: str = "module2"):
+    """JAX and port nets with the same weights, tiny sem nets (layers
+    1,1,1,1; module2, or the legacy 19-class nets) and one batch."""
     nets = {"s2t": ("unet_32", dict(ngf=8, output_nc=1), 3),
             "t2s": ("unet_32", dict(ngf=8, output_nc=3), 1),
             "t": ("patchgan", dict(ndf=8), 1),
@@ -395,9 +396,11 @@ def _gan_world(cycle: bool):
                                                    (1, *HW, in_c), **kw)
         port[name] = port_net(kind, jax_vars[name], input_nc=in_c, **kw)
     sem_models, sem_vars, sem_port = {}, {}, {}
+    twin = jax_legacy_deeplab_with_twin if sem_mode == "legacy" \
+        else jax_deeplab_with_twin
     for name, (seed, c) in {"s": (30, 3), "t": (31, 1)}.items():
-        sem_models[name], sem_vars[name], sem_port[name] = \
-            jax_deeplab_with_twin(seed, num_channels=c)
+        sem_models[name], sem_vars[name], sem_port[name] = twin(
+            seed, num_channels=c)
         sem_port[name].requires_grad_(False)
     rng = np.random.default_rng(9)
     batch = {"real_s": rng.uniform(-1, 1, (2, *HW, 3)).astype(np.float32),
@@ -416,15 +419,20 @@ def _jax_sd(name, variables):
                        variables)
 
 
-@pytest.mark.parametrize("cycle", [True, False], ids=["cycle", "one_way"])
-def test_gan_step_matches_jax(cycle, monkeypatch):
+@pytest.mark.parametrize("cycle,sem_mode", [
+    (True, "module2"), (False, "module2"), (True, "legacy")],
+    ids=["cycle", "one_way", "legacy"])
+def test_gan_step_matches_jax(cycle, sem_mode, monkeypatch):
+    """The legacy case: the 19-class legacy sem nets on BGR
+    mean-subtracted [0, 255] input, their 19-class t2s ids against the
+    13-class source labels' CE as the JAX step takes them."""
     (jax_models, jax_vars, port, sem_models, sem_vars, sem_port,
-     batch) = _gan_world(cycle)
+     batch) = _gan_world(cycle, sem_mode)
     g_names = [n for n in ("s2t", "t2s") if n in port]
     d_names = [n for n in ("t", "s") if n in port]
     kw = dict(cycle=cycle, with_contour=True,
               canny_rgb_threshold=RGB_TH, canny_thermal_threshold=THERMAL_TH,
-              sem_norm="module2")
+              sem_norm=sem_mode)
 
     jstate = jax_gan.create_gan_state(
         g_vars={n: jax_vars[n] for n in g_names},
@@ -489,8 +497,9 @@ def test_gan_step_matches_jax(cycle, monkeypatch):
     assert len(seen_ids) == (1 if cycle else 0)
     if cycle:
         logits, ids = seen_ids[0]
-        jlogits = sem_models["t"].apply(sem_vars["t"], jnp.asarray(
-            batch["real_t"] * 0.5 + 0.5))["out"]
+        jlogits = sem_models["t"].apply(
+            sem_vars["t"], jax_gan.gan_to_seg_tensor(
+                jnp.asarray(batch["real_t"]), "target", sem_mode))["out"]
         up = np.asarray(jax_upsample_logits(jlogits, *HW))
         top2 = np.sort(up, axis=-1)[..., -2:]
         decided = top2[..., 1] - top2[..., 0] > 1e-5

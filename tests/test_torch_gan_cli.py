@@ -50,6 +50,8 @@ from thermal_semantic_segmentation_torch.data import transforms as T  # noqa: E4
 from thermal_semantic_segmentation_torch.models import factory  # noqa: E402
 from thermal_semantic_segmentation_torch.models.convert import (  # noqa: E402
     GAN_KEYS, jax_gan_checkpoint_to_torch)
+from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
+    create_deeplab)
 
 LR, STEPS = 1e-3, 2
 STATS_ATOL, OUT_RTOL, CROSS_ATOL = 1e-4, 1e-3, 1e-5
@@ -107,6 +109,14 @@ def world(tmp_path_factory):
         jax_common.save_seg_checkpoint(str(root / name), variables, epoch=0,
                                        layers=[1, 1, 1, 1], num_channels=c,
                                        num_classes=13)
+    # the tiny legacy sem nets in the reference legacy layout: RGB as a
+    # bare state_dict, thermal under sem_net_state_dict
+    for name, c, seed in (("s", 3, 2), ("t", 1, 3)):
+        sd = create_deeplab(seed, device="cpu", num_classes=19,
+                            num_channels=c, head="legacy",
+                            layers=(1, 1, 1, 1)).state_dict()
+        torch.save(sd if name == "s" else {"sem_net_state_dict": sd},
+                   str(root / f"legacy_{name}.pth"))
     nets = {"s2t": (jax_factory.unet_32(ngf=8, output_nc=1), 3),
             "t2s": (jax_factory.unet_32(ngf=8, output_nc=3), 1),
             "t": (jax_factory.patchgan(ndf=8), 1),
@@ -153,12 +163,57 @@ def _jax_generator_out(variables, x, out_nc):
 
 @pytest.mark.parametrize("cycle", [True, False], ids=["main", "main_gan"])
 def test_gan_cli_matches_jax_cli(world, narrow, tmp_path, cycle, capsys):
+    _compare_gan_clis(world, tmp_path, cycle, capsys)
+
+
+def _tiny_legacy(monkeypatch):
+    """Both packages' legacy sem-net factories at layers 1,1,1,1 (the JAX
+    factories hard-code ResNet-101)."""
+    from thermal_semantic_segmentation_tpu.models.deeplab import DeepLabV2
+
+    for name, c in (("deeplabv2_resnet101", 3),
+                    ("deeplabv2_resnet101_thermal", 1)):
+        monkeypatch.setattr(jax_main, name, lambda num_classes=19, c=c,
+                            dtype=jnp.float32: DeepLabV2(
+                                num_classes=num_classes, num_channels=c,
+                                head="legacy", layers=(1, 1, 1, 1),
+                                dtype=dtype))
+        monkeypatch.setattr(main, name, lambda num_classes=19, c=c, seed=0,
+                            device=None: create_deeplab(
+                                seed, device=device, num_classes=num_classes,
+                                num_channels=c, head="legacy",
+                                layers=(1, 1, 1, 1)))
+
+
+@pytest.mark.parametrize("cycle", [True, False], ids=["main", "main_gan"])
+def test_gan_cli_legacy_sem_nets_match_jax_cli(world, narrow, monkeypatch,
+                                               tmp_path, cycle, capsys):
+    """The default -sem_mode legacy: both CLIs load the two tiny 19-class
+    legacy sem nets from reference legacy .pth files (a bare state_dict
+    and one under sem_net_state_dict) and train alike."""
+    _tiny_legacy(monkeypatch)
+    _compare_gan_clis(world, tmp_path, cycle, capsys, legacy=True)
+
+
+def _compare_gan_clis(world, tmp_path, cycle, capsys, legacy=False):
     jax_dir, port_dir = str(tmp_path / "jax"), str(tmp_path / "port")
-    (jax_main if cycle else jax_main_gan).main(
-        _argv(world, jax_dir, "jax.pth"))
+
+    def argv(ckpt_dir, new_name, *extra):
+        out = _argv(world, ckpt_dir, new_name, *extra)
+        if legacy:
+            out[out.index("-sem_mode") + 1] = "legacy"
+            for flag in ("-sem_checkpoint_s", "-sem_checkpoint_t"):
+                out[out.index(flag) + 1] = os.path.join(
+                    world["root"], f"legacy_{flag[-1]}.pth")
+        return out
+
+    (jax_main if cycle else jax_main_gan).main(argv(jax_dir, "jax.pth"))
     state, history = (main if cycle else main_gan).main(
-        _argv(world, port_dir, "port.pth", "--device", "cpu"))
-    capsys.readouterr()
+        argv(port_dir, "port.pth", "--device", "cpu"))
+    out = capsys.readouterr().out
+    if legacy:
+        assert all(f"loaded frozen sem net '{n}' from " in out
+                   for n in "st")
     assert [h["steps"] for h in history] == [STEPS]
     assert all(np.isfinite(v).all() for v in history[0]["metrics"].values())
     want_keys = {"g_s2t", "con_s2t", "sem_s2t", "loss_g", "d_t"}
@@ -279,3 +334,66 @@ def test_translator_matches_jax_translator(world, narrow, tmp_path):
         worst = max(worst, int(np.abs(got - want).max()))
     print(f"translator: port pixels at most {worst} grey levels from JAX's")
     assert worst <= 1
+
+
+def test_legacy_sem_nets_load_from_each_source(world, monkeypatch, tmp_path,
+                                              capsys):
+    """``load_sem_nets`` in legacy mode: a resumed GAN checkpoint's
+    ``net_seg_*`` dicts win over the flags; the flags read a reference
+    legacy .pth (bare or under sem_net_state_dict) and the JAX package's
+    msgpack ({'variables'} or bare); without either the nets are random
+    from --seed. A JAX GAN checkpoint's ``sem_vars`` cross to the
+    ``net_seg_*`` keys and back to the JAX package's converter exactly."""
+    from thermal_semantic_segmentation_tpu.models.torch_convert import (
+        torch_gan_checkpoint_to_flax)
+
+    _tiny_legacy(monkeypatch)
+    sds = {n: torch.load(os.path.join(world["root"], f"legacy_{n}.pth"))
+           for n in "st"}
+    sds["t"] = sds["t"]["sem_net_state_dict"]
+    ref = {"epoch": 3, "net_seg_s_state_dict": sds["s"],
+           "net_seg_t_state_dict": sds["t"]}
+    jax_ckpt = torch_gan_checkpoint_to_flax(ref)
+    assert set(jax_ckpt["sem_vars"]) == {"s", "t"}
+    ported = jax_gan_checkpoint_to_torch(jax_ckpt)
+    for n in "st":
+        got = ported[f"net_seg_{n}_state_dict"]
+        assert got.keys() == {k for k in sds[n]
+                              if not k.endswith("num_batches_tracked")}
+        for k, v in got.items():
+            assert torch.equal(v, sds[n][k]), k
+    save_checkpoint(str(tmp_path / "bare_t.msgpack"), jax_ckpt["sem_vars"]["t"])
+    save_checkpoint(str(tmp_path / "vars_s.msgpack"),
+                    {"variables": jax_ckpt["sem_vars"]["s"]})
+    args = main.train_parse().parse_args([
+        "-sem_loss", "true", "-sem_checkpoint_s",
+        os.path.join(world["root"], "legacy_s.pth"),
+        "-sem_checkpoint_t", os.path.join(world["root"], "legacy_t.pth")])
+
+    def weights(nets):
+        return {n: net.classifier.conv2d_list[0].weight.detach().clone()
+                for n, net in nets.items()}
+
+    from_flags = weights(main.load_sem_nets(args, "cpu"))
+    for n in "st":
+        assert torch.equal(from_flags[n],
+                           sds[n]["classifier.conv2d_list.0.weight"])
+    args.sem_checkpoint_s = str(tmp_path / "vars_s.msgpack")
+    args.sem_checkpoint_t = str(tmp_path / "bare_t.msgpack")
+    from_msgpack = main.load_sem_nets(args, "cpu")
+    assert all(torch.equal(weights(from_msgpack)[n], from_flags[n])
+               for n in "st")
+    assert all(not p.requires_grad and not net.training
+               for net in from_msgpack.values() for p in net.parameters())
+    other = {f"net_seg_{n}_state_dict": create_deeplab(
+        9, device="cpu", num_classes=19, num_channels=c, head="legacy",
+        layers=(1, 1, 1, 1)).state_dict() for n, c in (("s", 3), ("t", 1))}
+    resumed = weights(main.load_sem_nets(args, "cpu", {"epoch": 0, **other}))
+    for n in "st":
+        assert torch.equal(
+            resumed[n],
+            other[f"net_seg_{n}_state_dict"]["classifier.conv2d_list.0.weight"])
+    args.sem_checkpoint_s = args.sem_checkpoint_t = ""
+    random = weights(main.load_sem_nets(args, "cpu"))
+    assert "random weights" in capsys.readouterr().out
+    assert not torch.equal(random["t"], from_flags["t"])

@@ -16,10 +16,13 @@ torch = pytest.importorskip("torch")
 
 import thermal_semantic_segmentation_torch as port  # noqa: E402
 from thermal_semantic_segmentation_torch.cli import (  # noqa: E402
-    _common, cal_prototype, generate_pseudo_label, main, main_gan,
-    segmentation_evaluate, segmentation_train, self_train_main, translator)
+    _common, cal_prototype, distance_evaluate, generate_pseudo_label, main,
+    main_gan, segmentation_evaluate, segmentation_train, self_train_main,
+    translator)
 from thermal_semantic_segmentation_torch.data.device_pipeline import (  # noqa: E402,E501
     device_prefetch)
+from thermal_semantic_segmentation_torch.eval.distance import (  # noqa: E402
+    evaluate_distance)
 from thermal_semantic_segmentation_torch.eval.validate import (  # noqa: E402
     seg_validate)
 from thermal_semantic_segmentation_torch.models.deeplab import (  # noqa: E402
@@ -78,7 +81,8 @@ def test_importing_every_module_loads_no_banned_package():
                 "cli.self_train_main", "nn.norms", "nn.generators",
                 "nn.patchgan", "nn.canny", "ops.image_pool",
                 "models.factory", "train.gan", "cli.main", "cli.main_gan",
-                "cli.translator"):
+                "cli.translator", "ops.ssim", "eval.distance",
+                "cli.distance_evaluate"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -99,7 +103,8 @@ def test_importing_every_module_loads_no_banned_package():
     "calc_prototypes", "generate_pseudo_label", "cal_prototype",
     "make_self_train_step", "create_self_train_state", "self_train_main",
     "init_gan_net", "create_gan_state", "build_generator_from_gan_checkpoint",
-    "main", "main_gan", "translator"])
+    "main", "main_gan", "translator", "evaluate_distance",
+    "distance_evaluate", "deeplabv2_resnet101"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -152,6 +157,14 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             main_gan.main([])
         elif entry == "translator":
             translator.main([])
+        elif entry == "evaluate_distance":
+            evaluate_distance([])
+        elif entry == "distance_evaluate":
+            distance_evaluate.main([])
+        elif entry == "deeplabv2_resnet101":
+            from thermal_semantic_segmentation_torch.models.factory import (
+                deeplabv2_resnet101)
+            deeplabv2_resnet101()
         else:
             segmentation_evaluate.main(["-dataset", "freiburg_ir"])
 
@@ -210,8 +223,10 @@ def test_self_train_cli_refuses_flags_not_yet_ported(argv, capsys):
     assert f"error: {argv[0]} " in err and "is not yet ported" in err
 
 
-@pytest.mark.parametrize("cli", [main, main_gan, translator],
-                         ids=["main", "main_gan", "translator"])
+@pytest.mark.parametrize("cli", [main, main_gan, translator,
+                                 distance_evaluate],
+                         ids=["main", "main_gan", "translator",
+                              "distance_evaluate"])
 @pytest.mark.parametrize("argv", [
     ["--distributed", "true"], ["--data_parallel", "true"],
     ["--native_decode", "true"], ["--native_encode", "true"],
@@ -223,18 +238,6 @@ def test_gan_clis_refuse_flags_not_yet_ported(cli, argv, capsys):
     assert exit_info.value.code != 0
     err = capsys.readouterr().err
     assert f"error: {argv[0]} " in err and "is not yet ported" in err
-
-
-@pytest.mark.parametrize("cli", [main, main_gan], ids=["main", "main_gan"])
-def test_gan_clis_refuse_the_legacy_sem_nets(cli, capsys):
-    """-sem_loss true needs -sem_mode module2: the legacy sem nets (the
-    default mode) are not yet ported."""
-    with pytest.raises(SystemExit) as exit_info:
-        cli.main(["-sem_loss", "true", "--device", "cpu"])
-    assert exit_info.value.code != 0
-    err = capsys.readouterr().err
-    assert "error: -sem_loss true with -sem_mode legacy is not yet ported" \
-        in err
 
 
 def test_translator_writes_pngs_without_pil(tmp_path):

@@ -16,9 +16,10 @@ import torch
 from ..core.checkpoint import load_checkpoint
 from ..data import transforms as T
 from ..data.cityscapes import Cityscapes, CityscapesTranslation
-from ..data.freiburg import Freiburg, FreiburgTest
+from ..data.freiburg import Freiburg, FreiburgTest, FreiburgTranslationPairs
 from ..device import resolve_device
 from ..models.convert import (GAN_KEYS, jax_gan_checkpoint_to_torch,
+                              jax_legacy_variables_to_state_dict,
                               jax_variables_to_state_dict)
 from ..models.deeplab import create_deeplab
 from ..nn.generators import UnetGenerator
@@ -52,36 +53,43 @@ def val_transform():
 
 def build_seg_dataset(args, transform, *, for_eval: bool = False):
     """The dataset switch of the reference (segmentation_train.py:104-123,
-    segmentation_evaluate.py:99-118). Train: Cityscapes (original or
-    translated) and the Freiburg train split (IR, RGB, translated RGB).
-    Eval: the Freiburg IR and RGB test splits; the eval CLI's other
-    datasets are not yet ported."""
+    segmentation_evaluate.py:99-118): Cityscapes, original or translated;
+    the Freiburg IR and RGB splits (train, or test with ``for_eval``);
+    translated Freiburg (train: the RGB frames' translations under
+    ``-translation_name``; eval: the ``*_translation.jpg`` pairs under
+    ``translations/test_<checkpoint name minus _segmentation.pth>/``); and
+    the thermal-to-RGB pairs under ``translations/t2s/<-t2s_folder>``."""
     name = args.dataset
-    if name not in ("cityscapes", "cityscapes_translation", "freiburg_ir",
-                    "freiburg_rgb", "freiburg_translation", "freiburg_t2s"):
-        raise ValueError("dataset does not exist.")
-    if for_eval and name in ("freiburg_ir", "freiburg_rgb"):
-        return FreiburgTest(args.freiburg_root, "test",
-                            "IR" if name == "freiburg_ir" else "RGB",
-                            transforms=transform, with_label=True,
-                            grayscale=args.grayscale)
-    if for_eval or name == "freiburg_t2s":
-        raise NotImplementedError(
-            f"the {name} {'test' if for_eval else 'train'} dataset is not "
-            f"yet ported to the PyTorch package (see ROADMAP.md)")
     if name == "cityscapes_translation":
         return CityscapesTranslation(args.source_root, transforms=transform)
     if name == "cityscapes":
         return Cityscapes(args.source_root, transforms=transform)
+    if name in ("freiburg_ir", "freiburg_rgb"):
+        domain = "IR" if name == "freiburg_ir" else "RGB"
+        if for_eval:
+            return FreiburgTest(args.freiburg_root, "test", domain,
+                                transforms=transform, with_label=True,
+                                grayscale=args.grayscale)
+        return Freiburg(args.freiburg_root, "train", domain,
+                        transforms=transform, with_label=True,
+                        grayscale=args.grayscale)
     if name == "freiburg_translation":
+        if for_eval:
+            folder = "test_" + args.checkpoint_name.replace(
+                "_segmentation.pth", "") + "/"
+            return FreiburgTranslationPairs(
+                folder=folder, transforms=transform,
+                root=os.path.join(args.freiburg_root, "translations"))
         return Freiburg(args.freiburg_root, "train", "RGB",
                         transforms=transform, with_label=True,
                         segmentation_mode=True,
                         translation_name=args.translation_name)
-    return Freiburg(args.freiburg_root, "train",
-                    "IR" if name == "freiburg_ir" else "RGB",
-                    transforms=transform, with_label=True,
-                    grayscale=args.grayscale)
+    if name == "freiburg_t2s":
+        return FreiburgTranslationPairs(
+            folder=args.t2s_folder, transforms=transform,
+            root=os.path.join(args.freiburg_root, "translations", "t2s"),
+            strip_underscore=False)
+    raise ValueError("dataset does not exist.")
 
 
 def model_meta_from_state_dict(sd) -> dict:
@@ -133,6 +141,25 @@ def load_seg_checkpoint(path: str):
         sd = jax_variables_to_state_dict(meta.pop("variables"))
     meta.update(model_meta_from_state_dict(sd))
     return sd, meta
+
+
+def load_legacy_sem_state_dict(path: str):
+    """A frozen legacy sem net's state_dict (``LegacyDeepLabV2``'s keys)
+    from a reference legacy ``.pth`` (a bare state_dict, or one under
+    ``sem_net_state_dict``) or from the JAX package's msgpack
+    (``{'variables'}`` or bare ``DeepLabV2(head='legacy')`` variables),
+    as the JAX CLI's ``_load_sem_variables`` reads them."""
+    if zipfile.is_zipfile(path):
+        ckpt = _torch_load(path)
+        return ckpt.get("sem_net_state_dict", ckpt)
+    try:
+        ckpt = load_checkpoint(path)
+    except ValueError as e:
+        raise ValueError(f"{path!r} is neither a torch .pth nor a "
+                         f"msgpack checkpoint: {e}") from e
+    if not isinstance(ckpt, dict):
+        raise ValueError(f"{path!r} holds no legacy sem-net variables")
+    return jax_legacy_variables_to_state_dict(ckpt.get("variables", ckpt))
 
 
 def _torch_load(path: str):
@@ -201,8 +228,10 @@ def save_gan_checkpoint(path: str, g_nets, d_nets, *, epoch: int) -> None:
 def load_gan_checkpoint(path: str) -> dict:
     """A GAN checkpoint in the reference ``.pth`` schema, read from a
     ``.pth`` (``torch.load(weights_only=True)``) or from the JAX package's
-    msgpack GAN checkpoint (``{'epoch', 'g_vars', 'd_vars'}``, converted by
-    ``jax_gan_checkpoint_to_torch``)."""
+    msgpack GAN checkpoint (``{'epoch', 'g_vars', 'd_vars'}`` and any
+    ``'sem_vars'``, converted by ``jax_gan_checkpoint_to_torch``). The
+    frozen legacy sem nets of a reference ``.pth``
+    (``net_seg_s_state_dict``, ``net_seg_t_state_dict``) are kept."""
     if zipfile.is_zipfile(path):
         ckpt = _torch_load(path)
     else:

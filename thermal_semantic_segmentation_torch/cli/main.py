@@ -4,10 +4,16 @@
 ``-cycle true`` (the default) trains the CycleGAN: two U-Net-256
 generators and two 70x70 PatchGANs with the cycle losses; ``-cycle false``
 (``cli/main_gan.py``) the one-direction s2t GAN. ``-with_contour true``
-adds the Canny contour losses; ``-sem_loss true -sem_mode module2`` the
-semantic-consistency losses of two frozen seg-trainer checkpoints
-(``-sem_checkpoint_s``, ``-sem_checkpoint_t``), where the CUDA
-``upsample_argmax`` kernel labels each real thermal frame:
+adds the Canny contour losses; ``-sem_loss true`` the semantic-consistency
+losses of two frozen sem nets, where the CUDA ``upsample_argmax`` kernel
+labels each real thermal frame. With ``-sem_mode legacy`` (the default,
+the reference's recipe) they are the legacy 19-class DeepLabs (RGB and
+thermal) on BGR mean-subtracted [0, 255] input, their weights from a
+resumed checkpoint's ``net_seg_*`` dicts, else from ``-sem_checkpoint_s``
+/ ``-sem_checkpoint_t`` (a reference legacy ``.pth`` or the JAX package's
+msgpack), else, as the last resort, random from ``--seed`` (which makes
+the loss meaningless); with ``-sem_mode module2`` two seg-trainer
+checkpoints on [0, 1] input:
 
     python -m thermal_semantic_segmentation_torch.cli.main \\
         -source_dataset freiburg_rgb -target_dataset freiburg_ir [--device cpu]
@@ -38,13 +44,14 @@ from ..data.simple import FlirTrain, Kitti
 from ..device import resolve_device
 from ..models.convert import GAN_KEYS
 from ..models.deeplab import create_deeplab
-from ..models.factory import init_gan_net, patchgan, unet_256
+from ..models.factory import (deeplabv2_resnet101, deeplabv2_resnet101_thermal,
+                              init_gan_net, patchgan, unet_256)
 from ..ops.image_pool import ImagePool
 from ..train.gan import create_gan_state, make_gan_step, make_gan_steps
 from ..utils.meters import AverageMeter, ProgressMeter
 from ..utils.observability import VisdomPlotter
-from ._common import (load_gan_checkpoint, load_seg_checkpoint,
-                      save_gan_checkpoint)
+from ._common import (load_gan_checkpoint, load_legacy_sem_state_dict,
+                      load_seg_checkpoint, save_gan_checkpoint)
 from .options import train_parse
 
 POOL_SIZE = 50
@@ -115,10 +122,33 @@ def build_gan_nets(args, device):
     return g, d
 
 
-def load_sem_nets(args, device):
-    """The frozen module2 sem nets {'s', 't'} from two seg checkpoints,
-    each checkpoint's architecture its own; eval mode, no gradient."""
+def load_sem_nets(args, device, ckpt=None):
+    """The frozen sem nets {'s', 't'} of ``-sem_mode``, eval mode, no
+    gradient. module2: two seg checkpoints, each with its own
+    architecture. legacy: the two 19-class legacy DeepLabs, each from the
+    resumed GAN checkpoint ``ckpt`` when it holds the net, else from its
+    ``-sem_checkpoint_*`` flag, else random from ``--seed``."""
     nets = {}
+    if args.sem_mode == "legacy":
+        for name, build, path in (
+                ("s", deeplabv2_resnet101, args.sem_checkpoint_s),
+                ("t", deeplabv2_resnet101_thermal, args.sem_checkpoint_t)):
+            net = build(num_classes=19, seed=args.seed, device=device)
+            key = dict(GAN_KEYS["sem"])[name]
+            if ckpt is not None and key in ckpt:
+                net.load_state_dict(ckpt[key], strict=True)
+                print(f"loaded frozen sem net '{name}' from the resumed "
+                      f"checkpoint")
+            elif path:
+                net.load_state_dict(load_legacy_sem_state_dict(path),
+                                    strict=True)
+                print(f"loaded frozen sem net '{name}' from {path}")
+            else:
+                print(f"frozen sem net '{name}' has random weights (no "
+                      f"-sem_checkpoint_{name}): the semantic loss is "
+                      f"meaningless")
+            nets[name] = net.eval().requires_grad_(False)
+        return nets
     for name, path in (("s", args.sem_checkpoint_s),
                        ("t", args.sem_checkpoint_t)):
         if not path:
@@ -152,8 +182,7 @@ def gan_epochs(args, src_loader, tgt_loader):
     synchronisation) and each metric's value at every step."""
     device = resolve_device(args.device or None)
     g_nets, d_nets = build_gan_nets(args, device)
-    sem_nets = load_sem_nets(args, device) if args.sem_loss else None
-    restart_epoch = 0
+    restart_epoch, ckpt = 0, None
     ckpt_path = os.path.join(args.gan_model_root_path, args.checkpoint_name)
     if args.load_model:
         ckpt = load_gan_checkpoint(ckpt_path)
@@ -163,6 +192,7 @@ def gan_epochs(args, src_loader, tgt_loader):
                 if name in nets:
                     nets[name].load_state_dict(ckpt[key], strict=True)
         print(f"loading trained model. start from epoch {restart_epoch}.")
+    sem_nets = load_sem_nets(args, device, ckpt) if args.sem_loss else None
     state = create_gan_state(g_nets=g_nets, d_nets=d_nets,
                              learning_rate=args.lr, device=device)
     step_kwargs = dict(

@@ -101,22 +101,10 @@ def _add_roots(parser: argparse.ArgumentParser):
     parser.add_argument('--seed', type=int, default=0)
 
 
-class _TrainParser(HostConfigParser):
-    """``-sem_loss true`` needs ``-sem_mode module2``: the legacy sem nets
-    are not yet ported."""
-
-    def parse_args(self, *a, **kw):  # type: ignore[override]
-        args = super().parse_args(*a, **kw)
-        if args.sem_loss and args.sem_mode == "legacy":
-            self.error("-sem_loss true with -sem_mode legacy is not yet "
-                       "ported to the PyTorch package (see ROADMAP.md)")
-        return args
-
-
 def train_parse():
     """GAN translation training options (reference options.py:4-24, with
     the JAX package's additions)."""
-    parser = _TrainParser(description='train options')
+    parser = HostConfigParser(description='train options')
     parser.add_argument('-batch_size', type=int, default=4)
     parser.add_argument('-sem_loss', type=str2bool, default=False)
     parser.add_argument('-load_model', type=str2bool, default=False)
@@ -144,18 +132,21 @@ def train_parse():
                              'updates (the reference loop); default is one '
                              'update with the pool on the device.')
     parser.add_argument('-sem_checkpoint_s', type=str, default='',
-                        help='the frozen RGB sem net: a segmentation_train '
-                             'checkpoint (.pth or the JAX package\'s '
+                        help='the frozen RGB sem net: with -sem_mode legacy '
+                             'a reference legacy .pth or the JAX package\'s '
+                             'msgpack of one; with module2 a '
+                             'segmentation_train checkpoint (.pth or '
                              'msgpack).')
     parser.add_argument('-sem_checkpoint_t', type=str, default='',
                         help='the frozen thermal sem net, likewise.')
     parser.add_argument('-sem_mode', type=str, default='legacy',
                         choices=('legacy', 'module2'),
-                        help="frozen sem-net architecture: 'module2' = the "
+                        help="frozen sem-net architecture: 'legacy' = the "
+                             "reference's 19-class zoo DeepLabs (BGR "
+                             "mean-subtracted [0, 255] input; random from "
+                             "--seed without a checkpoint); 'module2' = the "
                              "seg trainer's checkpoints (architecture from "
-                             "each checkpoint, [0, 1] input scale); "
-                             "'legacy' (the reference's zoo nets) is not yet "
-                             "ported and refused with -sem_loss true.")
+                             "each checkpoint, [0, 1] input scale).")
     parser.add_argument('-log_interval', type=int, default=10)
     parser.add_argument('-ngf', type=int, default=64,
                         help='U-Net generator base width (the reference '

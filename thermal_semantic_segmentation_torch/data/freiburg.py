@@ -1,5 +1,5 @@
-"""Freiburg Thermal decoding, the train split and the test split
-(counterpart of the JAX ``data/freiburg.py``).
+"""Freiburg Thermal decoding, the train split, the test split and the
+translated test pairs (counterpart of the JAX ``data/freiburg.py``).
 
 IR radiometric normalisation: resize the 16-bit frame to RAW_SIZE BICUBIC,
 crop columns COL_CROP, clamp to [IR_MIN, IR_MAX] and scale to [0, 1]. RGB
@@ -11,6 +11,7 @@ ported.
 
 from __future__ import annotations
 
+import glob
 import os
 from typing import Callable, Optional, Sequence
 
@@ -258,5 +259,35 @@ class FreiburgTest:
         label = Image.fromarray(np.load(self.label_list[index])).resize(
             RAW_SIZE, Image.NEAREST)
         label = Image.fromarray(np.array(label)[:, COL_CROP[0]:COL_CROP[1]])
+        img, lab = self.transforms(rng, image, label)
+        return {"image": img, "label": np.asarray(lab, dtype=np.int64)}
+
+
+class FreiburgTranslationPairs:
+    """Translated frames and their ground truth: ``*_translation.jpg`` under
+    ``root``/``folder`` beside ``*_groundtruth.png`` (reference
+    FreiburgTranslation, data/freiburg_dataset.py:228-244), or with
+    ``strip_underscore=False`` the name's ``translation.jpg`` swapped for
+    ``groundtruth.png`` (FreiburgT2S, :211-225). Labels are int64."""
+
+    def __init__(self, folder: str, transforms: Callable,
+                 root: str = "datasets/freiburg/translations/",
+                 strip_underscore: bool = True):
+        pattern = os.path.join(root, folder, "*_translation.jpg")
+        self.translation_files = sorted(glob.glob(pattern, recursive=True))
+        self.transforms = transforms
+        self._old = "_translation.jpg" if strip_underscore \
+            else "translation.jpg"
+        self._new = "_groundtruth.png" if strip_underscore \
+            else "groundtruth.png"
+
+    def __len__(self) -> int:
+        return len(self.translation_files)
+
+    def get(self, index: int, rng: np.random.Generator) -> dict:
+        Image = _pil_image()
+        image_name = self.translation_files[index]
+        image = Image.open(image_name)
+        label = Image.open(image_name.replace(self._old, self._new))
         img, lab = self.transforms(rng, image, label)
         return {"image": img, "label": np.asarray(lab, dtype=np.int64)}

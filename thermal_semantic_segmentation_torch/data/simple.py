@@ -1,7 +1,7 @@
-"""Unlabelled auxiliary datasets (counterpart of the JAX ``data/simple.py``):
-the KITTI raw frames and the FLIR ADAS thermal train frames. The
-translation-distance pairs come with their slice. PIL is imported where a
-frame is decoded."""
+"""Auxiliary datasets (counterpart of the JAX ``data/simple.py``): the
+unlabelled KITTI raw frames and FLIR ADAS thermal train frames, and the
+(original, translated) pairs of the translation-distance eval. PIL is
+imported where a frame is decoded."""
 
 from __future__ import annotations
 
@@ -10,8 +10,10 @@ from typing import Callable
 
 import numpy as np
 
-from .freiburg import _pil_image
-from .list_files import flir_list, kitti_list, parse_list_file
+from .freiburg import (COL_CROP, RAW_SIZE, _pil_image, load_ir_image,
+                       load_label)
+from .list_files import (flir_list, freiburg_lists, kitti_list,
+                         parse_list_file)
 
 
 class Kitti:
@@ -66,3 +68,72 @@ class FlirTrain:
         image = _pil_image().open(self.data_list[index])
         img, _ = self.transforms(rng, image, None)
         return {"image": img}
+
+
+class DistanceDataset:
+    """(original, translated) pairs of the Freiburg ``split`` for the
+    translation-quality eval (reference data/distance_dataset.py:9-49).
+
+    The lists are written on first use when missing. A frame's
+    translation is its root-relative path with ``split`` swapped for
+    ``translate_name`` and ``ir_aligned`` for ``rgb`` (only below the
+    root, so a root holding 'train' stays as it is). The original is the
+    windowed IR frame (``domain`` 'IR') or the resized, cropped RGB frame
+    scaled to [0, 1] ('RGB'). The translation is scaled by 1/255 when its
+    file holds uint8 or its values pass 1.5: the file's dtype decides, so a
+    near-black uint8 frame is still scaled. ``with_label`` adds the
+    frame's label, resized and cropped as the frame (``load_label``)."""
+
+    def __init__(self, root: str, translate_name: str, *,
+                 split: str = "train", domain: str = "IR",
+                 with_label: bool = False):
+        list_file = os.path.join(root, "image_list",
+                                 f"{split}_{domain}_data.txt")
+        label_file = os.path.join(root, "image_list",
+                                  f"{split}_{domain}_label.txt")
+        if not os.path.exists(list_file) or (
+                with_label and not os.path.exists(label_file)):
+            freiburg_lists(root, split, domain)
+        self.data_list = parse_list_file(list_file)
+        self.label_list = None
+        if with_label:
+            self.label_list = parse_list_file(label_file)
+            if len(self.label_list) != len(self.data_list):
+                raise ValueError(
+                    f"{label_file} lists {len(self.label_list)} labels for "
+                    f"{len(self.data_list)} frames")
+        self.root = root
+        self.translate_name = translate_name
+        self.split = split
+        self.domain = domain
+
+    def __len__(self) -> int:
+        return len(self.data_list)
+
+    def get(self, index: int, rng: np.random.Generator) -> dict:
+        Image = _pil_image()
+        ori_name = self.data_list[index]
+        rel = os.path.relpath(ori_name, self.root)
+        trans_name = os.path.join(self.root, rel.replace(
+            self.split, self.translate_name).replace("ir_aligned", "rgb"))
+        if self.domain == "IR":
+            ori = np.asarray(load_ir_image(ori_name),
+                             dtype=np.float32)[..., None]
+        elif self.domain == "RGB":
+            arr = np.array(Image.open(ori_name).convert("RGB").resize(
+                RAW_SIZE, Image.BICUBIC),
+                dtype=np.float32)[:, COL_CROP[0]:COL_CROP[1]]
+            ori = np.uint8(arr).astype(np.float32) / 255.0
+        else:
+            raise ValueError("Not a valid domain.")
+        raw = np.asarray(Image.open(trans_name))
+        trans = raw.astype(np.float32)
+        if raw.dtype == np.uint8 or trans.max() > 1.5:
+            trans = trans / 255.0
+        if trans.ndim == 2:
+            trans = trans[..., None]
+        out = {"original": ori, "translated": trans.astype(np.float32)}
+        if self.label_list is not None:
+            out["label"] = np.asarray(load_label(self.label_list[index]),
+                                      dtype=np.int32)
+        return out

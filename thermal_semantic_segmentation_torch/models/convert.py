@@ -4,9 +4,10 @@ the port.
 ``jax_variables_to_state_dict`` takes the ``{'params', 'batch_stats'}`` tree
 of the JAX ``DeepLabV2`` (numpy arrays or anything ``np.asarray`` accepts)
 and returns the reference-layout state_dict that the port's ``DeepLabV2``
-loads with ``strict=True``. It is the port's own copy of the mapping (the
-port imports nothing of the JAX package) and raises on any key it leaves
-unconverted.
+loads with ``strict=True``; ``jax_legacy_variables_to_state_dict`` does
+the same for the legacy head and ``LegacyDeepLabV2``. They are the port's
+own copy of the mapping (the port imports nothing of the JAX package) and
+raise on any key they leave unconverted.
 
 Layout transforms:
   conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw)
@@ -43,72 +44,111 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def jax_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    unknown = set(variables) - {"params", "batch_stats"}
-    if unknown:
-        raise ValueError(f"unexpected variable collections {sorted(unknown)}")
-    params = dict(_flatten(variables["params"]))
-    stats = dict(_flatten(variables.get("batch_stats", {})))
-    out: Dict[str, torch.Tensor] = {}
+class _Converter:
+    """One JAX variable tree on its way to a state_dict: ``take`` pops a
+    leaf (raising when it is missing), ``finish`` raises on any leaf left
+    unconverted."""
 
+    def __init__(self, variables: Mapping):
+        unknown = set(variables) - {"params", "batch_stats"}
+        if unknown:
+            raise ValueError(
+                f"unexpected variable collections {sorted(unknown)}")
+        self.params = dict(_flatten(variables["params"]))
+        self.stats = dict(_flatten(variables.get("batch_stats", {})))
+        self.out: Dict[str, torch.Tensor] = {}
+
+    @staticmethod
     def take(tree, path) -> np.ndarray:
         if path not in tree:
             raise KeyError(f"JAX variables lack {'/'.join(path)}")
         return np.asarray(tree.pop(path), dtype=np.float32)
 
-    def put(key, arr):
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr).copy())
-
-    def conv(tp, path, bias=False):
-        put(f"{tp}.weight", take(params, path + ("kernel",)).transpose(3, 2, 0, 1))
+    def conv(self, tp, path, bias=False):
+        _put(self.out, f"{tp}.weight",
+             self.take(self.params, path + ("kernel",)).transpose(3, 2, 0, 1))
         if bias:
-            put(f"{tp}.bias", take(params, path + ("bias",)))
+            _put(self.out, f"{tp}.bias", self.take(self.params,
+                                                   path + ("bias",)))
 
-    def norm(tp, path, running=True):
-        put(f"{tp}.weight", take(params, path + ("scale",)))
-        put(f"{tp}.bias", take(params, path + ("bias",)))
+    def norm(self, tp, path, running=True):
+        _put(self.out, f"{tp}.weight", self.take(self.params,
+                                                 path + ("scale",)))
+        _put(self.out, f"{tp}.bias", self.take(self.params, path + ("bias",)))
         if running:
-            put(f"{tp}.running_mean", take(stats, path + ("mean",)))
-            put(f"{tp}.running_var", take(stats, path + ("var",)))
+            _put(self.out, f"{tp}.running_mean",
+                 self.take(self.stats, path + ("mean",)))
+            _put(self.out, f"{tp}.running_var",
+                 self.take(self.stats, path + ("var",)))
 
-    def dense(tp, path):
-        put(f"{tp}.weight", take(params, path + ("kernel",)).T)
-        put(f"{tp}.bias", take(params, path + ("bias",)))
+    def dense(self, tp, path):
+        _put(self.out, f"{tp}.weight",
+             self.take(self.params, path + ("kernel",)).T)
+        _put(self.out, f"{tp}.bias", self.take(self.params, path + ("bias",)))
 
-    conv("conv1", ("backbone", "conv1"))
-    norm("bn1", ("backbone", "bn1"))
-    blocks = sorted({m.groups() for p in params if p[0] == "backbone"
-                     for m in [_BLOCK.match(p[1])] if m},
-                    key=lambda sb: (int(sb[0]), int(sb[1])))
-    for stage, block in blocks:
-        tp, mod = f"layer{stage}.{block}", ("backbone", f"layer{stage}_{block}")
-        for k in (1, 2, 3):
-            conv(f"{tp}.conv{k}", mod + (f"conv{k}",))
-            norm(f"{tp}.bn{k}", mod + (f"bn{k}",))
-        if mod + ("downsample_conv", "kernel") in params:
-            conv(f"{tp}.downsample.0", mod + ("downsample_conv",))
-            norm(f"{tp}.downsample.1", mod + ("downsample_bn",))
-    if ("bn_pretrain", "scale") in params:
-        norm("bn_pretrain", ("bn_pretrain",))
+    def backbone(self, prefix: str) -> None:
+        """The ResNet backbone, its torch keys under ``prefix``."""
+        params = self.params
+        self.conv(f"{prefix}conv1", ("backbone", "conv1"))
+        self.norm(f"{prefix}bn1", ("backbone", "bn1"))
+        blocks = sorted({m.groups() for p in params if p[0] == "backbone"
+                         for m in [_BLOCK.match(p[1])] if m},
+                        key=lambda sb: (int(sb[0]), int(sb[1])))
+        for stage, block in blocks:
+            tp = f"{prefix}layer{stage}.{block}"
+            mod = ("backbone", f"layer{stage}_{block}")
+            for k in (1, 2, 3):
+                self.conv(f"{tp}.conv{k}", mod + (f"conv{k}",))
+                self.norm(f"{tp}.bn{k}", mod + (f"bn{k}",))
+            if mod + ("downsample_conv", "kernel") in params:
+                self.conv(f"{tp}.downsample.0", mod + ("downsample_conv",))
+                self.norm(f"{tp}.downsample.1", mod + ("downsample_bn",))
 
+    def finish(self) -> Dict[str, torch.Tensor]:
+        leftover = ["params/" + "/".join(p) for p in self.params]
+        leftover += ["batch_stats/" + "/".join(p) for p in self.stats]
+        if leftover:
+            raise ValueError(f"unconverted JAX variables: {leftover[:10]}")
+        return self.out
+
+
+def jax_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``DeepLabV2`` (module2 head) variables -> the port's
+    ``DeepLabV2`` state_dict."""
+    c = _Converter(variables)
+    c.backbone("")
+    if ("bn_pretrain", "scale") in c.params:
+        c.norm("bn_pretrain", ("bn_pretrain",))
     l5 = ("layer5",)
     i = 0
-    while l5 + (f"branch{i}_conv", "kernel") in params:
-        conv(f"layer5.conv2d_list.{i}.0", l5 + (f"branch{i}_conv",), bias=True)
-        norm(f"layer5.conv2d_list.{i}.1", l5 + (f"branch{i}_gn",),
-             running=False)
+    while l5 + (f"branch{i}_conv", "kernel") in c.params:
+        c.conv(f"layer5.conv2d_list.{i}.0", l5 + (f"branch{i}_conv",),
+               bias=True)
+        c.norm(f"layer5.conv2d_list.{i}.1", l5 + (f"branch{i}_gn",),
+               running=False)
         i += 1
-    dense("layer5.bottleneck.0.se.0", l5 + ("se", "fc1"))
-    dense("layer5.bottleneck.0.se.2", l5 + ("se", "fc2"))
-    conv("layer5.bottleneck.1", l5 + ("bottleneck_conv",), bias=True)
-    norm("layer5.bottleneck.2", l5 + ("bottleneck_gn",), running=False)
-    conv("layer5.head.1", l5 + ("head_conv",))
+    c.dense("layer5.bottleneck.0.se.0", l5 + ("se", "fc1"))
+    c.dense("layer5.bottleneck.0.se.2", l5 + ("se", "fc2"))
+    c.conv("layer5.bottleneck.1", l5 + ("bottleneck_conv",), bias=True)
+    c.norm("layer5.bottleneck.2", l5 + ("bottleneck_gn",), running=False)
+    c.conv("layer5.head.1", l5 + ("head_conv",))
+    return c.finish()
 
-    leftover = ["params/" + "/".join(p) for p in params]
-    leftover += ["batch_stats/" + "/".join(p) for p in stats]
-    if leftover:
-        raise ValueError(f"unconverted JAX variables: {leftover[:10]}")
-    return out
+
+def jax_legacy_variables_to_state_dict(
+        variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``DeepLabV2(head='legacy')`` variables -> the port's
+    ``LegacyDeepLabV2`` state_dict, in the reference legacy keys
+    (``backbone.*``, ``classifier.conv2d_list.{i}.{weight,bias}``): the
+    inverse of the JAX package's ``torch_legacy_state_dict_to_flax``."""
+    c = _Converter(variables)
+    c.backbone("backbone.")
+    i = 0
+    while ("layer5", f"branch{i}_conv", "kernel") in c.params:
+        c.conv(f"classifier.conv2d_list.{i}", ("layer5", f"branch{i}_conv"),
+               bias=True)
+        i += 1
+    return c.finish()
 
 
 def _put(out, key, arr) -> None:
@@ -190,35 +230,19 @@ def _resnet_gen_layout(n_blocks: int, norm: str = "batch",
 def _layout_to_state_dict(entries, variables: Mapping):
     """Map a GAN net's JAX variables through a layout; raises on a layer
     the variables lack and on variables the layout leaves unconverted."""
-    unknown = set(variables) - {"params", "batch_stats"}
-    if unknown:
-        raise ValueError(f"unexpected variable collections {sorted(unknown)}")
-    params = dict(_flatten(variables["params"]))
-    stats = dict(_flatten(variables.get("batch_stats", {})))
-    out: Dict[str, torch.Tensor] = {}
-
-    def take(tree, path):
-        if path not in tree:
-            raise KeyError(f"JAX variables lack {'/'.join(path)}")
-        return np.asarray(tree.pop(path), dtype=np.float32)
-
+    c = _Converter(variables)
     for tp, path, kind in entries:
         if kind == "norm":
-            _put(out, f"{tp}.weight", take(params, path + ("scale",)))
-            _put(out, f"{tp}.bias", take(params, path + ("bias",)))
-            _put(out, f"{tp}.running_mean", take(stats, path + ("mean",)))
-            _put(out, f"{tp}.running_var", take(stats, path + ("var",)))
-            continue
-        kernel = take(params, path + ("kernel",))
-        _put(out, f"{tp}.weight", kernel.transpose(3, 2, 0, 1)
-             if kind == "conv" else kernel[::-1, ::-1].transpose(2, 3, 0, 1))
-        if path + ("bias",) in params:
-            _put(out, f"{tp}.bias", take(params, path + ("bias",)))
-    leftover = ["params/" + "/".join(p) for p in params]
-    leftover += ["batch_stats/" + "/".join(p) for p in stats]
-    if leftover:
-        raise ValueError(f"unconverted JAX variables: {leftover[:10]}")
-    return out
+            c.norm(tp, path)
+        elif kind == "conv":
+            c.conv(tp, path, bias=path + ("bias",) in c.params)
+        else:
+            kernel = c.take(c.params, path + ("kernel",))
+            _put(c.out, f"{tp}.weight",
+                 kernel[::-1, ::-1].transpose(2, 3, 0, 1))
+            if path + ("bias",) in c.params:
+                _put(c.out, f"{tp}.bias", c.take(c.params, path + ("bias",)))
+    return c.finish()
 
 
 def unet_num_downs(variables: Mapping) -> int:
@@ -250,15 +274,19 @@ def resnet_generator_variables_to_state_dict(
 
 GAN_KEYS = {"g": (("s2t", "net_g_s2t_state_dict"),
                   ("t2s", "net_g_t2s_state_dict")),
-            "d": (("t", "net_d_t_state_dict"), ("s", "net_d_s_state_dict"))}
+            "d": (("t", "net_d_t_state_dict"), ("s", "net_d_s_state_dict")),
+            "sem": (("s", "net_seg_s_state_dict"),
+                    ("t", "net_seg_t_state_dict"))}
 
 
 def jax_gan_checkpoint_to_torch(ckpt: Mapping, *, norm: str = "batch",
                                 n_layers: int = 3) -> dict:
     """The JAX package's GAN checkpoint (``{'epoch', 'g_vars', 'd_vars'}``,
-    U-Net generators and PatchGANs) -> the reference ``.pth`` schema
+    U-Net generators and PatchGANs, and ``'sem_vars'``, the frozen legacy
+    sem nets, when it has them) -> the reference ``.pth`` schema
     ``{'epoch', 'net_g_s2t_state_dict', 'net_g_t2s_state_dict',
-    'net_d_t_state_dict', 'net_d_s_state_dict'}`` (the nets it holds)."""
+    'net_d_t_state_dict', 'net_d_s_state_dict', 'net_seg_s_state_dict',
+    'net_seg_t_state_dict'}`` (the nets it holds)."""
     out = {"epoch": int(ckpt["epoch"])}
     for name, key in GAN_KEYS["g"]:
         if name in ckpt.get("g_vars", {}):
@@ -268,4 +296,8 @@ def jax_gan_checkpoint_to_torch(ckpt: Mapping, *, norm: str = "batch",
         if name in ckpt.get("d_vars", {}):
             out[key] = patchgan_variables_to_state_dict(
                 ckpt["d_vars"][name], n_layers=n_layers, norm=norm)
+    for name, key in GAN_KEYS["sem"]:
+        if name in ckpt.get("sem_vars", {}):
+            out[key] = jax_legacy_variables_to_state_dict(
+                ckpt["sem_vars"][name])
     return out

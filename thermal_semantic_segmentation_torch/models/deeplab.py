@@ -1,10 +1,15 @@
 """DeepLabV2-ResNet101 segmenter (counterpart of the JAX ``models/deeplab.py``).
 
-``num_channels`` 1 or 3 selects thermal vs RGB input; ``head='module2'`` is
-the GroupNorm + SE ASPP head returning ``{'feat', 'out'}`` at stride 8;
-``bn_clr`` adds a BatchNorm on the 2048-channel feature. The module is NCHW
-and is kept in ``channels_last`` memory format; its state_dict uses the
-reference torch keys, so a reference ``.pth`` loads with ``strict=True``.
+``num_channels`` 1 or 3 selects thermal vs RGB input; ``bn_clr`` adds a
+BatchNorm on the 2048-channel feature. Two heads, each returning
+``{'feat', 'out'}`` at stride 8: ``DeepLabV2`` carries the GroupNorm + SE
+ASPP head (``head='module2'``), ``LegacyDeepLabV2`` the plain ASPP_V2 sum
+head of the reference's legacy zoo nets (``head='legacy'``;
+semantic_segmentation_models.py:182, thermal_semantic_segmentation_models
+.py:186). ``create_deeplab`` builds either. The modules are NCHW and kept
+in ``channels_last`` memory format; their state_dicts use the reference
+torch keys of each model, so a reference ``.pth`` loads with
+``strict=True``.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn.aspp import ASPPModule2
+from ..nn.aspp import ASPPLegacy, ASPPModule2
 from ..nn.resnet import BN_EPS, BatchNorm2d, ResNetBackbone
 
 
@@ -29,11 +34,10 @@ class DeepLabV2(ResNetBackbone):
     def __init__(self, num_classes: int = 13, num_channels: int = 3,
                  head: str = "module2", bn_clr: bool = False,
                  layers: Sequence[int] = (3, 4, 23, 3)):
-        if head == "legacy":
-            raise NotImplementedError(
-                "head='legacy' is not yet ported (see ROADMAP.md)")
         if head != "module2":
-            raise ValueError(f"unknown head {head!r}")
+            raise ValueError(f"DeepLabV2 carries the module2 head, not "
+                             f"{head!r} (the legacy head is LegacyDeepLabV2; "
+                             f"create_deeplab builds either)")
         super().__init__(layers=layers, num_channels=num_channels)
         self.bn_pretrain = BatchNorm2d(2048, eps=BN_EPS) if bn_clr else None
         self.layer5 = ASPPModule2(2048, num_classes)
@@ -51,18 +55,52 @@ class DeepLabV2(ResNetBackbone):
         return self.layer5(feat)
 
 
+class LegacyDeepLabV2(nn.Module):
+    """The legacy DeepLabV2: the backbone under ``backbone`` and the ASPP_V2
+    sum head under ``classifier``. Its
+    state_dict carries the reference legacy keys (``backbone.*``,
+    ``classifier.conv2d_list.{i}.{weight,bias}``), those that the JAX
+    package's ``torch_legacy_state_dict_to_flax`` reads. ``'feat'`` is
+    the 2048-channel backbone feature, as in the JAX model."""
+
+    def __init__(self, num_classes: int = 19, num_channels: int = 3,
+                 layers: Sequence[int] = (3, 4, 23, 3)):
+        super().__init__()
+        self.backbone = ResNetBackbone(layers=layers,
+                                       num_channels=num_channels)
+        self.classifier = ASPPLegacy(2048, num_classes)
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        self.backbone.init_weights_(generator)
+        self.classifier.init_weights_(generator)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        """x: (N, C, H, W) -> {'feat': (N, 2048, H/8, W/8),
+        'out': (N, num_classes, H/8, W/8)}."""
+        feat = self.backbone(x)
+        return {"feat": feat, "out": self.classifier(feat)}
+
+
 def create_deeplab(seed=0, *, device=None, num_classes: int = 13,
                    num_channels: int = 1, head: str = "module2",
                    bn_clr: bool = False,
-                   layers: Sequence[int] = (3, 4, 23, 3)) -> DeepLabV2:
-    """Build the model with weights drawn from ``seed`` (an int or a
+                   layers: Sequence[int] = (3, 4, 23, 3)) -> nn.Module:
+    """Build the model of ``head`` ('module2': ``DeepLabV2``, 'legacy':
+    ``LegacyDeepLabV2``) with weights drawn from ``seed`` (an int or a
     ``torch.Generator``), in eval mode, channels_last, on ``device``
     (default: the CUDA device; raises without one)."""
     dev = resolve_device(device)
     generator = seed if isinstance(seed, torch.Generator) else \
         torch.Generator().manual_seed(int(seed))
-    model = DeepLabV2(num_classes=num_classes, num_channels=num_channels,
-                      head=head, bn_clr=bn_clr, layers=tuple(layers))
+    if head == "legacy":
+        if bn_clr:
+            raise ValueError("bn_clr is an option of the module2 head")
+        model = LegacyDeepLabV2(num_classes=num_classes,
+                                num_channels=num_channels,
+                                layers=tuple(layers))
+    else:
+        model = DeepLabV2(num_classes=num_classes, num_channels=num_channels,
+                          head=head, bn_clr=bn_clr, layers=tuple(layers))
     model.init_weights_(generator)   # on the CPU: the same weights anywhere
     return model.to(device=dev, memory_format=torch.channels_last).eval()
 

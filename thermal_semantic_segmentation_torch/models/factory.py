@@ -1,9 +1,13 @@
-"""GAN net factories (counterpart of the GAN part of the JAX
-``models/factory.py``; reference models/generators.py:238-345,
-models/discriminators.py:12).
+"""Net factories (counterpart of the JAX ``models/factory.py``; reference
+models/generators.py:238-345, models/discriminators.py:12,
+semantic_segmentation_models.py:182, thermal_semantic_segmentation_models
+.py:186).
 
-The factories build a module on the CPU with torch's default weights;
+The GAN factories build a module on the CPU with torch's default weights;
 ``init_gan_net`` draws its weights from a seed and puts it on the device.
+The legacy DeepLab factories build the full-width ResNet-101 with the
+ASPP_V2 head, its weights drawn from a seed, on the device, in eval mode:
+the GAN's frozen semantic nets.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from .deeplab import LegacyDeepLabV2, create_deeplab
 from ..nn.generators import ResnetGenerator, UnetGenerator
 from ..nn.patchgan import NLayerDiscriminator
 
@@ -51,6 +56,23 @@ def patchgan(ndf: int = 64, input_nc: int = 1, n_layers: int = 3,
     """The 70x70 PatchGAN."""
     return NLayerDiscriminator(input_nc, ndf=ndf, n_layers=n_layers,
                                norm=norm)
+
+
+def deeplabv2_resnet101(num_classes: int = 19, *, seed=0,
+                        device=None) -> LegacyDeepLabV2:
+    """The legacy 3-channel DeepLabV2-ResNet101 (reference
+    semantic_segmentation_models.py:182-200); it takes BGR
+    mean-subtracted [0, 255] input (``train/gan.gan_to_seg_tensor``)."""
+    return create_deeplab(seed, device=device, num_classes=num_classes,
+                          num_channels=3, head="legacy")
+
+
+def deeplabv2_resnet101_thermal(num_classes: int = 19, *, seed=0,
+                                device=None) -> LegacyDeepLabV2:
+    """The legacy 1-channel thermal DeepLabV2-ResNet101 (reference
+    thermal_semantic_segmentation_models.py:186-204)."""
+    return create_deeplab(seed, device=device, num_classes=num_classes,
+                          num_channels=1, head="legacy")
 
 
 def init_gan_net(model: nn.Module, seed=0, *, device=None) -> nn.Module:

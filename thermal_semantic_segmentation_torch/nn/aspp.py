@@ -1,5 +1,8 @@
-"""The GroupNorm + SE ASPP head of DeepLabV2 (counterpart of the JAX
-``nn/aspp.py::ASPPModule2``).
+"""The ASPP heads of DeepLabV2 (counterpart of the JAX ``nn/aspp.py``):
+the GroupNorm + SE head ``ASPPModule2`` and the legacy sum head
+``ASPPLegacy``.
+
+ASPPModule2:
 
 1x1 + four dilated 3x3 branches -> 256 channels each with GroupNorm(32) and
 ReLU, channel concat, SE gate, 3x3 bottleneck conv + GroupNorm, channel
@@ -8,6 +11,9 @@ without bias. Returns both the 256-channel
 pre-classifier feature ('feat') and the logits ('out'). Submodule names give
 the reference state_dict keys: ``conv2d_list.{i}.{0,1}``,
 ``bottleneck.{0.se.0, 0.se.2, 1, 2}`` and ``head.1``.
+
+ASPPLegacy (ASPP_V2, the reference's zoo nets): four dilated 3x3 convs
+with biases straight to the logits, summed; keys ``conv2d_list.{i}``.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ BRANCH_WIDTH = 256
 DILATIONS = (6, 12, 18, 24)
 DROPRATE = 0.1
 HEAD_STD = 0.001
+LEGACY_STD = 0.01
 # The branches run on at most this many feature-map pixels (N * H * W) per
 # call. Past about 22,000 (H100, cuDNN 9.2, float32), cuDNN leaves its
 # implicit-GEMM kernel for the 2048-channel dilated 3x3 convs for a direct
@@ -28,6 +35,15 @@ HEAD_STD = 0.001
 # treat each image alone, so splitting the batch changes no result; a
 # batch of 8 at 256x512 (33x65 maps) stays one call.
 MAX_BRANCH_PIXELS = 8 * 33 * 65
+
+
+def split_branches(branches, x: torch.Tensor) -> torch.Tensor:
+    """``branches(x)``, in parts of the batch of at most
+    ``MAX_BRANCH_PIXELS`` map pixels each when ``x`` is larger."""
+    per_call = max(1, MAX_BRANCH_PIXELS // (x.shape[2] * x.shape[3]))
+    if x.shape[0] > per_call:
+        return torch.cat([branches(part) for part in x.split(per_call)])
+    return branches(x)
 
 
 class Dropout2d(nn.Module):
@@ -116,11 +132,33 @@ class ASPPModule2(nn.Module):
         return torch.cat([b(x) for b in self.conv2d_list], dim=1)
 
     def forward(self, x: torch.Tensor) -> dict:
-        per_call = max(1, MAX_BRANCH_PIXELS // (x.shape[2] * x.shape[3]))
-        if x.shape[0] > per_call:
-            y = torch.cat([self.branches(part)
-                           for part in x.split(per_call)])
-        else:
-            y = self.branches(x)
-        feat = self.head[0](self.bottleneck(y))
+        feat = self.head[0](self.bottleneck(split_branches(self.branches,
+                                                           x)))
         return {"feat": feat, "out": self.head[1](feat)}
+
+
+class ASPPLegacy(nn.Module):
+    """The sum of four dilated 3x3 convs, ``in_channels`` -> the logits,
+    at dilations 6/12/18/24 (JAX ``nn/aspp.py::ASPPLegacy``), summed in
+    the reference's order; the branches split as ``ASPPModule2``'s."""
+
+    def __init__(self, in_channels: int, num_classes: int):
+        super().__init__()
+        self.conv2d_list = nn.ModuleList(
+            nn.Conv2d(in_channels, num_classes, 3, padding=d, dilation=d,
+                      bias=True) for d in DILATIONS)
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """N(0, 0.01) kernels and zero biases, as the JAX head."""
+        for m in self.conv2d_list:
+            nn.init.normal_(m.weight, 0.0, LEGACY_STD, generator=generator)
+            nn.init.zeros_(m.bias)
+
+    def branches(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2d_list[0](x)
+        for conv in self.conv2d_list[1:]:
+            out = out + conv(x)
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return split_branches(self.branches, x)
