@@ -64,7 +64,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
  13. distance: ``evaluate_distance`` with the per-class L1 scores those
      PNGs against seeded originals and labels at batch 1 and 8; L1, SSIM
      and per-class L1 held to float64 on the CPU; prints pairs/s and the
-     per-batch times. It launches no kernel.
+     per-batch times. It launches no kernel;
+ 14. dist: the train CLI's loop under ``--distributed`` with one rank over
+     NCCL (a process group on a free localhost port), the full-width model
+     at batch 8 under DDP, with ``--remat`` none, dots and full, each
+     epoch validated through the kernel; a SIGTERM sent before the third
+     step of another epoch leaves ``preempt_dist.pth``, which
+     ``-load_model`` resumes; prints each remat mode's step ms, images/s
+     and peak memory and its gradients against ``none``'s on one batch;
+     then two ranks on the one card over gloo (``python3 chip_smoke.py
+     --dist-worker <rank> <port> <dir>``, NCCL takes one rank a card) with
+     a tiny model: the two-rank 'sync' step against the one-rank step on
+     the joined batch, 'per_replica''s state equal on both ranks, and the
+     two-rank ``seg_validate``, ``evaluate_distance`` and prototype merge
+     against their one-rank results.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -143,6 +156,20 @@ TRANSLATE_HW = (320, 700)
 # batch 1, then 8; held to float64
 DISTANCE_BATCHES = (1, 8)
 SSIM_ATOL, DISTANCE_RTOL = 1e-5, 1e-5
+# the dist phase: 40 source images split 32 / 8 (4 train steps of 8, one
+# val batch), 8 target images (one batch); the timed steps of each remat
+# mode; its gradients against none's, relative to each tensor's largest
+DIST_SOURCE, DIST_TARGET, DIST_TIMED_STEPS = 40, 8, 5
+REMAT_MODES = ("none", "dots", "full")
+# ten times the card's own run-to-run gradient noise (two 'none' passes:
+# 4.9e-5, cuDNN's backward sums in no fixed order)
+REMAT_GRAD_RTOL = 5e-4
+PREEMPT_AT_POLL = 3          # SIGTERM before the third step
+# two ranks over gloo, a tiny model: 2 images each in the step, 5 images
+# to validate and 6 pairs to score at batch 1, 8 prototype images at 2
+GLOO_WORLD, GLOO_LOCAL, GLOO_VAL, GLOO_PAIRS, GLOO_PROTO = 2, 2, 5, 6, 8
+GLOO_TIMEOUT = 600
+GLOO_METRIC_RTOL, GLOO_BUFFER_ATOL = 1e-6, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -2643,6 +2670,398 @@ def phase_distance(card: str, root: str) -> None:
                  "differ from float64")
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+class SigtermAtPoll:
+    """A shutdown flag that sends this process SIGTERM at its ``at``-th
+    poll (the train loop polls once before each step), then reads the
+    ``GracefulShutdown`` it wraps."""
+
+    def __init__(self, inner, at: int):
+        self.inner, self.at, self.polls = inner, at, 0
+
+    @property
+    def requested(self) -> bool:
+        import os
+        import signal
+        self.polls += 1
+        if self.polls == self.at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return self.inner.requested
+
+    @property
+    def signum(self):
+        return self.inner.signum
+
+
+def phase_dist(card: str) -> dict:
+    """The train CLI's loop under ``--distributed`` with one rank over
+    NCCL, full width, in each remat mode, and a SIGTERM with its resume;
+    then the remat modes' speed, memory and gradients, and two ranks over
+    gloo. Returns the kernels' launch counts from the CLI runs."""
+    import math
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        load_seg_checkpoint)
+    from thermal_semantic_segmentation_torch.cli.options import seg_parse
+    from thermal_semantic_segmentation_torch.cli.segmentation_train import (
+        make_loaders, train_epochs)
+    from thermal_semantic_segmentation_torch.data.loader import split_indices
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.parallel.mesh import make_mesh
+    from thermal_semantic_segmentation_torch.utils.logging import get_logger
+    from thermal_semantic_segmentation_torch.utils.preempt import (
+        GracefulShutdown)
+
+    source = SeededImages(DIST_SOURCE, SERVE_OUT, seed=12)
+    target = SeededImages(DIST_TARGET, SERVE_OUT, seed=13)
+    n_train, n_val = map(len, split_indices(DIST_SOURCE))
+    steps = n_train // TRAIN_BATCH
+    val_batches = (math.ceil(n_val / TRAIN_BATCH)
+                   + math.ceil(DIST_TARGET / TRAIN_BATCH))
+    dist_flags = ["--distributed", "true", "--coordinator_address",
+                  f"localhost:{free_port()}", "--num_processes", "1",
+                  "--process_id", "0"]
+    with tempfile_dir() as root:
+        torch.save({"epoch": -1,
+                    "sem_net_state_dict": create_deeplab(0).state_dict()},
+                   f"{root}/start.pth")
+        logdir = os.path.join(root, "logs")
+        logger = get_logger(logdir)
+
+        def run(*flags, shutdown=None):
+            args = seg_parse().parse_args(
+                ["-load_model", "true", "--model_root_path", root,
+                 "-new_checkpoint_name", "dist.pth", "-epochs", "1",
+                 "-batch_size", str(TRAIN_BATCH), "-val_batch_size",
+                 str(TRAIN_BATCH), *flags, *dist_flags])
+            args.logdir = logdir
+            return train_epochs(args, logger,
+                                *make_loaders(args, source, target),
+                                shutdown=shutdown)
+
+        upsample_argmax.launches = 0      # counts from the main path only
+        histories = {}
+        for mode in REMAT_MODES:
+            state, histories[mode] = run("-checkpoint_name", "start.pth",
+                                         "--remat", mode)
+            if state.model.remat != mode:
+                fail(f"--remat {mode} built a {state.model.remat} model")
+            del state
+        with GracefulShutdown() as shutdown:
+            _, preempted = run("-checkpoint_name", "start.pth",
+                               shutdown=SigtermAtPoll(shutdown,
+                                                      PREEMPT_AT_POLL))
+        preempt_path = os.path.join(root, "preempt_dist.pth")
+        _, meta = load_seg_checkpoint(preempt_path)
+        _, resumed = run("-checkpoint_name", "preempt_dist.pth")
+        launches = {"upsample_argmax": upsample_argmax.launches}
+        torch.cuda.synchronize()
+        backend, world = dist.get_backend(), dist.get_world_size()
+        mesh = make_mesh()
+
+    print(f"dist check: {backend} process group of {world}; losses "
+          f"{ {m: h[0]['train_losses'] for m, h in histories.items()} }, "
+          f"val_loss { {m: h[0]['val_loss'] for m, h in histories.items()} }"
+          f"; SIGTERM at poll {PREEMPT_AT_POLL}: {preempted}, checkpoint "
+          f"epoch {meta['epoch']}; resumed {resumed}; launches {launches}",
+          flush=True)
+    if backend != "nccl" or world != 1:
+        fail(f"the --distributed CLI joined a {backend} group of {world}")
+    for mode, h in histories.items():
+        if [r["epoch"] for r in h] != [0] or \
+                len(h[0]["train_losses"]) != steps or \
+                not all(map(math.isfinite,
+                            h[0]["train_losses"] + [h[0]["val_loss"]])):
+            fail(f"--remat {mode}: the epoch did not run: {h}")
+    if len(preempted) != 1 or not preempted[0]["preempted"] or \
+            len(preempted[0]["train_losses"]) != PREEMPT_AT_POLL - 1 or \
+            meta["epoch"] != -1:
+        fail(f"the SIGTERM left no resumable preempt checkpoint: "
+             f"{preempted}, epoch {meta['epoch']}")
+    if [r["epoch"] for r in resumed] != [0] or resumed[0]["preempted"] or \
+            len(resumed[0]["train_losses"]) != steps or \
+            not math.isfinite(resumed[0]["val_loss"]):
+        fail(f"the resume from preempt_dist.pth did not train: {resumed}")
+    if launches["upsample_argmax"] != (len(REMAT_MODES) + 1) * val_batches:
+        fail(f"upsample_argmax launched {launches['upsample_argmax']} "
+             f"times for {(len(REMAT_MODES) + 1) * val_batches} validation "
+             f"batches")
+
+    image = torch.from_numpy(source.images[:TRAIN_BATCH]).cuda()
+    label = torch.from_numpy(source.labels[:TRAIN_BATCH]).cuda()
+    for mode, step_mesh in (("none", None), *((m, mesh)
+                                               for m in REMAT_MODES)):
+        ms, peak = remat_step_time(mode, step_mesh, image, label)
+        what = "plain step" if step_mesh is None else "DDP step"
+        print(f"dist remat {mode}: {what} {ms:.2f} ms, "
+              f"{TRAIN_BATCH * 1e3 / ms:.2f} images/s, peak device memory "
+              f"{peak:.3f} GiB (batch {TRAIN_BATCH} at 256x512, float32, "
+              f"one NCCL rank) on {card}", flush=True)
+    remat_gradients(image, label)
+    dist.destroy_process_group()
+    two_ranks_over_gloo()
+    return launches
+
+
+def remat_step_time(mode: str, mesh, image, label):
+    """(ms a step over ``DIST_TIMED_STEPS`` after two warm-ups, peak GiB
+    over them) of the full-width DDP step with ``remat`` ``mode`` (the
+    plain one-process step when ``mesh`` is None)."""
+    import gc
+
+    import torch
+
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        create_seg_state, make_seg_train_step)
+
+    state = create_seg_state(create_deeplab(0, remat=mode),
+                             learning_rate=TRAIN_LR)
+    step = make_seg_train_step(ignore_index=IGNORE, label_hw=SERVE_OUT,
+                               base_lr=TRAIN_LR, mesh=mesh)
+    for _ in range(2):
+        step(state, image, label)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(DIST_TIMED_STEPS):
+        step(state, image, label)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / DIST_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def remat_gradients(image, label) -> None:
+    """One batch's gradients in each remat mode from the same weights
+    (dropout off), against 'none''s: the largest over the tensors of
+    max|g - g_none| / max|g_none|, beside a second 'none' pass (the
+    card's own run-to-run noise); every BatchNorm folded once."""
+    import gc
+
+    import torch
+
+    from thermal_semantic_segmentation_torch.losses import cross_entropy
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.nn.resnet import BatchNorm2d
+    from thermal_semantic_segmentation_torch.ops.resize import upsample_logits
+
+    def grads(mode):
+        model = create_deeplab(0, remat=mode).train()
+        model.layer5.head[0].p = 0.0
+        out = model(image.permute(0, 3, 1, 2))["out"]
+        cross_entropy(upsample_logits(out.float().permute(0, 2, 3, 1),
+                                      *SERVE_OUT), label,
+                      ignore_index=IGNORE).backward()
+        folds = {int(m.num_batches_tracked) for m in model.modules()
+                 if isinstance(m, BatchNorm2d)}
+        if folds != {1}:
+            fail(f"--remat {mode}: BatchNorm folded {folds} times")
+        return {n: p.grad for n, p in model.named_parameters()}
+
+    base = grads("none")
+    errs = {}
+    for mode in ("none", "dots", "full"):
+        other = grads(mode)
+        errs[mode if mode != "none" else "none again"] = max(
+            float((other[n] - g).abs().max() / g.abs().max().clamp_min(
+                1e-30)) for n, g in base.items())
+        del other
+        gc.collect()
+    print(f"dist remat gradients against none on one batch (largest "
+          f"relative error over the tensors): {errs}", flush=True)
+    for mode in ("dots", "full"):
+        if not errs[mode] <= REMAT_GRAD_RTOL:
+            fail(f"--remat {mode}'s gradients are {errs[mode]} from none's")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class SeededPairs:
+    """Seeded (original, translated, label) pairs for the distance eval."""
+
+    def __init__(self, n: int, hw, seed: int):
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        self.ori = rng.random((n, *hw, 1), dtype=np.float32)
+        self.trans = np.clip(self.ori + rng.normal(0, 0.2, self.ori.shape),
+                             0, 1).astype(np.float32)
+        self.labels = rng.integers(0, NUM_CLASSES, (n, *hw)).astype(
+            np.int32)
+
+    def __len__(self) -> int:
+        return len(self.ori)
+
+    def get(self, index: int, rng) -> dict:
+        return {"original": self.ori[index],
+                "translated": self.trans[index], "label": self.labels[index]}
+
+
+def gloo_results(rank, sharded: bool) -> dict:
+    """A tiny model's 'sync' and 'per_replica' steps (rank ``rank``'s
+    images of the joined batch, or all of them with one rank), and its
+    validation, distance eval and prototypes, on ``cuda:0``."""
+    import torch
+
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.eval.distance import (
+        evaluate_distance)
+    from thermal_semantic_segmentation_torch.eval.validate import (
+        seg_validate)
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        host_shard, make_mesh)
+    from thermal_semantic_segmentation_torch.train.prototypes import (
+        calc_prototypes)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        create_seg_state, make_seg_train_step)
+
+    dev = torch.device("cuda", 0)
+    data = SeededImages(GLOO_WORLD * GLOO_LOCAL, PARITY_HW, seed=21)
+    rows = (slice(rank * GLOO_LOCAL, (rank + 1) * GLOO_LOCAL) if sharded
+            else slice(None))
+    out = {}
+    for mode in ("sync", "per_replica"):
+        model = create_deeplab(7, device=dev, layers=(1, 1, 1, 1))
+        model.layer5.head[0].p = 0.0
+        state = create_seg_state(model, learning_rate=TRAIN_LR, device=dev)
+        step = make_seg_train_step(
+            ignore_index=IGNORE, label_hw=PARITY_HW, base_lr=TRAIN_LR,
+            bn_mode=mode, mesh=make_mesh(dev) if sharded else None,
+            device=dev)
+        loss = step(state, torch.from_numpy(data.images[rows]).to(dev),
+                    torch.from_numpy(data.labels[rows]).to(dev))
+        out[mode] = (float(loss), {k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+    shard = host_shard() if sharded else None
+    model = create_deeplab(7, device=dev, layers=(1, 1, 1, 1))
+    out["val"] = seg_validate(
+        model, DataLoader(SeededImages(GLOO_VAL, PARITY_HW, seed=22), 1,
+                          drop_last=False, shard=shard, shard_lockstep=False),
+        device=dev, reduce_processes=sharded)
+    out["distance"] = evaluate_distance(
+        DataLoader(SeededPairs(GLOO_PAIRS, PARITY_HW, seed=23), 1,
+                   shuffle=True, drop_last=True, shard=shard,
+                   shard_lockstep=False),
+        num_classes=NUM_CLASSES, device=dev, reduce_processes=sharded)
+    out["proto"] = calc_prototypes(
+        model, DataLoader(SeededImages(GLOO_PROTO, PARITY_HW, seed=24), 2,
+                          shuffle=True, drop_last=True, shard=shard,
+                          shard_lockstep=False),
+        num_classes=NUM_CLASSES, device=dev)
+    return out
+
+
+def dist_worker(rank: int, port: int, root: str) -> int:
+    """One of the two gloo ranks on ``cuda:0``; its results to
+    ``<root>/gloo<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        init_distributed)
+
+    init_distributed(f"localhost:{port}", GLOO_WORLD, rank, backend="gloo",
+                     device="cuda:0")
+    torch.save(gloo_results(rank, sharded=True), f"{root}/gloo{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def two_ranks_over_gloo() -> None:
+    """Two gloo ranks on the one card against one rank here."""
+    import os
+
+    import numpy as np
+    import torch
+
+    with tempfile_dir() as root:
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             str(r), str(port), root], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(GLOO_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=GLOO_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"gloo rank {r} failed:\n{log[-4000:]}")
+        ranks = [torch.load(f"{root}/gloo{r}.pt", weights_only=False)
+                 for r in range(GLOO_WORLD)]
+    one = gloo_results(0, sharded=False)
+
+    for mode in ("sync", "per_replica"):
+        (l0, sd0), (l1, sd1) = ranks[0][mode], ranks[1][mode]
+        differ = [k for k in sd0 if not torch.equal(sd0[k], sd1[k])]
+        if l0 != l1 or differ:
+            fail(f"{mode}: the two ranks' state differs: losses {l0}, {l1}, "
+                 f"tensors {differ[:5]}")
+    (loss, sd), (want_loss, want_sd) = ranks[0]["sync"], one["sync"]
+    worst = buffer_err = 0.0
+    for k, v in want_sd.items():
+        diff = float((sd[k].double() - v.double()).abs().max())
+        if v.is_floating_point() and k.endswith(("running_mean",
+                                                 "running_var")):
+            buffer_err = max(buffer_err, diff)
+        elif v.is_floating_point():
+            worst = max(worst, diff / TRAIN_LR)
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    print(f"dist gloo: two ranks' sync step vs one rank on the joined "
+          f"batch: loss {loss} vs {want_loss} (rel err {loss_err:.3g}), "
+          f"parameters worst {worst:.4f} x lr apart, BatchNorm buffers max "
+          f"abs err {buffer_err:.3g}; per_replica state equal on both "
+          f"ranks", flush=True)
+    if not (loss_err <= LOSS_RTOL and worst <= 2.01
+            and buffer_err <= GLOO_BUFFER_ATOL):
+        fail("the two-rank sync step is not the one-rank step")
+    def flat(result, name):
+        if name == "val":
+            result = [result[0], result[1], *result[2].values()]
+        return np.concatenate([np.ravel(np.asarray(x, np.float64))
+                               for x in result])
+
+    for name in ("val", "distance", "proto"):
+        g, w = flat(ranks[0][name], name), flat(one[name], name)
+        other = flat(ranks[1][name], name)
+        same_nan = np.array_equal(np.isnan(g), np.isnan(w))
+        close = np.isnan(g) | np.isclose(g, w, rtol=GLOO_METRIC_RTOL,
+                                         atol=GLOO_METRIC_RTOL)
+        err = float(np.nanmax(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+        print(f"dist gloo {name}: two ranks vs one, max rel err {err:.3g}",
+              flush=True)
+        if not (same_nan and close.all()):
+            fail(f"the two-rank {name} differs from the one-rank run")
+        if not np.array_equal(g, other, equal_nan=True):
+            fail(f"the two ranks' {name} differ")
+
 def main() -> int:
     import torch
     t0 = time.perf_counter()
@@ -2666,6 +3085,7 @@ def main() -> int:
         by_path["gan_legacy"] = phase_gan(card, root, "legacy")
         phase_translate(card, root)     # launches no kernel
         phase_distance(card, root)      # launches no kernel
+    by_path["dist"] = phase_dist(card)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]]
                                  for path, launches in by_path.items()}
@@ -2685,4 +3105,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -349,8 +349,16 @@ def test_float32_confusion_matrix_stops_counting_past_2_24(jx):
 
 
 def test_seg_validate_refuses_multi_gpu(tiny):
+    """One process over several cards (``mesh``) is not yet ported; the
+    cross-process reduction is, and with one process it changes nothing
+    (tests/test_torch_dist.py runs it over two)."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        seg_validate(tiny[2], [], device="cpu", reduce_processes=True)
+        seg_validate(tiny[2], [], device="cpu", mesh=object())
+    batches = [{"image": np.zeros((1, 16, 32, 1), np.float32),
+                "label": np.zeros((1, 16, 32), np.int64)}]
+    assert seg_validate(tiny[2], batches, device="cpu",
+                        reduce_processes=True)[1] == seg_validate(
+        tiny[2], batches, device="cpu")[1]
 
 
 @pytest.mark.gpu

@@ -302,6 +302,37 @@ def test_gan_cli_resumes_its_own_checkpoint(world, narrow, tmp_path, capsys):
     capsys.readouterr()
 
 
+def test_gan_cli_preempts_to_a_resumable_checkpoint(world, narrow, tmp_path,
+                                                   monkeypatch, capsys):
+    """A shutdown requested after the first step: the loop stops, writes
+    ``preempt_g.pth`` with the epoch before the interrupted one, as the
+    JAX CLI does, and not the epoch's own checkpoint; a resume from it
+    starts at that saved epoch, -1, as every GAN resume starts at its
+    checkpoint's epoch (ROADMAP.md §3)."""
+    from tests.test_torch_preempt import StopAfter
+    monkeypatch.setattr(main, "GracefulShutdown", StopAfter)
+    ckpt_dir = str(tmp_path / "ckpt")
+    argv = _argv(world, ckpt_dir, "g.pth") + ["--device", "cpu"]
+    _, history = main.main(argv)
+    assert [(h["epoch"], h["steps"], h["preempted"]) for h in history] == [
+        (0, 1, True)]
+    preempt = _common.load_gan_checkpoint(os.path.join(ckpt_dir,
+                                                       "preempt_g.pth"))
+    assert preempt["epoch"] == -1
+    assert not os.path.exists(os.path.join(ckpt_dir, "g.pth"))
+    monkeypatch.undo()
+    narrow_again = argv.index("-checkpoint_name") + 1
+    argv[narrow_again] = "preempt_g.pth"
+    monkeypatch.setattr(main, "unet_256", lambda ngf=64, **kw:
+                        factory.unet_32(ngf=8, **kw))
+    monkeypatch.setattr(main, "patchgan", lambda input_nc:
+                        factory.patchgan(ndf=8, input_nc=input_nc))
+    monkeypatch.setattr(main, "_gan_transform", _crop(T))
+    _, history = main.main(argv)
+    assert [(h["epoch"], h["preempted"]) for h in history] == [(-1, False)]
+    capsys.readouterr()
+
+
 def test_translator_matches_jax_translator(world, narrow, tmp_path):
     """Both translators on one JAX msgpack checkpoint: the same files, the
     port's pixels within one grey level of the JAX translator's (PIL's

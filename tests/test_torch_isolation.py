@@ -82,7 +82,7 @@ def test_importing_every_module_loads_no_banned_package():
                 "nn.patchgan", "nn.canny", "ops.image_pool",
                 "models.factory", "train.gan", "cli.main", "cli.main_gan",
                 "cli.translator", "ops.ssim", "eval.distance",
-                "cli.distance_evaluate"):
+                "cli.distance_evaluate", "parallel.mesh", "utils.preempt"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -104,7 +104,7 @@ def test_importing_every_module_loads_no_banned_package():
     "make_self_train_step", "create_self_train_state", "self_train_main",
     "init_gan_net", "create_gan_state", "build_generator_from_gan_checkpoint",
     "main", "main_gan", "translator", "evaluate_distance",
-    "distance_evaluate", "deeplabv2_resnet101"])
+    "distance_evaluate", "deeplabv2_resnet101", "init_distributed"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -165,14 +165,30 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             from thermal_semantic_segmentation_torch.models.factory import (
                 deeplabv2_resnet101)
             deeplabv2_resnet101()
+        elif entry == "init_distributed":
+            from thermal_semantic_segmentation_torch.parallel.mesh import (
+                init_distributed)
+            init_distributed("localhost:1", 1, 0)
         else:
             segmentation_evaluate.main(["-dataset", "freiburg_ir"])
 
 
-@pytest.mark.parametrize("argv", [
-    ["--distributed", "true"], ["--data_parallel", "true"],
+def _params(cases, ported):
+    """``cases`` as pytest params keeping the ids they had when every one
+    of them was refused (argv<i>), without the ``ported`` ones."""
+    return [pytest.param(argv, id=f"argv{i}")
+            for i, argv in enumerate(cases) if argv not in ported]
+
+
+DISTRIBUTED = ["--distributed", "true"]
+REMAT_FULL = ["--remat", "full"]
+
+
+@pytest.mark.parametrize("argv", _params([
+    DISTRIBUTED, ["--data_parallel", "true"],
     ["--native_decode", "true"], ["--wire", "packed_bf16"],
-    ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"]])
+    ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"]],
+    [DISTRIBUTED]))
 def test_eval_cli_refuses_flags_not_yet_ported(argv, capsys):
     with pytest.raises(SystemExit) as exit_info:
         segmentation_evaluate.main(argv + ["--device", "cpu"])
@@ -180,12 +196,16 @@ def test_eval_cli_refuses_flags_not_yet_ported(argv, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [
-    ["--distributed", "true"], ["--data_parallel", "true"],
+TRAIN_PORTED = [DISTRIBUTED, ["-bn_mode", "per_replica"], REMAT_FULL,
+                ["--remat", "dots"]]
+
+
+@pytest.mark.parametrize("argv", _params([
+    DISTRIBUTED, ["--data_parallel", "true"],
     ["--native_decode", "true"], ["--wire", "packed_bf16"],
     ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"],
     ["-device_aug", "true"], ["-bn_mode", "per_replica"],
-    ["--remat", "full"], ["--remat", "dots"]])
+    REMAT_FULL, ["--remat", "dots"]], TRAIN_PORTED))
 def test_train_cli_refuses_flags_not_yet_ported(argv, capsys):
     with pytest.raises(SystemExit) as exit_info:
         segmentation_train.main(argv + ["--device", "cpu"])
@@ -196,11 +216,11 @@ def test_train_cli_refuses_flags_not_yet_ported(argv, capsys):
 
 @pytest.mark.parametrize("cli", [generate_pseudo_label, cal_prototype],
                          ids=["generate_pseudo_label", "cal_prototype"])
-@pytest.mark.parametrize("argv", [
-    ["--distributed", "true"], ["--data_parallel", "true"],
+@pytest.mark.parametrize("argv", _params([
+    DISTRIBUTED, ["--data_parallel", "true"],
     ["--native_decode", "true"], ["--native_encode", "true"],
     ["--wire", "packed_bf16"], ["--decode_cache_mb", "512"],
-    ["--decode_cache_dir", "cache"]])
+    ["--decode_cache_dir", "cache"]], [DISTRIBUTED]))
 def test_pseudo_and_prototype_clis_refuse_flags_not_yet_ported(cli, argv,
                                                                capsys):
     with pytest.raises(SystemExit) as exit_info:
@@ -210,11 +230,11 @@ def test_pseudo_and_prototype_clis_refuse_flags_not_yet_ported(cli, argv,
     assert f"error: {argv[0]} " in err and "is not yet ported" in err
 
 
-@pytest.mark.parametrize("argv", [
-    ["--distributed", "true"], ["--data_parallel", "true"],
+@pytest.mark.parametrize("argv", _params([
+    DISTRIBUTED, ["--data_parallel", "true"],
     ["--native_decode", "true"], ["--wire", "packed_bf16"],
     ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"],
-    ["--remat", "full"]])
+    REMAT_FULL], [REMAT_FULL]))
 def test_self_train_cli_refuses_flags_not_yet_ported(argv, capsys):
     with pytest.raises(SystemExit) as exit_info:
         self_train_main.main(argv + ["--device", "cpu"])
@@ -223,21 +243,170 @@ def test_self_train_cli_refuses_flags_not_yet_ported(argv, capsys):
     assert f"error: {argv[0]} " in err and "is not yet ported" in err
 
 
-@pytest.mark.parametrize("cli", [main, main_gan, translator,
-                                 distance_evaluate],
-                         ids=["main", "main_gan", "translator",
-                              "distance_evaluate"])
-@pytest.mark.parametrize("argv", [
-    ["--distributed", "true"], ["--data_parallel", "true"],
+GAN_CLIS = [("main", main), ("main_gan", main_gan),
+            ("translator", translator),
+            ("distance_evaluate", distance_evaluate)]
+GAN_REFUSED = [
+    DISTRIBUTED, ["--data_parallel", "true"],
     ["--native_decode", "true"], ["--native_encode", "true"],
     ["--wire", "packed_bf16"], ["--decode_cache_mb", "512"],
-    ["--decode_cache_dir", "cache"], ["--remat", "full"]])
+    ["--decode_cache_dir", "cache"], REMAT_FULL]
+
+
+@pytest.mark.parametrize("argv,cli", [
+    pytest.param(argv, cli, id=f"argv{i}-{name}")
+    for i, argv in enumerate(GAN_REFUSED) for name, cli in GAN_CLIS
+    if argv != REMAT_FULL
+    and not (argv == DISTRIBUTED and name == "distance_evaluate")])
 def test_gan_clis_refuse_flags_not_yet_ported(cli, argv, capsys):
     with pytest.raises(SystemExit) as exit_info:
         cli.main(argv + ["--device", "cpu"])
     assert exit_info.value.code != 0
     err = capsys.readouterr().err
     assert f"error: {argv[0]} " in err and "is not yet ported" in err
+
+
+# -- the flags this port now runs, in place of their refusals -------------
+
+@pytest.fixture
+def one_process_group():
+    """``--distributed true`` with one process over gloo on a free
+    port; the group is torn down after the test."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    yield ["--distributed", "true", "--coordinator_address",
+           f"localhost:{port}", "--num_processes", "1", "--process_id", "0"]
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _joined_one_gloo_process():
+    import torch.distributed as dist
+    from thermal_semantic_segmentation_torch.parallel.mesh import host_shard
+    return (dist.is_initialized() and dist.get_world_size() == 1
+            and dist.get_backend() == "gloo" and host_shard() is None)
+
+
+@pytest.fixture(scope="module")
+def tiny_tree(tmp_path_factory):
+    """A 5-train / 3-test frame Freiburg tree and a tiny seg checkpoint
+    (layers 1,1,1,1) in its directory."""
+    from tests.synthetic import make_freiburg_tree
+    root = tmp_path_factory.mktemp("tree")
+    tree = make_freiburg_tree(str(root / "fr"), n_train=5, n_test=3)
+    torch.save({"epoch": 0, "sem_net_state_dict": create_deeplab(
+        0, device="cpu", layers=(1, 1, 1, 1)).state_dict()},
+        str(root / "s.pth"))
+    return root, tree
+
+
+def test_eval_cli_accepts_distributed(tiny_tree, one_process_group):
+    """One process in a gloo group scores the set as a lone process does
+    (the cross-process sums of two processes: tests/test_torch_dist.py)."""
+    root, tree = tiny_tree
+    argv = ["-dataset", "freiburg_ir", "-checkpoint_name", "s.pth",
+            "--model_root_path", str(root), "--freiburg_root", tree,
+            "-val_batch_size", "2", "--device", "cpu"]
+    want = segmentation_evaluate.main(argv)
+    got = segmentation_evaluate.main(argv + one_process_group)
+    assert _joined_one_gloo_process()
+    assert got == want
+
+
+@pytest.mark.parametrize("argv", TRAIN_PORTED,
+                         ids=["distributed", "per_replica", "remat_full",
+                              "remat_dots"])
+def test_train_cli_runs_ported_flags(argv, tiny_tree, one_process_group,
+                                     tmp_path, monkeypatch):
+    root, tree = tiny_tree
+    monkeypatch.chdir(tmp_path)        # the CLI writes logs/<name>/
+    if argv == DISTRIBUTED:
+        argv = one_process_group
+    state, history = segmentation_train.main(
+        ["-dataset", "freiburg_ir", "--freiburg_root", tree, "-epochs", "1",
+         "-batch_size", "2", "-val_batch_size", "2", "-max_steps", "1",
+         "--layers", "1,1,1,1", "--model_root_path", str(tmp_path),
+         "-new_checkpoint_name", "n.pth", "--device", "cpu", *argv])
+    assert len(history[0]["train_losses"]) == 1
+    assert np.isfinite(history[0]["train_losses"] + [history[0]["val_loss"]]).all()
+    assert (tmp_path / "n.pth").exists()
+    assert state.model.remat == (argv[1] if argv[0] == "--remat" else "none")
+    assert _joined_one_gloo_process() == (argv == one_process_group)
+
+
+@pytest.mark.parametrize("cli", [generate_pseudo_label, cal_prototype],
+                         ids=["generate_pseudo_label", "cal_prototype"])
+def test_pseudo_and_prototype_clis_accept_distributed(cli, tiny_tree,
+                                                      one_process_group,
+                                                      tmp_path):
+    root, tree = tiny_tree
+    argv = ["-checkpoint_name", "s.pth", "--model_root_path", str(root),
+            "--freiburg_root", tree, "-batch_size", "2", "--device", "cpu"]
+    if cli is generate_pseudo_label:
+        argv += ["--root", str(tmp_path)]
+        assert cli.main(argv + one_process_group) == 5
+        written = tmp_path / "pseudo_labels" / "hard" / "s"
+        assert len(list(written.glob("*_conf.npy"))) == 5
+    else:
+        argv += ["-root", str(tmp_path), "-epochs", "1"]
+        want = cli.main(argv)
+        got = cli.main(argv + one_process_group)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert _joined_one_gloo_process()
+
+
+def test_distance_cli_accepts_distributed(tmp_path, one_process_group):
+    from PIL import Image
+    from tests.synthetic import make_freiburg_tree
+    tree = make_freiburg_tree(str(tmp_path / "fr"), n_train=5, n_test=0,
+                              hw=(320, 960))
+    base = tmp_path / "fr" / "t" / "seq_00_day" / "00" / "fl_rgb"
+    base.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        Image.fromarray(rng.integers(0, 256, (320, 700)).astype(np.uint8),
+                        mode="L").save(base / f"{i:04d}.png")
+    argv = ["-checkpoint_name", "t.pth", "--freiburg_root", tree,
+            "--device", "cpu"]
+    want = distance_evaluate.main(argv)
+    got = distance_evaluate.main(argv + one_process_group)
+    assert _joined_one_gloo_process()
+    assert got == want and np.isfinite(got).all()
+
+
+def test_self_train_cli_accepts_remat():
+    """The self-training CLI builds its student with ``--remat``: a train
+    step through it folds each BatchNorm's statistics once."""
+    from thermal_semantic_segmentation_torch.cli.options import (
+        self_train_parse)
+    args = self_train_parse().parse_args(REMAT_FULL + [
+        "--device", "cpu", "--layers", "1,1,1,1"])
+    args.net_mode, args.num_classes = "one_channel", 13
+    model = _common.build_deeplab(args, device="cpu").train()
+    model.layer5.head[0].p = 0.0
+    assert model.remat == "full"
+    model(torch.rand(2, 1, 32, 64))["out"].sum().backward()
+    assert int(model.bn1.num_batches_tracked) == 1
+    assert int(model.layer1[0].bn1.num_batches_tracked) == 1
+    assert model.layer1[0].conv1.weight.grad is not None
+
+
+@pytest.mark.parametrize("name,cli", GAN_CLIS,
+                         ids=[name for name, _ in GAN_CLIS])
+def test_gan_clis_accept_remat(name, cli):
+    """The JAX CLIs that build no DeepLab take ``--remat`` and leave it
+    unused; so do these."""
+    from thermal_semantic_segmentation_torch.cli.options import (
+        train_parse, translation_parse)
+    parse = {"main": train_parse, "main_gan": train_parse,
+             "translator": translation_parse,
+             "distance_evaluate": distance_evaluate.distance_parse}[name]
+    assert parse().parse_args(REMAT_FULL + ["--device", "cpu"]).remat == \
+        "full"
 
 
 def test_translator_writes_pngs_without_pil(tmp_path):
@@ -311,11 +480,38 @@ def test_validation_dumps_load_no_pil(tmp_path):
 
 
 def test_train_step_refuses_modes_not_yet_ported():
-    for kw in ({"device_augment": True}, {"bn_mode": "per_replica"},
-               {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_seg_train_step(ignore_index=12, base_lr=1e-4, device="cpu",
-                                **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_seg_train_step(ignore_index=12, base_lr=1e-4, device="cpu",
+                            device_augment=True)
+
+
+@pytest.mark.parametrize("mode", ["per_replica", "mesh"])
+def test_train_step_runs_bn_mode_and_mesh(mode, one_process_group):
+    """``bn_mode='per_replica'`` without a mesh (one replica) and a
+    one-process mesh (DDP over gloo) each give the plain step's loss and
+    weights within float32 noise (rtol 1e-6)."""
+    from thermal_semantic_segmentation_torch.cli.options import seg_parse
+    from thermal_semantic_segmentation_torch.parallel.mesh import make_mesh
+    kw = {"bn_mode": "per_replica"}
+    if mode == "mesh":
+        seg_parse().parse_args(one_process_group + ["--device", "cpu"])
+        kw = {"mesh": make_mesh("cpu")}
+    rng = np.random.default_rng(0)
+    image = torch.from_numpy(rng.uniform(0, 1, (2, 32, 64, 1)).astype(
+        np.float32))
+    label = torch.from_numpy(rng.integers(0, 13, (2, 32, 64)))
+    out = []
+    for extra in ({}, kw):
+        model = create_deeplab(0, device="cpu", layers=(1, 1, 1, 1))
+        model.layer5.head[0].p = 0.0
+        state = create_seg_state(model, learning_rate=1e-4, device="cpu")
+        step = make_seg_train_step(ignore_index=12, label_hw=(32, 64),
+                                   base_lr=1e-4, device="cpu", **extra)
+        out.append((float(step(state, image, label)), model.state_dict()))
+    (want, want_sd), (got, got_sd) = out
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    for k, v in want_sd.items():
+        torch.testing.assert_close(got_sd[k], v, rtol=1e-6, atol=1e-7)
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

@@ -220,6 +220,36 @@ def test_self_train_cli_resumes_with_its_prototypes(world, tiny_port,
     assert np.all(state.proto_counts.numpy() == 0)
 
 
+def test_self_train_cli_preempts_to_a_resumable_checkpoint(
+        world, tiny_port, tmp_path, monkeypatch):
+    """A shutdown requested after the first step: the loop stops, writes
+    ``preempt_p.pth`` (the moving prototypes included) with the epoch
+    before the interrupted one and not ``lastp.pth``; a resume from it
+    redoes that epoch."""
+    from tests.test_torch_preempt import StopAfter
+    monkeypatch.setattr(self_train_main, "GracefulShutdown", StopAfter)
+    ckpt_dir = str(tmp_path / "ck")
+    _, history = self_train_main.main(_argv(world, "p.pth", ckpt_dir,
+                                            "--device", "cpu"))
+    epoch = history[0]["epoch"]       # the start checkpoint's epoch + 1
+    assert [(h["steps"], h["preempted"]) for h in history] == [(1, True)]
+    _, meta = _common.load_seg_checkpoint(os.path.join(ckpt_dir,
+                                                       "preempt_p.pth"))
+    assert meta["epoch"] == epoch - 1 and "objective_vectors" in meta
+    assert not os.path.exists(os.path.join(ckpt_dir, "lastp.pth"))
+    pl = os.path.join(world["root"], "pseudo_labels")
+    argv = _argv(world, "q.pth", ckpt_dir, "--device", "cpu", "--path_soft",
+                 os.path.join(pl, "soft", "src"), "--path_lp",
+                 os.path.join(pl, "hard", "src"))
+    argv[argv.index("-checkpoint_name") + 1] = "preempt_p.pth"
+    monkeypatch.setattr(self_train_main, "GracefulShutdown",
+                        lambda: StopAfter(after=10 ** 6))
+    _, history = self_train_main.main(argv)
+    assert [(h["epoch"], h["preempted"]) for h in history] == [
+        (epoch, False)]
+    assert os.path.exists(os.path.join(ckpt_dir, "lastq.pth"))
+
+
 def test_self_train_cli_refuses_a_missing_prototype_file(world, tiny_port,
                                                          tmp_path):
     argv = _argv(world, "c.pth", str(tmp_path / "ck"), "--device", "cpu")

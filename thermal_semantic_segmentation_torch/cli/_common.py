@@ -1,6 +1,10 @@
 """Shared CLI plumbing: dataset selection, checkpoint loading and saving
 (seg and GAN), and model construction (counterpart of the JAX
-``cli/_common.py``)."""
+``cli/_common.py``).
+
+Under ``--distributed`` every rank runs the same loop on replicated
+weights; checkpoint writes funnel through process 0 (``primary_host``),
+which assumes the ranks share the storage they resume from."""
 
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from ..models.convert import (GAN_KEYS, jax_gan_checkpoint_to_torch,
                               jax_variables_to_state_dict)
 from ..models.deeplab import create_deeplab
 from ..nn.generators import UnetGenerator
+from ..parallel.mesh import process_count, process_index
 
 _BLOCK_KEY = re.compile(r"layer([1-4])\.(\d+)\.conv1\.weight$")
 # numpy objects a reference .pth may carry beside its tensors (the JAX
@@ -120,6 +125,11 @@ def load_seg_checkpoint(path: str):
     Returns (state_dict, meta); meta carries the checkpoint's extra keys plus
     the architecture read from the state_dict.
     """
+    if not os.path.exists(path) and process_count() > 1:
+        raise FileNotFoundError(
+            f"checkpoint {path!r} not found on process {process_index()}: "
+            f"multi-process runs write checkpoints from process 0 only and "
+            f"resume from storage every process shares")
     if zipfile.is_zipfile(path):
         ckpt = _torch_load(path)
         if "sem_net_state_dict" in ckpt:
@@ -169,9 +179,19 @@ def _torch_load(path: str):
         return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def primary_host() -> bool:
+    """True on the process that owns the shared file system's side
+    effects: rank 0 of a multi-process job, always with one process."""
+    return process_index() == 0
+
+
 def _save_atomically(path: str, payload: dict) -> None:
     """``torch.save`` into a temporary file beside ``path``, then
-    ``os.replace``: a reader never sees a half-written checkpoint."""
+    ``os.replace``: a reader never sees a half-written checkpoint. Only
+    process 0 writes (``primary_host``): all ranks writing one path would
+    double the IO and race readers of a network file system."""
+    if not primary_host():
+        return
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
@@ -307,7 +327,8 @@ def apply_model_meta(args, meta) -> None:
 
 
 def build_deeplab(args, *, device=None):
-    """net_mode switch -> a seeded ``DeepLabV2`` on ``device``."""
+    """net_mode switch -> a seeded ``DeepLabV2`` on ``device``, its
+    backbone rematerialised as ``--remat`` says."""
     if args.net_mode == "one_channel":
         num_channels = 1
     elif args.net_mode == "three_channels":
@@ -318,4 +339,5 @@ def build_deeplab(args, *, device=None):
                           num_classes=args.num_classes,
                           num_channels=num_channels,
                           bn_clr=getattr(args, "bn_clr", False),
-                          layers=getattr(args, "layers", (3, 4, 23, 3)))
+                          layers=getattr(args, "layers", (3, 4, 23, 3)),
+                          remat=getattr(args, "remat", "none"))

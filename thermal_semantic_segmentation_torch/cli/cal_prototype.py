@@ -9,6 +9,11 @@ package's msgpack format, which its self-training reads, under
 
     python -m thermal_semantic_segmentation_torch.cli.cal_prototype \\
         -checkpoint_name s.pth -dataset freiburg_ir [--device cpu]
+
+Under ``--distributed`` each process folds its own slice of the set (the
+slices partition it), the partials merge count-weighted across the
+processes (``train/prototypes.merge_process_prototypes``), and process 0
+writes the file.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ from ..data.freiburg import Freiburg
 from ..data.loader import DataLoader
 from ..data.simple import FlirTrain
 from ..device import resolve_device
+from ..parallel.mesh import host_shard
 from ..train.prototypes import calc_prototypes
-from ._common import apply_model_meta, build_deeplab, load_seg_checkpoint
+from ._common import (apply_model_meta, build_deeplab, load_seg_checkpoint,
+                      primary_host)
 from .options import calc_proto_parse
 
 
@@ -43,7 +50,8 @@ def calc_prototype(args):
     else:
         raise ValueError("target dataset does not exist.")
     loader = DataLoader(dataset, args.batch_size, shuffle=True,
-                        drop_last=True, seed=args.seed)
+                        drop_last=True, seed=args.seed, shard=host_shard(),
+                        shard_lockstep=False)
 
     state_dict, meta = load_seg_checkpoint(
         os.path.join(args.model_root_path, args.checkpoint_name))
@@ -57,10 +65,13 @@ def calc_prototype(args):
                                          max_steps=args.max_steps,
                                          device=device, bf16=args.bf16)
     out_path = prototype_path(args.root, args.dataset, args.checkpoint_name)
-    print("saving prototypes......")
-    save_checkpoint(out_path, {"objective_vectors": prototypes,
-                               "counts": counts})
-    print(f"saved to {out_path}")
+    if primary_host():
+        print("saving prototypes......")
+        save_checkpoint(out_path, {"objective_vectors": prototypes,
+                                   "counts": counts})
+        print(f"saved to {out_path}")
+    else:
+        print(f"save delegated to process 0 ({out_path})")
     return prototypes, counts
 
 

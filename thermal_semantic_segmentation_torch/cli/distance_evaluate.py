@@ -11,7 +11,9 @@ of each segmentation class:
 
 The batches are shuffled and the last partial one dropped, as the
 reference does; the batch is clamped to the split, so a large
-``-batch_size`` never drops every pair.
+``-batch_size`` never drops every pair. Under ``--distributed`` each
+process scores its own slice of the split and the sums reduce across the
+processes; the batch is then clamped to the smallest slice.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..data.simple import DistanceDataset
 from ..device import resolve_device
 from ..eval.distance import evaluate_distance
 from ..eval.metrics import FREIBURG_CLASS_NAMES
+from ..parallel.mesh import host_shard
 from .options import str2bool, translation_parse
 
 
@@ -34,6 +37,7 @@ def distance_parse():
                              "translated into another class's intensity "
                              "range.")
     parser.add_argument("--num_classes", type=int, default=13)
+    parser.distributed = True      # the translator's stays refused
     return parser
 
 
@@ -44,12 +48,18 @@ def main(argv=None):
     dataset = DistanceDataset(args.freiburg_root, translate_name=name,
                               with_label=args.per_class)
     _, val_idx = split_indices(len(dataset), 0.2, seed=42)
-    loader = DataLoader(dataset, min(args.batch_size, max(len(val_idx), 1)),
-                        shuffle=True, indices=val_idx, drop_last=True)
+    shard = host_shard()
+    # the smallest slice (floor(n / processes)), not the split: drop_last
+    # with a larger batch would drop every pair of some process
+    n_local = len(val_idx) if shard is None else len(val_idx) // shard[1]
+    loader = DataLoader(dataset, min(args.batch_size, max(n_local, 1)),
+                        shuffle=True, indices=val_idx, drop_last=True,
+                        shard=shard, shard_lockstep=False)
     print("Model: " + name)
     if args.per_class:
         avg_l1, avg_ssim, per_class = evaluate_distance(
-            loader, num_classes=args.num_classes, device=device)
+            loader, num_classes=args.num_classes, device=device,
+            reduce_processes=shard is not None)
         # the eval protocol's class names without their "IoU " prefix;
         # index 12 is the ignore class
         names = [n.removeprefix("IoU ") for n in FREIBURG_CLASS_NAMES]
@@ -58,7 +68,8 @@ def main(argv=None):
             print(f"translation per-class L1 "
                   f"{names[k] if k < len(names) else k}: {v}")
     else:
-        avg_l1, avg_ssim = evaluate_distance(loader, device=device)
+        avg_l1, avg_ssim = evaluate_distance(
+            loader, device=device, reduce_processes=shard is not None)
     print("L1 distance: " + str(avg_l1))
     print("SSIM score: " + str(avg_ssim))
     return avg_l1, avg_ssim

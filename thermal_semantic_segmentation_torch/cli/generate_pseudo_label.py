@@ -10,7 +10,9 @@ reference ``.pth`` or a JAX msgpack checkpoint) and writes the files under
     python -m thermal_semantic_segmentation_torch.cli.generate_pseudo_label \\
         -checkpoint_name s.pth -pseudo_type soft --soft true [--device cpu]
 
-Every image is labelled, the ragged tail batch at its own size.
+Every image is labelled, the ragged tail batch at its own size. Under
+``--distributed`` each process labels its own slice of the set (the slices
+partition it) and writes that slice's files.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import os
 
 from ..data.loader import DataLoader
 from ..device import resolve_device
+from ..parallel.mesh import host_shard
 from ..train.pseudo import generate_pseudo_labels
 from ._common import (apply_model_meta, build_deeplab, build_seg_dataset,
                       load_seg_checkpoint, val_transform)
@@ -39,7 +42,8 @@ def main(argv=None):
 
     dataset = build_seg_dataset(args, val_transform())
     loader = DataLoader(dataset, args.batch_size, shuffle=False,
-                        drop_last=False, seed=args.seed)
+                        drop_last=False, seed=args.seed, shard=host_shard(),
+                        shard_lockstep=False)
     save_path = os.path.join(args.root, "pseudo_labels", args.pseudo_type,
                              args.checkpoint_name.replace(".pth", ""))
     n = generate_pseudo_labels(model, loader, save_path=save_path,

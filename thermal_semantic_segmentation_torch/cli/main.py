@@ -23,8 +23,11 @@ drive it with data of its own. A checkpoint in the reference ``.pth``
 schema is saved every ``-save_interval`` epochs and after the last;
 ``-load_model true`` resumes from ``-checkpoint_name`` (the port's
 ``.pth``, a reference one or the JAX package's msgpack) at its saved
-epoch, with fresh Adam moments, as the JAX CLI does. Preemption handling
-(the JAX ``utils/preempt.py``) is not yet ported.
+epoch, with fresh Adam moments, as the JAX CLI does. A SIGTERM or SIGINT
+stops the loop after the step in flight and writes
+``preempt_<-new_checkpoint_name>`` with the previous epoch's number, as the
+JAX CLI does (a resume from it starts at that epoch, the checkpoint's own,
+as every resume here does).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ..data.loader import DataLoader
 from ..data.simple import FlirTrain, Kitti
 from ..device import resolve_device
 from ..models.convert import GAN_KEYS
+from ..utils.preempt import GracefulShutdown, NullShutdown
 from ..models.deeplab import create_deeplab
 from ..models.factory import (deeplabv2_resnet101, deeplabv2_resnet101_thermal,
                               init_gan_net, patchgan, unet_256)
@@ -175,12 +179,17 @@ def merged_batches(src_loader, tgt_loader, with_label: bool):
         yield batch
 
 
-def gan_epochs(args, src_loader, tgt_loader):
+def gan_epochs(args, src_loader, tgt_loader, shutdown=None):
     """Train ``args.num_epoch`` epochs (from the checkpoint's epoch with
     ``-load_model``). Returns (state, history): one dict per epoch with its
     steps, source images, seconds of steps (up to a device
-    synchronisation) and each metric's value at every step."""
+    synchronisation), each metric's value at every step and whether it was
+    preempted. ``shutdown`` (a ``GracefulShutdown``) is polled before every
+    step; once requested, the loop writes ``preempt_<-new_checkpoint_name>``
+    and returns."""
     device = resolve_device(args.device or None)
+    if shutdown is None:
+        shutdown = NullShutdown()
     g_nets, d_nets = build_gan_nets(args, device)
     restart_epoch, ckpt = 0, None
     ckpt_path = os.path.join(args.gan_model_root_path, args.checkpoint_name)
@@ -226,7 +235,8 @@ def gan_epochs(args, src_loader, tgt_loader):
         n_batches = min(len(src_loader), len(tgt_loader))
         progress = ProgressMeter(n_batches, list(meters.values()),
                                  prefix=f"Epoch: [{epoch}]")
-        record = {"epoch": epoch, "steps": 0, "images": 0, "train_s": 0.0}
+        record = {"epoch": epoch, "steps": 0, "images": 0, "train_s": 0.0,
+                  "preempted": False}
         rows = []
         sync()
         start = time.perf_counter()
@@ -234,6 +244,8 @@ def gan_epochs(args, src_loader, tgt_loader):
                 merged_batches(src_loader, tgt_loader, args.sem_loss),
                 device)):
             if args.max_steps and i >= args.max_steps:
+                break
+            if shutdown.requested:
                 break
             real_s, real_t = b["real_s"], b["real_t"]
             label_s = b.get("label_s")
@@ -278,6 +290,14 @@ def gan_epochs(args, src_loader, tgt_loader):
         record["metrics"] = {k: torch.stack([r[k] for r in rows]).tolist()
                              for k in (rows[0] if rows else {})}
         history.append(record)
+        if shutdown.requested:
+            name = "preempt_" + args.new_checkpoint_name
+            save_gan_checkpoint(os.path.join(args.gan_model_root_path, name),
+                                state.g, state.d, epoch=epoch - 1)
+            print(f"[preempt] saved {name}: resume with -load_model true "
+                  f"-checkpoint_name {name}", flush=True)
+            record["preempted"] = True
+            break
 
         last = epoch == restart_epoch + args.num_epoch - 1
         if last or (epoch - restart_epoch + 1) % args.save_interval == 0:
@@ -289,14 +309,15 @@ def gan_epochs(args, src_loader, tgt_loader):
     return state, history
 
 
-def gan_main(args):
-    return gan_epochs(args, *make_loaders(args))
+def gan_main(args, shutdown=None):
+    return gan_epochs(args, *make_loaders(args), shutdown=shutdown)
 
 
 def main(argv=None):
     args = train_parse().parse_args(argv)
     resolve_device(args.device or None)   # no card and no --device: raise
-    return gan_main(args)
+    with GracefulShutdown() as shutdown:
+        return gan_main(args, shutdown=shutdown)
 
 
 if __name__ == "__main__":

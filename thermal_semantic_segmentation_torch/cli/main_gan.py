@@ -8,6 +8,7 @@ loop with the cycle off, one generator and one discriminator.
 from __future__ import annotations
 
 from ..device import resolve_device
+from ..utils.preempt import GracefulShutdown
 from .main import gan_main
 from .options import train_parse
 
@@ -16,7 +17,8 @@ def main(argv=None):
     args = train_parse().parse_args(argv)
     args.cycle = False
     resolve_device(args.device or None)   # no card and no --device: raise
-    return gan_main(args)
+    with GracefulShutdown() as shutdown:
+        return gan_main(args, shutdown=shutdown)
 
 
 if __name__ == "__main__":

@@ -14,32 +14,46 @@ import argparse
 # flag and a test of its value that is true when the mode is asked for
 NOT_YET_PORTED = {
     "data_parallel": bool,
-    "distributed": bool,
     "native_decode": bool,
     "native_encode": bool,
     "wire": lambda v: v == "packed_bf16",
     "decode_cache_mb": bool,
     "decode_cache_dir": bool,
     "device_aug": bool,
-    "bn_mode": lambda v: v == "per_replica",
-    "remat": lambda v: v != "none",
 }
 
 
 class HostConfigParser(argparse.ArgumentParser):
     """ArgumentParser that applies host-side settings at parse time: a flag
     of ``NOT_YET_PORTED`` set to one of its refused values is an error, so
-    no command line runs a different configuration than it asked for."""
+    no command line runs a different configuration than it asked for.
+
+    ``--distributed true`` joins the job's process group here, before any
+    device use, as the JAX parser calls ``jax.distributed.initialize``
+    (``parallel/mesh.init_distributed``: NCCL on the card, gloo with
+    ``--device cpu``). An entry point whose multi-process path is not yet
+    ported builds its parser with ``distributed=False`` and refuses it."""
+
+    def __init__(self, *a, distributed: bool = True, **kw):
+        super().__init__(*a, **kw)
+        self.distributed = distributed
 
     def parse_args(self, *a, **kw):  # type: ignore[override]
         args = super().parse_args(*a, **kw)
-        for flag, refused in NOT_YET_PORTED.items():
+        refused = dict(NOT_YET_PORTED)
+        if not self.distributed:
+            refused["distributed"] = bool
+        for flag, test in refused.items():
             value = getattr(args, flag, None)
-            if value is not None and refused(value):
+            if value is not None and test(value):
                 option = next(a.option_strings[0] for a in self._actions
                               if a.dest == flag)
                 self.error(f"{option} {value} is not yet ported to the "
                            f"PyTorch package (see ROADMAP.md)")
+        if getattr(args, "distributed", False):
+            from ..parallel.mesh import init_distributed
+            init_distributed(args.coordinator_address, args.num_processes,
+                             args.process_id, device=args.device or None)
         return args
 
 
@@ -86,8 +100,11 @@ def _add_roots(parser: argparse.ArgumentParser):
                         help='not yet ported: refused when set.')
     parser.add_argument('--remat', type=str, default='none',
                         choices=['none', 'dots', 'full'],
-                        help='backbone rematerialization: only none is '
-                             'ported; dots and full are refused.')
+                        help='backbone rematerialization in the backward '
+                             'pass: none (default), dots (keep only the '
+                             'convolution outputs), full (keep only block '
+                             'inputs). Entry points that train no DeepLab '
+                             'accept it and ignore it, as the JAX ones do.')
     parser.add_argument('--layers', type=lambda s: tuple(
                             int(x) for x in s.split(',')),
                         default=(3, 4, 23, 3),
@@ -97,14 +114,28 @@ def _add_roots(parser: argparse.ArgumentParser):
     parser.add_argument('--data_parallel', type=str2bool, default=False,
                         help='not yet ported: refused when true.')
     parser.add_argument('--distributed', type=str2bool, default=False,
-                        help='not yet ported: refused when true.')
+                        help='join a multi-process job at parse time, one '
+                             'process per card (NCCL; gloo with --device '
+                             'cpu): trainers shard their data per process '
+                             'and train data-parallel, offline CLIs '
+                             'partition their datasets. From torchrun\'s '
+                             'environment, or --coordinator_address/'
+                             '--num_processes/--process_id.')
+    parser.add_argument('--coordinator_address', type=str, default='',
+                        help='with --distributed: "host:port" of process 0 '
+                             '(empty = torchrun\'s environment, env://).')
+    parser.add_argument('--num_processes', type=int, default=None,
+                        help='with --distributed: the number of processes.')
+    parser.add_argument('--process_id', type=int, default=None,
+                        help='with --distributed: this process\'s rank.')
     parser.add_argument('--seed', type=int, default=0)
 
 
 def train_parse():
     """GAN translation training options (reference options.py:4-24, with
     the JAX package's additions)."""
-    parser = HostConfigParser(description='train options')
+    parser = HostConfigParser(description='train options',
+                              distributed=False)
     parser.add_argument('-batch_size', type=int, default=4)
     parser.add_argument('-sem_loss', type=str2bool, default=False)
     parser.add_argument('-load_model', type=str2bool, default=False)
@@ -163,7 +194,8 @@ def train_parse():
 
 def translation_parse():
     """Offline translator options (reference options.py:27-48)."""
-    parser = HostConfigParser(description='translation options')
+    parser = HostConfigParser(description='translation options',
+                              distributed=False)
     parser.add_argument('--root', type=str, default='')
     parser.add_argument('-dataset', type=str, default='Cityscapes')
     parser.add_argument('-batch_size', type=int, default=1)
@@ -223,8 +255,12 @@ def seg_parse():
                         help='1x backbone / 10x head LR split.')
     parser.add_argument('-bn_mode', type=str, default='sync',
                         choices=['sync', 'per_replica'],
-                        help="batch-norm statistics: 'sync' (the one card's "
-                             "batch); 'per_replica' is not yet ported.")
+                        help="batch-norm statistics under --distributed: "
+                             "'sync' (the global batch's: the step is the "
+                             "one-process step on the ranks' batches put "
+                             "together) or 'per_replica' (each rank's own; "
+                             "the running statistics averaged after each "
+                             "step).")
     parser.add_argument('-grad_accum', type=int, default=1,
                         help='microbatches per optimizer step (grads '
                              'averaged, BN statistics in sequence).')
@@ -304,7 +340,7 @@ def self_train_parse():
     """Self-training options (reference self_train_main.py:145-181), with
     the two the JAX ``cli/self_train_main.main`` adds:
     ``--initial_best_miou`` and ``--early_stop_patience``."""
-    parser = HostConfigParser(description="config")
+    parser = HostConfigParser(description="config", distributed=False)
     parser.add_argument('--root', type=str, default='')
     parser.add_argument('--resize', type=int, default=1200)
     parser.add_argument('--rcrop', type=int, nargs=2, default=[512, 256])

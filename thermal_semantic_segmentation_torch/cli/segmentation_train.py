@@ -12,8 +12,20 @@ val loss's weights saved in the reference ``.pth`` schema:
 ``train_epochs`` is the epoch loop; it takes its loaders, so a caller can
 drive it with data of its own. Validation goes through ``seg_validate``, so
 the CUDA ``upsample_argmax`` kernel gives every validation batch's
-predictions. Preemption handling (the JAX ``utils/preempt.py``) is not yet
-ported.
+predictions.
+
+Under ``--distributed`` (one process per card; ``torchrun`` or the
+``--coordinator_address`` flags) each rank trains on its ``host_shard`` of
+every epoch under ``DistributedDataParallel`` (``-bn_mode sync`` or
+``per_replica``, ``train/seg.py``), validates the whole split itself, and
+process 0 writes the checkpoints. A SIGTERM or SIGINT on any rank stops
+every rank after the step in flight, and process 0 writes
+``preempt_<-new_checkpoint_name>``, which ``-load_model true`` resumes
+(the interrupted epoch is redone):
+
+    torchrun --nproc_per_node 4 -m \
+        thermal_semantic_segmentation_torch.cli.segmentation_train \
+        -dataset freiburg_ir --distributed true
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..core.schedule import ReduceLROnPlateau
 from ..data.device_pipeline import device_prefetch
@@ -29,26 +42,30 @@ from ..data.freiburg import FreiburgTest
 from ..data.loader import DataLoader, split_indices
 from ..device import resolve_device
 from ..eval.validate import seg_validate
+from ..parallel.mesh import host_shard, make_mesh, process_index
 from ..train.seg import (build_seg_eval_step, create_seg_state,
                          make_seg_train_step)
 from ..utils.logging import get_logger
 from ..utils.meters import AverageMeter, ProgressMeter
 from ..utils.observability import MetricsLogger
+from ..utils.preempt import GracefulShutdown, NullShutdown, cross_process
 from ._common import (apply_model_meta, build_deeplab, build_seg_dataset,
-                      load_seg_checkpoint, save_seg_checkpoint,
+                      load_seg_checkpoint, primary_host, save_seg_checkpoint,
                       train_transform, val_transform)
 from .options import seg_parse
 
 
 def make_loaders(args, source_dataset, target_val_dataset):
     """(train, source val, target val) loaders: the seed-42 80/20 split;
-    train shuffled with ``drop_last``; source val through the train
-    dataset, so through its augmenting transform, as the reference does
-    (segmentation_train.py:143); the target test split in order."""
+    train shuffled with ``drop_last``, each process on its ``host_shard``
+    (in lockstep); source val through the train dataset, so through its
+    augmenting transform, as the reference does (segmentation_train.py:143);
+    the target test split in order. Every process validates the whole of
+    both splits."""
     train_idx, val_idx = split_indices(len(source_dataset), 0.2, seed=42)
     train_loader = DataLoader(source_dataset, args.batch_size, shuffle=True,
                               indices=train_idx, drop_last=True,
-                              seed=args.seed)
+                              seed=args.seed, shard=host_shard())
     val_loader = DataLoader(source_dataset, args.val_batch_size,
                             shuffle=True, indices=val_idx, drop_last=False,
                             seed=args.seed + 1)
@@ -58,14 +75,26 @@ def make_loaders(args, source_dataset, target_val_dataset):
     return train_loader, val_loader, target_val_loader
 
 
-def train_epochs(args, logger, train_loader, val_loader, target_val_loader):
+def train_epochs(args, logger, train_loader, val_loader, target_val_loader,
+                 shutdown=None):
     """Train ``args.epochs`` epochs (from the checkpoint's epoch + 1 with
     ``-load_model``), validating after each. Returns (state, history):
     one dict per epoch with its train images, seconds (up to a device
     synchronisation) and step losses, its source-val loss, the lr scale
     the scheduler set and the scheduler's step count, and whether the
-    checkpoint was saved."""
+    checkpoint was saved.
+
+    In a process group (``--distributed``) the step runs under DDP on
+    ``make_mesh``'s ranks. ``shutdown`` (a ``GracefulShutdown``), polled
+    before every step and agreed across the ranks: once requested, the
+    loop stops, ``preempt_<-new_checkpoint_name>`` is written with the
+    previous epoch's number (resuming redoes this one), and the last
+    record has ``preempted`` set and no validation."""
     device = resolve_device(args.device or None)
+    shutdown = cross_process(shutdown if shutdown is not None
+                             else NullShutdown())
+    mesh = (make_mesh(device, batch_size=args.batch_size)
+            if dist.is_initialized() else None)
     restart_epoch = 0
     lowest_val_loss = float("inf")
     if args.load_model:
@@ -87,8 +116,8 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader):
     train_step = make_seg_train_step(
         ignore_index=args.ignore_index, label_hw=(256, 512), base_lr=args.lr,
         dropout_seed=args.seed, device_augment=args.device_aug,
-        bn_mode=args.bn_mode, grad_accum=args.grad_accum, bf16=args.bf16,
-        device=device)
+        bn_mode=args.bn_mode, mesh=mesh, grad_accum=args.grad_accum,
+        bf16=args.bf16, device=device)
     eval_step = build_seg_eval_step(num_classes=args.num_classes,
                                     ignore_index=args.ignore_index,
                                     device=device, bf16=args.bf16)
@@ -108,6 +137,8 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader):
         n_images, losses = 0, []
         for i, batch in enumerate(device_prefetch(train_loader, device)):
             if args.max_steps and i >= args.max_steps:
+                break
+            if shutdown.requested:
                 break
             loss = train_step(state, batch["image"], batch["label"])
             losses.append(loss)
@@ -129,7 +160,24 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader):
         record = {"epoch": epoch, "train_images": n_images,
                   "train_s": time.perf_counter() - start,
                   "train_losses": (torch.stack(losses).tolist() if losses
-                                   else [])}
+                                   else []),
+                  "preempted": False}
+        if shutdown.requested:
+            # the grace window is short: save and leave, no validation
+            name = "preempt_" + args.new_checkpoint_name
+            save_seg_checkpoint(os.path.join(args.model_root_path, name),
+                                state.model.state_dict(), epoch=epoch - 1,
+                                val_loss=lowest_val_loss)
+            wrote = (f"saved {name}" if primary_host() else
+                     f"save delegated to process 0 (rank {process_index()} "
+                     f"exiting)")
+            msg = (f"preempted (signal {shutdown.signum}) during epoch "
+                   f"{epoch}; {wrote}: resume with -load_model true "
+                   f"-checkpoint_name {name}")
+            print(msg); logger.info(msg)
+            record["preempted"] = True
+            history.append(record)
+            break
 
         mean_iu, val_loss, class_iou = seg_validate(
             state.model, val_loader, num_classes=args.num_classes,
@@ -141,8 +189,10 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader):
                       saved=val_loss < lowest_val_loss)
 
         if val_loss < lowest_val_loss:
+            verb = ("Saving..." if primary_host()
+                    else "Save delegated to process 0.")
             msg = (f"val loss reduced from {lowest_val_loss} to {val_loss}! "
-                   f"Saving...")
+                   f"{verb}")
             lowest_val_loss = val_loss
             save_seg_checkpoint(
                 os.path.join(args.model_root_path, args.new_checkpoint_name),
@@ -176,7 +226,7 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader):
     return state, history
 
 
-def seg_main(args, logger):
+def seg_main(args, logger, shutdown=None):
     source_dataset = build_seg_dataset(args, train_transform())
     target_val_dataset = FreiburgTest(args.freiburg_root, "test", "IR",
                                       transforms=val_transform(),
@@ -186,7 +236,8 @@ def seg_main(args, logger):
                 args.translation_name)
     return train_epochs(args, logger,
                         *make_loaders(args, source_dataset,
-                                      target_val_dataset))
+                                      target_val_dataset),
+                        shutdown=shutdown)
 
 
 def main(argv=None):
@@ -195,7 +246,8 @@ def main(argv=None):
     args.logdir = os.path.join("logs",
                                args.new_checkpoint_name.replace(".pth", ""))
     os.makedirs(args.logdir, exist_ok=True)
-    return seg_main(args, get_logger(args.logdir))
+    with GracefulShutdown() as shutdown:
+        return seg_main(args, get_logger(args.logdir), shutdown=shutdown)
 
 
 if __name__ == "__main__":

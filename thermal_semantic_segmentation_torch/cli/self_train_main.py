@@ -14,8 +14,11 @@ saving ``best``/``last`` checkpoints with the moving prototypes:
 can drive it with data of its own. Validation goes through ``seg_validate``
 (each tail batch at its own size), so the CUDA ``upsample_argmax`` kernel
 gives every validation batch's predictions, as it gives the teacher's
-classes for the moving prototypes in each step. Preemption handling (the
-JAX ``utils/preempt.py``) is not yet ported.
+classes for the moving prototypes in each step. A SIGTERM or SIGINT stops
+the loop after the step in flight and writes
+``preempt_<-new_checkpoint_name>`` (the moving prototypes included), which
+``--load_model true -checkpoint_name preempt_<name>`` resumes, the
+interrupted epoch redone.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..train.seg import build_seg_eval_step
 from ..train.self_train import create_self_train_state, make_self_train_step
 from ..utils.logging import get_logger
 from ..utils.meters import AverageMeter, ProgressMeter
+from ..utils.preempt import GracefulShutdown, NullShutdown
 from ._common import (apply_model_meta, build_deeplab, load_seg_checkpoint,
                       save_seg_checkpoint, train_transform, val_transform)
 from .cal_prototype import prototype_path
@@ -80,14 +84,20 @@ def merged_batches(tgt_loader, src_loader):
         yield batch
 
 
-def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader):
+def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader,
+                      shutdown=None):
     """Self-train ``args.epochs`` epochs (from the checkpoint's epoch + 1
     with ``--load_model``). Returns (state, history): one dict per epoch
     with its steps, target images, seconds of steps (validation excluded,
     up to a device synchronisation), step losses as (pseudo, source)
     pairs, its validations (step, mean_iu, val_loss, lr_scale, saved), the
-    best mean_iu at its start and end, and whether it stopped early."""
+    best mean_iu at its start and end, and whether it stopped early or
+    was preempted. ``shutdown`` (a ``GracefulShutdown``) is polled before
+    every step; once requested, ``preempt_<-new_checkpoint_name>`` is
+    written with the previous epoch's number and the loop returns."""
     device = resolve_device(args.device or None)
+    if shutdown is None:
+        shutdown = NullShutdown()
     restart_epoch, meta = 0, {}
     if args.load_model:
         path = os.path.join(args.model_root_path, args.checkpoint_name)
@@ -156,13 +166,16 @@ def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader):
                                  prefix=f"Epoch: [{epoch}]")
         record = {"epoch": epoch, "steps": 0, "target_images": 0,
                   "train_s": 0.0, "losses": [], "validations": [],
-                  "best_at_start": highest_mean_iu, "stopped_early": False}
+                  "best_at_start": highest_mean_iu, "stopped_early": False,
+                  "preempted": False}
         history.append(record)
         losses = []
         start = time.perf_counter()
         for i, b in enumerate(device_prefetch(
                 merged_batches(tgt_loader, src_loader), device)):
             if args.max_steps and i >= args.max_steps:
+                break
+            if shutdown.requested:
                 break
             loss_pseudo, loss_source = step(
                 state, b["s_image"], b["s_label"], b["t_image"], b["t_full"],
@@ -220,14 +233,27 @@ def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader):
             record["train_s"] += time.perf_counter() - start
         record["losses"] = (torch.stack(losses).tolist() if losses else [])
         record["best_at_end"] = highest_mean_iu
+        if shutdown.requested:
+            save("preempt_", epoch - 1)
+            msg = (f"preempted (signal {shutdown.signum}) during epoch "
+                   f"{epoch}; saved preempt_{args.new_checkpoint_name}: "
+                   f"resume with --load_model true -checkpoint_name "
+                   f"preempt_{args.new_checkpoint_name} --path_soft "
+                   f"{args.path_soft} --path_lp {args.path_lp} (the "
+                   f"pseudo-label paths otherwise follow the new "
+                   f"checkpoint's name)")
+            print(msg); logger.info(msg)
+            record["preempted"] = True
+            break
         save("last", epoch)
         if record["stopped_early"]:
             break
     return state, history
 
 
-def self_train_main(args, logger):
-    return self_train_epochs(args, logger, *make_loaders(args))
+def self_train_main(args, logger, shutdown=None):
+    return self_train_epochs(args, logger, *make_loaders(args),
+                             shutdown=shutdown)
 
 
 def main(argv=None):
@@ -242,7 +268,9 @@ def main(argv=None):
     args.logdir = os.path.join("logs", "self-training",
                                args.new_checkpoint_name.replace(".pth", ""))
     os.makedirs(args.logdir, exist_ok=True)
-    return self_train_main(args, get_logger(args.logdir))
+    with GracefulShutdown() as shutdown:
+        return self_train_main(args, get_logger(args.logdir),
+                               shutdown=shutdown)
 
 
 if __name__ == "__main__":

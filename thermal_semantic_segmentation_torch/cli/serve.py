@@ -34,7 +34,8 @@ from ..serving.endpoints import make_handler
 
 def serve_parse():
     from .options import HostConfigParser, _add_roots
-    parser = HostConfigParser(description="segmentation inference server")
+    parser = HostConfigParser(description="segmentation inference server",
+                              distributed=False)
     parser.add_argument("--kind", type=str, default="seg",
                         choices=["seg", "translator"],
                         help="'seg': POST /segment[_stream] class maps; "

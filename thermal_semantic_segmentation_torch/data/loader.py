@@ -5,7 +5,8 @@ A thread-pool loader: per-sample deterministic RNG (seed, epoch, index),
 numpy collation, optional subset sampling (the reference's 80/20 split), and
 batches decoded ahead so host decode overlaps device compute. The same
 streams and shuffle order as the JAX package, so a split scores the same
-images in the same order. Per-process sharding comes with multi-GPU.
+images in the same order. ``shard`` gives each process its slice of every
+epoch (``parallel/mesh.host_shard``).
 """
 
 from __future__ import annotations
@@ -43,19 +44,32 @@ def split_indices(n: int, validation_split: float = 0.2, seed: int = 42):
 
 class DataLoader:
     """Iterates ``dataset`` (``len`` and ``get(index, rng)``) in batches of
-    collated dicts; each iteration is one epoch."""
+    collated dicts; each iteration is one epoch.
+
+    ``shard=(r, n)``: process ``r`` of ``n`` takes ``order[r::n]`` of the
+    (shuffled) epoch order, as the JAX loader does. With ``shard_lockstep``
+    (the trainers') every slice is cut to ``len // n``, so the processes
+    run the same number of batches and meet at every collective; without
+    it (the offline CLIs, whose processes meet only after their loops) the
+    slices partition the set exactly."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  indices: Optional[Sequence[int]] = None,
                  drop_last: bool = True, seed: int = 0, num_threads: int = 8,
                  collate: Callable = default_collate, prefetch: int = 2,
-                 corrupt_retries: int = 4):
+                 corrupt_retries: int = 4, shard: Optional[tuple] = None,
+                 shard_lockstep: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.indices = (list(indices) if indices is not None
                         else list(range(len(dataset))))
         self.drop_last = drop_last
+        self.shard = tuple(shard) if shard else None
+        self.shard_lockstep = shard_lockstep
+        if self.shard is not None and not 0 <= self.shard[0] < self.shard[1]:
+            raise ValueError(f"shard {self.shard} is not (r, n) with "
+                             f"0 <= r < n")
         self.seed = seed
         self.num_threads = num_threads
         self.collate = collate
@@ -67,12 +81,20 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.indices)
+        if self.shard is not None:
+            sid, nsh = self.shard
+            n = n // nsh if self.shard_lockstep else -(-(n - sid) // nsh)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batches(self):
         order = list(self.indices)
         if self.shuffle:
             host_rng(self.seed, self.epoch).shuffle(order)
+        if self.shard is not None:
+            sid, nsh = self.shard
+            order = order[sid::nsh]
+            if self.shard_lockstep:
+                order = order[:len(self.indices) // nsh]
         bs = self.batch_size
         limit = len(order) - (len(order) % bs) if self.drop_last else len(order)
         for start in range(0, limit, bs):

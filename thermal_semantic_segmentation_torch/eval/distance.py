@@ -21,6 +21,7 @@ import torch
 from ..data.device_pipeline import device_prefetch
 from ..device import resolve_device
 from ..ops.ssim import ssim
+from ..parallel import mesh as pmesh
 from ..utils.meters import AverageMeter
 
 
@@ -62,12 +63,13 @@ def evaluate_distance(loader, *, num_classes: Optional[int] = None,
     of the batches' means, as the reference computes it, so it depends on
     how the loader groups the samples. Nothing evaluated gives nan, never
     a perfect-looking 0. ``device``: default the CUDA device (raises
-    without one). ``reduce_processes`` (the multi-process reduction) is
-    not yet ported."""
-    if reduce_processes:
-        raise NotImplementedError(
-            "evaluate_distance(reduce_processes=True) is multi-GPU and not "
-            "yet ported to the PyTorch package (see ROADMAP.md)")
+    without one).
+
+    ``reduce_processes``: set when each process scored its own shard
+    (``DataLoader(shard=host_shard(), shard_lockstep=False)``): the L1
+    sums and counts, SSIM sums and batch counts and the per-class sums
+    and counts are summed across the processes after the loop, and every
+    process returns the global scores; an empty shard adds nothing."""
     device = resolve_device(device)
     distances = AverageMeter("distance", ":3.4f")
     ssim_sum, ssim_n = 0.0, 0
@@ -85,10 +87,17 @@ def evaluate_distance(loader, *, num_classes: Optional[int] = None,
                                              num_classes)
             cls_sums += sums
             cls_counts += counts
-    # nan, not 0, when nothing was evaluated: an empty split must never
-    # read as a perfect translation score
-    avg_l1 = float(distances.sum / distances.count) if distances.count \
-        else float("nan")
+    l1_sum, l1_n = distances.sum, distances.count
+    if reduce_processes and pmesh.process_count() > 1:
+        stats = pmesh.all_reduce(torch.cat([
+            torch.tensor([float(l1_sum), l1_n, float(ssim_sum), ssim_n],
+                         dtype=torch.float64, device=device),
+            cls_sums, cls_counts.double()]))
+        l1_sum, l1_n, ssim_sum, ssim_n = stats[:4].tolist()
+        cls_sums, cls_counts = stats[4:4 + k], stats[4 + k:].long()
+    # nan, not 0, when nothing was evaluated: an empty split or shard must
+    # never read as a perfect translation score
+    avg_l1 = float(l1_sum / l1_n) if l1_n else float("nan")
     avg_ssim = float(ssim_sum / ssim_n) if ssim_n else float("nan")
     if num_classes is None:
         return avg_l1, avg_ssim

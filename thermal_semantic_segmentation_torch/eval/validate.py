@@ -27,6 +27,7 @@ from ..data.device_pipeline import device_prefetch
 from ..data.palette import colorize_prediction, freiburg_palette
 from ..data.png import write_gray_png, write_rgb_png
 from ..device import resolve_device
+from ..parallel import mesh as pmesh
 from ..train.seg import build_seg_eval_step
 from .metrics import scores_from_hist
 
@@ -44,13 +45,19 @@ def seg_validate(model, loader, *, num_classes: int = 13,
     'save_one' (the reference's flag values). ``eval_step``: a prebuilt
     ``build_seg_eval_step`` step. ``val_loss`` is the mean of the batches'
     mean CE weighted by their image counts, as in the JAX package.
-    ``mesh`` and ``reduce_processes`` (multi-GPU evaluation) are not yet
-    ported.
+
+    ``reduce_processes``: set when each process scored its own shard of
+    the set (``DataLoader(shard=host_shard(), shard_lockstep=False)``):
+    the confusion matrices, loss sums and image counts are summed across
+    the processes after the loop (the shards may hold different numbers of
+    batches), and every process returns the global scores. Leave it off
+    when each process scores the whole set (the trainers' validation).
+    ``mesh`` (one process over several cards) is not yet ported.
     """
-    if mesh is not None or reduce_processes:
+    if mesh is not None:
         raise NotImplementedError(
-            "multi-GPU evaluation (mesh, reduce_processes) is not yet ported "
-            "to the PyTorch package (see ROADMAP.md)")
+            "mesh (one process over several cards) is not yet ported to "
+            "the PyTorch package (see ROADMAP.md)")
     device = resolve_device(device)
     if eval_step is None:
         eval_step = build_seg_eval_step(num_classes=num_classes,
@@ -85,6 +92,12 @@ def seg_validate(model, loader, *, num_classes: int = 13,
                 else:
                     write_rgb_png(path, img8)
 
+    if reduce_processes and pmesh.process_count() > 1:
+        hist = pmesh.all_reduce(hist)
+        totals = pmesh.all_reduce(torch.stack(
+            [loss_sum, torch.tensor(float(n_seen), dtype=torch.float64,
+                                    device=device)]))
+        loss_sum, n_seen = totals[0], int(totals[1])
     scores = scores_from_hist(hist.cpu().numpy())
     val_loss = float(loss_sum) / max(n_seen, 1)
     return scores.mean_iu, val_loss, scores.cls_iu

@@ -25,6 +25,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     out-of-range labels (on a CUDA tensor a 255 trips a device assert) nor
     returns 0 for an all-ignored batch.
     """
+    nll_sum, count = cross_entropy_terms(logits, labels,
+                                         ignore_index=ignore_index)
+    return nll_sum / count.clamp_min(1)
+
+
+def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor, *,
+                        ignore_index: int = 255):
+    """(sum of the NLL over the valid pixels, their count as an int64
+    tensor): ``cross_entropy``'s numerator and denominator, for a loss
+    normalised by a count over several processes' batches."""
     num_classes = logits.shape[-1]
     labels = labels.long()
     valid = (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
@@ -32,7 +42,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     picked = torch.where(valid, labels, 0).unsqueeze(-1)
     nll = -logp.gather(-1, picked).squeeze(-1)
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum(), valid.sum()
 
 
 def reverse_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,

@@ -33,12 +33,13 @@ class DeepLabV2(ResNetBackbone):
 
     def __init__(self, num_classes: int = 13, num_channels: int = 3,
                  head: str = "module2", bn_clr: bool = False,
-                 layers: Sequence[int] = (3, 4, 23, 3)):
+                 layers: Sequence[int] = (3, 4, 23, 3), remat: str = "none"):
         if head != "module2":
             raise ValueError(f"DeepLabV2 carries the module2 head, not "
                              f"{head!r} (the legacy head is LegacyDeepLabV2; "
                              f"create_deeplab builds either)")
-        super().__init__(layers=layers, num_channels=num_channels)
+        super().__init__(layers=layers, num_channels=num_channels,
+                         remat=remat)
         self.bn_pretrain = BatchNorm2d(2048, eps=BN_EPS) if bn_clr else None
         self.layer5 = ASPPModule2(2048, num_classes)
 
@@ -64,10 +65,10 @@ class LegacyDeepLabV2(nn.Module):
     the 2048-channel backbone feature, as in the JAX model."""
 
     def __init__(self, num_classes: int = 19, num_channels: int = 3,
-                 layers: Sequence[int] = (3, 4, 23, 3)):
+                 layers: Sequence[int] = (3, 4, 23, 3), remat: str = "none"):
         super().__init__()
         self.backbone = ResNetBackbone(layers=layers,
-                                       num_channels=num_channels)
+                                       num_channels=num_channels, remat=remat)
         self.classifier = ASPPLegacy(2048, num_classes)
 
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -84,11 +85,19 @@ class LegacyDeepLabV2(nn.Module):
 def create_deeplab(seed=0, *, device=None, num_classes: int = 13,
                    num_channels: int = 1, head: str = "module2",
                    bn_clr: bool = False,
-                   layers: Sequence[int] = (3, 4, 23, 3)) -> nn.Module:
+                   layers: Sequence[int] = (3, 4, 23, 3),
+                   remat: str = "none", freeze_bn: bool = False) -> nn.Module:
     """Build the model of ``head`` ('module2': ``DeepLabV2``, 'legacy':
     ``LegacyDeepLabV2``) with weights drawn from ``seed`` (an int or a
     ``torch.Generator``), in eval mode, channels_last, on ``device``
-    (default: the CUDA device; raises without one)."""
+    (default: the CUDA device; raises without one).
+
+    ``remat`` ('none', 'dots', 'full') rematerialises the backbone's
+    blocks in the backward pass (``nn/resnet.py``). ``freeze_bn=True`` is
+    the reference's ``freeze_bn_func`` and the JAX ``FrozenBNModel``: every
+    BatchNorm's weight and bias gets no gradient (so no optimizer moves
+    it), while its running statistics still move and a train-mode forward
+    still normalises with the batch's statistics (no ``eval()``)."""
     dev = resolve_device(device)
     generator = seed if isinstance(seed, torch.Generator) else \
         torch.Generator().manual_seed(int(seed))
@@ -97,12 +106,25 @@ def create_deeplab(seed=0, *, device=None, num_classes: int = 13,
             raise ValueError("bn_clr is an option of the module2 head")
         model = LegacyDeepLabV2(num_classes=num_classes,
                                 num_channels=num_channels,
-                                layers=tuple(layers))
+                                layers=tuple(layers), remat=remat)
     else:
         model = DeepLabV2(num_classes=num_classes, num_channels=num_channels,
-                          head=head, bn_clr=bn_clr, layers=tuple(layers))
+                          head=head, bn_clr=bn_clr, layers=tuple(layers),
+                          remat=remat)
     model.init_weights_(generator)   # on the CPU: the same weights anywhere
+    if freeze_bn:
+        freeze_batchnorm_affine(model)
     return model.to(device=dev, memory_format=torch.channels_last).eval()
+
+
+def freeze_batchnorm_affine(model: nn.Module) -> None:
+    """No gradient for any BatchNorm's weight and bias (the GroupNorms of
+    the head keep theirs, as the JAX mask selects the modules that own
+    batch statistics)."""
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d) and m.affine:
+            m.weight.requires_grad_(False)
+            m.bias.requires_grad_(False)
 
 
 HEAD_MODULES = ("layer5", "bn_pretrain")

@@ -6,15 +6,28 @@ layers 3/4 (output stride 8). The stem is the plain 7x7 stride-2 conv; the
 JAX package's space-to-depth rewrite of it exists only for the TPU.
 Submodule names give the reference state_dict keys
 (``layerS.B.{conv,bn}k``, ``layerS.B.downsample.{0,1}``).
+
+``remat`` rematerialises the bottleneck blocks in the backward pass, as the
+JAX backbone's ``remat`` does: 'none' keeps every activation; 'dots' keeps
+the convolution outputs and recomputes BatchNorm and ReLU (the selective
+checkpoint policy that is ``jax.checkpoint_policies.dots_saveable``);
+'full' keeps only each block's input and recomputes the block. A
+recomputed BatchNorm normalises as the first pass did and folds nothing
+into its running statistics: flax's remat is functional and folds them
+once a step, and so does this.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.pool import ceil_max_pool
 
@@ -24,32 +37,124 @@ CONV_STD = 0.01
 STAGES = ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4))
 
 
+REMAT_MODES = ("none", "dots", "full")
+# the ops whose outputs 'dots' keeps: the convolutions and matmuls
+_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+# > 0 while a checkpointed block recomputes its forward in the backward pass
+_recomputing = 0
+
+
+@contextlib.contextmanager
+def _recompute(inner):
+    """``inner`` (the checkpoint's recomputation context), with the
+    BatchNorm buffer updates switched off inside it."""
+    global _recomputing
+    _recomputing += 1
+    try:
+        with inner:
+            yield
+    finally:
+        _recomputing -= 1
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_contexts(remat: str):
+    """``checkpoint``'s ``context_fn`` for ``remat``: (the first pass's
+    context, the recomputation's)."""
+    if remat == "dots":
+        first, again = create_selective_checkpoint_contexts(_dots_saveable)
+    else:
+        first, again = contextlib.nullcontext(), contextlib.nullcontext()
+    return first, _recompute(again)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over ``group``'s ranks; its gradient is the sum of
+    the ranks' gradients (every rank's loss depends on every rank's
+    ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose running variance follows flax's
     ``nn.BatchNorm``: a train-mode forward folds the BIASED batch variance
     into ``running_var`` (torch folds the unbiased one, n/(n-1) larger).
 
     The normalisation stays ``F.batch_norm``'s (cuDNN on the card). It
-    folds into a copy of the C old values, which autograd keeps, and the
-    buffer then gets ``(1-m) * old + (copy - (1-m) * old) * (n-1)/n``: O(C)
-    work. The state_dict keys are ``nn.BatchNorm2d``'s. With
-    ``track_running_stats`` set False, a train-mode forward normalises with
-    the batch's statistics and leaves every buffer as it was.
+    folds into copies of the 2C old values, which autograd keeps; the
+    buffers then get the mean's copy and
+    ``(1-m) * old + (copy - (1-m) * old) * (n-1)/n``: O(C) work. The
+    state_dict keys are ``nn.BatchNorm2d``'s. With ``track_running_stats``
+    set False, a train-mode forward normalises with the batch's statistics
+    and leaves every buffer as it was. A forward recomputed by a
+    checkpointed block (``remat``) updates no buffer.
+
+    ``sync_group``, set by the train step in its 'sync' mode, is a process
+    group whose ranks' batches are normalised as one: the per-channel sums,
+    sums of squares and counts are all-reduced (differentiably), and the
+    biased global variance ``E[x^2] - E[x]^2`` is used and folded, as flax
+    computes it over the global batch. With one rank it changes nothing.
     """
+
+    sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        self.num_batches_tracked.add_(1)
+        group = self.sync_group
+        if group is not None and dist.get_world_size(group) > 1:
+            return self._synchronised(x, group)
         m = self.momentum
+        mean = self.running_mean.clone()
         folded = self.running_var.clone()
-        y = F.batch_norm(x, self.running_mean, folded, self.weight, self.bias,
-                         True, m, self.eps)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.running_var.mul_(1.0 - m).add_(
-                (folded - self.running_var) * ((n - 1) / n))
+        y = F.batch_norm(x, mean, folded, self.weight, self.bias, True, m,
+                         self.eps)
+        if not _recomputing:
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                self.running_mean.copy_(mean)
+                self.running_var.mul_(1.0 - m).add_(
+                    (folded - self.running_var) * ((n - 1) / n))
         return y
+
+    def _synchronised(self, x: torch.Tensor, group) -> torch.Tensor:
+        c = x.shape[1]
+        xf = x.float()
+        local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        total = _AllReduceSum.apply(local, group)
+        n = total[-1]
+        mean = total[:c] / n
+        var = (total[c:2 * c] / n - mean * mean).clamp_min(0.0)
+        shape = (1, c, 1, 1)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        if self.weight is not None:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        if not _recomputing:
+            m = self.momentum
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
+                self.running_var.mul_(1.0 - m).add_(m * var.detach())
+        return y.to(x.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -88,8 +193,11 @@ class ResNetBackbone(nn.Module):
     feature map out."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 23, 3),
-                 num_channels: int = 3):
+                 num_channels: int = 3, remat: str = "none"):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}")
+        self.remat = remat
         self.conv1 = nn.Conv2d(num_channels, 64, 7, stride=2, padding=3,
                                bias=False)
         self.bn1 = BatchNorm2d(64, eps=BN_EPS)
@@ -121,4 +229,15 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in stage:
+                if self.remat == "none" or not torch.is_grad_enabled():
+                    x = block(x)
+                else:
+                    # the backbone draws no random numbers: no RNG state
+                    # to carry into the recomputation
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   preserve_rng_state=False,
+                                   context_fn=lambda: _remat_contexts(
+                                       self.remat))
+        return x

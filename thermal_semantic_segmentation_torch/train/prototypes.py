@@ -21,6 +21,7 @@ from ..device import resolve_device
 from ..kernels.upsample_argmax import upsample_argmax
 from ..ops.class_means import (MAX_PROTOTYPE_COUNT, fold_prototypes,
                                masked_class_means)
+from ..parallel import mesh as pmesh
 from .seg import forward_nhwc, frozen_inference
 
 
@@ -49,12 +50,16 @@ def calc_prototypes(model, loader, *, num_classes: int = 13,
 
     ``model`` lives on ``device`` (default: the CUDA device; raises without
     one). ``loader`` yields dicts with a numpy ``image`` (N, H, W, C).
-    ``mesh`` (multi-GPU) and ``wire='packed_bf16'`` are not yet ported.
+    With several processes each folds its own shard
+    (``DataLoader(shard=host_shard(), shard_lockstep=False)``) and the
+    partials merge after the loop (``merge_process_prototypes``); every
+    process returns the merged arrays. ``mesh`` (one process over several
+    cards) and ``wire='packed_bf16'`` are not yet ported.
     """
     if mesh is not None:
         raise NotImplementedError(
-            "mesh (multi-GPU prototypes) is not yet ported to the PyTorch "
-            "package (see ROADMAP.md)")
+            "mesh (one process over several cards) is not yet ported to the "
+            "PyTorch package (see ROADMAP.md)")
     if wire == "packed_bf16":
         raise NotImplementedError(
             "wire='packed_bf16' is not yet ported to the PyTorch package "
@@ -73,10 +78,13 @@ def calc_prototypes(model, loader, *, num_classes: int = 13,
             if i % 10 == 0:
                 print(f"epoch [{epoch}], prototype calculation: "
                       f"[{i}/{len(loader)}]")
-    # the port runs one process: its partials are the gathered ones (the
-    # all-gather across processes comes with multi-GPU)
-    return merge_process_prototypes(prototypes.cpu().numpy()[None],
-                                    counts.cpu().numpy()[None])
+    if pmesh.process_count() > 1:
+        prototypes, counts = (pmesh.all_gather(prototypes),
+                              pmesh.all_gather(counts))
+    else:
+        prototypes, counts = prototypes[None], counts[None]
+    return merge_process_prototypes(prototypes.cpu().numpy(),
+                                    counts.cpu().numpy())
 
 
 def merge_process_prototypes(all_prototypes: np.ndarray,
@@ -84,9 +92,9 @@ def merge_process_prototypes(all_prototypes: np.ndarray,
                              max_count: float = MAX_PROTOTYPE_COUNT
                              ) -> Tuple[np.ndarray, np.ndarray]:
     """Combine the per-process partial prototypes (P, C, F) and counts
-    (P, C) of a run, as the JAX ``merge_process_prototypes`` does after its
-    all-gather: the 'mean' fold keeps a count-weighted running mean per
-    class, so the global result is ``sum_p(proto_p * n_p) / sum_p(n_p)``;
+    (P, C) of a run (``calc_prototypes`` all-gathers them), as the JAX
+    ``merge_process_prototypes`` does after its all-gather: the 'mean'
+    fold keeps a count-weighted running mean per class, so the global result is ``sum_p(proto_p * n_p) / sum_p(n_p)``;
     the merged counts are clamped to ``max_count``, a count the
     single-process fold could produce. One process: its own arrays."""
     if len(all_prototypes) == 1:

@@ -11,11 +11,25 @@ The step: a train-mode forward (bfloat16 autocast with ``bf16``), the fp32
 stride-8 logits upsampled to ``label_hw`` (align corners), the masked CE,
 backward, one optimizer step. The loss comes back as a device tensor; the
 step never waits for the device.
+
+With a ``mesh`` (``parallel/mesh.make_mesh``) the step runs under
+``DistributedDataParallel`` on every rank, in one of the JAX package's two
+BatchNorm modes:
+- 'sync': the step is the JAX step on the global batch (the ranks' local
+  batches in rank order): BatchNorm normalises with the global batch's
+  statistics (``nn/resnet.BatchNorm2d.sync_group``), the CE is each rank's
+  NLL sum over the all-reduced count of valid pixels, and the gradient is
+  the sum over ranks (DDP's average of world size times the loss);
+- 'per_replica': JAX's ``shard_map`` step: each rank normalises with its
+  own batch, the gradients and the loss are averaged, and the running
+  statistics are averaged across ranks after the step (DDP's
+  ``broadcast_buffers`` is off: it would copy rank 0's over the others).
 """
 
 from __future__ import annotations
 
 import contextlib
+import warnings
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -24,9 +38,11 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.upsample_argmax import upsample_argmax
-from ..losses import cross_entropy
+from ..losses import cross_entropy, cross_entropy_terms
 from ..models.deeplab import backbone_and_head_params
 from ..nn.aspp import Dropout2d
+from ..nn.resnet import BatchNorm2d
+from ..parallel import mesh as pmesh
 from ..ops.confmat import confusion_matrix
 from ..ops.resize import upsample_logits
 
@@ -102,39 +118,51 @@ def make_seg_train_step(*, ignore_index: int,
     microbatches, each backpropagating its loss / grad_accum in order (so
     the BatchNorm running statistics thread through them in turn), then
     takes one optimizer step; the returned loss is the microbatches' mean.
-    ``device_augment`` and ``bn_mode='per_replica'`` / ``mesh``
-    (multi-GPU) are not yet ported.
+
+    ``mesh``: the ranks of a process group (``parallel/mesh.DataMesh``);
+    every rank passes its own batch, all of one size, and gets the same
+    loss. ``bn_mode`` 'sync' or 'per_replica' as the module docstring
+    says; without a mesh there is one replica, whose batch is the global
+    batch, and the two are one step. Under 'sync' the ``grad_accum``
+    microbatches are those of the global batch, as the JAX step scans
+    them: microbatch ``i`` is global rows ``[i*mb, (i+1)*mb)``, so a rank
+    adds the rows of its own batch that fall there, maybe none. Under
+    'per_replica' each rank splits its own batch. ``device_augment`` is
+    not yet ported.
     """
     if device_augment:
         raise NotImplementedError(
             "device_augment (ops/augment.py) is not yet ported to the "
             "PyTorch package (see ROADMAP.md)")
-    if bn_mode == "per_replica" or mesh is not None:
-        raise NotImplementedError(
-            "bn_mode='per_replica' and mesh (multi-GPU training) are not yet "
-            "ported to the PyTorch package (see ROADMAP.md)")
-    if bn_mode != "sync":
+    if bn_mode not in ("sync", "per_replica"):
         raise ValueError(f"unknown bn_mode {bn_mode!r}")
     device = resolve_device(device)
 
-    def loss_of(model, image, label):
+    def terms_of(model, image, label):
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
             out = model(image.permute(0, 3, 1, 2))["out"]
         # channels_last NCHW logits viewed as NHWC: no copy
         logits = out.float().permute(0, 2, 3, 1)
-        return cross_entropy(upsample_logits(logits, *label_hw), label,
-                             ignore_index=ignore_index)
+        return cross_entropy_terms(upsample_logits(logits, *label_hw), label,
+                                   ignore_index=ignore_index)
 
-    def train_step(state: SegTrainState, image: torch.Tensor,
-                   label: torch.Tensor) -> torch.Tensor:
+    def loss_of(model, image, label):
+        nll_sum, count = terms_of(model, image, label)
+        return nll_sum / count.clamp_min(1)
+
+    def start(state, image):
         if image.shape[0] % grad_accum:
             raise ValueError(f"batch {image.shape[0]} not divisible by "
                              f"grad_accum {grad_accum}")
-        model, opt = state.model, state.optimizer
-        model.train()
-        for group in opt.param_groups:
+        state.model.train()
+        for group in state.optimizer.param_groups:
             group["lr"] = base_lr * state.lr_scale * group["lr_mult"]
-        opt.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad(set_to_none=True)
+
+    def train_step(state: SegTrainState, image: torch.Tensor,
+                   label: torch.Tensor) -> torch.Tensor:
+        start(state, image)
+        model = state.model
         if grad_accum == 1:
             seed_dropout(model, dropout_seed, state.step)
             loss = loss_of(model, image, label)
@@ -148,11 +176,96 @@ def make_seg_train_step(*, ignore_index: int,
                 mb_loss = loss_of(model, im, lab) / grad_accum
                 mb_loss.backward()
                 loss += mb_loss.detach()
-        opt.step()
+        state.optimizer.step()
         state.step += 1
         return loss
 
-    return train_step
+    if mesh is None:
+        return train_step
+
+    world, rank = mesh.size, mesh.rank
+    sync = bn_mode == "sync"
+    wrapped = {}
+
+    def ddp_of(model):
+        ddp = wrapped.get("ddp")
+        if ddp is None or ddp.module is not model:
+            with warnings.catch_warnings():
+                # newer torch calls broadcast_buffers deprecated, and says
+                # to keep it where buffers must stay the rank's own
+                warnings.simplefilter("ignore", FutureWarning)
+                ddp = torch.nn.parallel.DistributedDataParallel(
+                    model, device_ids=([device] if device.type == "cuda"
+                                       else None),
+                    broadcast_buffers=False, process_group=mesh.group)
+            wrapped["ddp"] = ddp
+        return ddp
+
+    def microbatches(b: int):
+        """The rows of this rank's batch of ``b`` in each microbatch."""
+        if not sync:
+            mb = b // grad_accum
+            return [slice(i * mb, (i + 1) * mb) for i in range(grad_accum)]
+        if (world * b) % grad_accum:
+            raise ValueError(f"global batch {world * b} not divisible by "
+                             f"grad_accum {grad_accum}")
+        mb = world * b // grad_accum
+        return [slice(min(max(i * mb - rank * b, 0), b),
+                      min(max((i + 1) * mb - rank * b, 0), b))
+                for i in range(grad_accum)]
+
+    def set_sync_group(model, group):
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.sync_group = group
+
+    def dist_train_step(state: SegTrainState, image: torch.Tensor,
+                        label: torch.Tensor) -> torch.Tensor:
+        start(state, image)
+        model = state.model
+        ddp = ddp_of(model)
+        set_sync_group(model, mesh.group if sync else None)
+        loss = torch.zeros((), device=image.device)
+        try:
+            for i, rows in enumerate(microbatches(image.shape[0])):
+                key = (((i,) if grad_accum > 1 else ())
+                       + ((rank,) if world > 1 else ()))
+                seed_dropout(model, dropout_seed, state.step, *key)
+                last = i == grad_accum - 1
+                with contextlib.nullcontext() if last else ddp.no_sync():
+                    nll_sum, count = terms_of(ddp, image[rows], label[rows])
+                    if sync:
+                        # this rank's share of the global microbatch's CE:
+                        # its NLL sum over the global count
+                        count = pmesh.all_reduce(count)
+                    part = nll_sum / count.clamp_min(1) / grad_accum
+                    # DDP averages over the ranks; 'sync' wants their sum
+                    (part * world if sync else part).backward()
+                loss += part.detach()
+        finally:
+            set_sync_group(model, None)
+        state.optimizer.step()
+        state.step += 1
+        if not sync:
+            average_running_stats(model)
+        return pmesh.all_reduce(loss, "sum" if sync else "avg")
+
+    return dist_train_step
+
+
+def average_running_stats(model: torch.nn.Module) -> None:
+    """Replace every BatchNorm's running mean and variance by their mean
+    over the ranks (JAX's ``pmean`` of the new batch statistics), in one
+    all-reduce."""
+    buffers = [b for m in model.modules() if isinstance(m, BatchNorm2d)
+               for b in (m.running_mean, m.running_var)]
+    if not buffers:
+        return
+    flat = pmesh.all_reduce(torch.cat([b.reshape(-1) for b in buffers]),
+                            "avg")
+    with torch.no_grad():
+        for b, v in zip(buffers, flat.split([b.numel() for b in buffers])):
+            b.copy_(v.view_as(b))
 
 
 def build_seg_eval_step(*, num_classes: int, ignore_index: int, device=None,
