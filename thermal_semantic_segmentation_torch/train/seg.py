@@ -138,6 +138,10 @@ def make_seg_train_step(*, ignore_index: int,
         raise ValueError(f"unknown bn_mode {bn_mode!r}")
     device = resolve_device(device)
 
+    world, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+    sync = bn_mode == "sync"
+    wrapped = {}
+
     def terms_of(model, image, label):
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
             out = model(image.permute(0, 3, 1, 2))["out"]
@@ -145,47 +149,6 @@ def make_seg_train_step(*, ignore_index: int,
         logits = out.float().permute(0, 2, 3, 1)
         return cross_entropy_terms(upsample_logits(logits, *label_hw), label,
                                    ignore_index=ignore_index)
-
-    def loss_of(model, image, label):
-        nll_sum, count = terms_of(model, image, label)
-        return nll_sum / count.clamp_min(1)
-
-    def start(state, image):
-        if image.shape[0] % grad_accum:
-            raise ValueError(f"batch {image.shape[0]} not divisible by "
-                             f"grad_accum {grad_accum}")
-        state.model.train()
-        for group in state.optimizer.param_groups:
-            group["lr"] = base_lr * state.lr_scale * group["lr_mult"]
-        state.optimizer.zero_grad(set_to_none=True)
-
-    def train_step(state: SegTrainState, image: torch.Tensor,
-                   label: torch.Tensor) -> torch.Tensor:
-        start(state, image)
-        model = state.model
-        if grad_accum == 1:
-            seed_dropout(model, dropout_seed, state.step)
-            loss = loss_of(model, image, label)
-            loss.backward()
-            loss = loss.detach()
-        else:
-            loss = torch.zeros((), device=image.device)
-            for i, (im, lab) in enumerate(zip(image.chunk(grad_accum),
-                                              label.chunk(grad_accum))):
-                seed_dropout(model, dropout_seed, state.step, i)
-                mb_loss = loss_of(model, im, lab) / grad_accum
-                mb_loss.backward()
-                loss += mb_loss.detach()
-        state.optimizer.step()
-        state.step += 1
-        return loss
-
-    if mesh is None:
-        return train_step
-
-    world, rank = mesh.size, mesh.rank
-    sync = bn_mode == "sync"
-    wrapped = {}
 
     def ddp_of(model):
         ddp = wrapped.get("ddp")
@@ -203,12 +166,12 @@ def make_seg_train_step(*, ignore_index: int,
 
     def microbatches(b: int):
         """The rows of this rank's batch of ``b`` in each microbatch."""
+        if b % grad_accum:
+            raise ValueError(f"batch {b} not divisible by grad_accum "
+                             f"{grad_accum}")
         if not sync:
             mb = b // grad_accum
             return [slice(i * mb, (i + 1) * mb) for i in range(grad_accum)]
-        if (world * b) % grad_accum:
-            raise ValueError(f"global batch {world * b} not divisible by "
-                             f"grad_accum {grad_accum}")
         mb = world * b // grad_accum
         return [slice(min(max(i * mb - rank * b, 0), b),
                       min(max((i + 1) * mb - rank * b, 0), b))
@@ -219,22 +182,27 @@ def make_seg_train_step(*, ignore_index: int,
             if isinstance(m, BatchNorm2d):
                 m.sync_group = group
 
-    def dist_train_step(state: SegTrainState, image: torch.Tensor,
-                        label: torch.Tensor) -> torch.Tensor:
-        start(state, image)
+    def train_step(state: SegTrainState, image: torch.Tensor,
+                   label: torch.Tensor) -> torch.Tensor:
         model = state.model
-        ddp = ddp_of(model)
-        set_sync_group(model, mesh.group if sync else None)
+        rows_of = microbatches(image.shape[0])
+        model.train()
+        for group in state.optimizer.param_groups:
+            group["lr"] = base_lr * state.lr_scale * group["lr_mult"]
+        state.optimizer.zero_grad(set_to_none=True)
+        net = model if mesh is None else ddp_of(model)
+        if mesh is not None:
+            set_sync_group(model, mesh.group if sync else None)
         loss = torch.zeros((), device=image.device)
         try:
-            for i, rows in enumerate(microbatches(image.shape[0])):
+            for i, rows in enumerate(rows_of):
                 key = (((i,) if grad_accum > 1 else ())
                        + ((rank,) if world > 1 else ()))
                 seed_dropout(model, dropout_seed, state.step, *key)
-                last = i == grad_accum - 1
-                with contextlib.nullcontext() if last else ddp.no_sync():
-                    nll_sum, count = terms_of(ddp, image[rows], label[rows])
-                    if sync:
+                last = mesh is None or i == grad_accum - 1
+                with contextlib.nullcontext() if last else net.no_sync():
+                    nll_sum, count = terms_of(net, image[rows], label[rows])
+                    if mesh is not None and sync:
                         # this rank's share of the global microbatch's CE:
                         # its NLL sum over the global count
                         count = pmesh.all_reduce(count)
@@ -243,14 +211,17 @@ def make_seg_train_step(*, ignore_index: int,
                     (part * world if sync else part).backward()
                 loss += part.detach()
         finally:
-            set_sync_group(model, None)
+            if mesh is not None:
+                set_sync_group(model, None)
         state.optimizer.step()
         state.step += 1
+        if mesh is None:
+            return loss
         if not sync:
             average_running_stats(model)
         return pmesh.all_reduce(loss, "sum" if sync else "avg")
 
-    return dist_train_step
+    return train_step
 
 
 def average_running_stats(model: torch.nn.Module) -> None:
