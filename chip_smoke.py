@@ -43,6 +43,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      round trip; prints images/s and the masked-means and fold times;
   9. self_train: two batch-4 epochs through ``self_train_epochs`` (the
      second resumed), checked against float64 and a tiny card-vs-CPU step;
+     self_train_dist: the same loop under ``--distributed`` with one NCCL
+     rank (the mesh step), a SIGTERM before the third step and the resume
+     from ``preempt_``, the mesh step timed against the plain one; then
+     two gloo ranks of a tiny model on the card (``gloo_runs``): bit-equal
+     on both ranks, held to one rank on the joined batch and their
+     gradients to a float64 step;
  10. gan: the full-width CycleGAN (UNet-256 ngf 64, PatchGAN ndf 64) with
      the contour and module2 semantic losses, its frozen sem nets
      full-width ResNet-101s, trains two batch-4 epochs of 8 steps through
@@ -52,20 +58,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      t2s labels), one step's t2s ids against the plain version and a tiny
      card-vs-CPU step (the card's discrete decisions replayed on the
      CPU); prints images/s, peak memory and a per-stage step
-     breakdown;
+     breakdown; gan_dist: ``gan_epochs`` under ``--distributed`` with one
+     NCCL rank, a SIGTERM and the resume, the mesh step timed; two gloo
+     ranks of tiny nets whose pools, parameters and metrics are bit-equal
+     and held to one rank on the joined batch;
  11. gan_legacy: the same with the GAN CLI's default -sem_mode legacy:
      the frozen sem nets are full-width 19-class legacy ResNet-101s
      (random weights, reference legacy .pth files), the kernel labels the
      t2s term from their (4, 33, 65, 19) logits;
  12. translate: the translator's batch loop writes seeded frames at batch 8
      to 320x700 PNGs from the gan phase's checkpoint; the pixels, read
-     back with zlib, are held to a float64 recomputation; prints images/s
-     and a forward / resize / encode breakdown;
+     back with zlib, are held to a float64 recomputation: within one grey
+     level, or within as many as the pixel has decisions (truncations and
+     roundings in its support) lying within float32's error of their
+     boundary (``translate_float64``); prints images/s and a forward /
+     resize / encode breakdown;
  13. distance: ``evaluate_distance`` with the per-class L1 scores those
      PNGs against seeded originals and labels at batch 1 and 8; L1, SSIM
      and per-class L1 held to float64 on the CPU; prints pairs/s and the
      per-batch times. It launches no kernel;
- 14. dist: the train CLI's loop under ``--distributed`` with one rank over
+ 14. data_parallel: ``--data_parallel``'s ``LocalMesh`` of two replicas on
+     the one card: eval, hard pseudo-labels, prototypes, the server's
+     batches and the translator against one replica (ids outside
+     near-ties, confusion matrices, confidences, prototypes, frames), the
+     kernel's launches one a replica share, images/s of both;
+ 15. dist: the train CLI's loop under ``--distributed`` with one rank over
      NCCL (a process group on a free localhost port), the full-width model
      at batch 8 under DDP, with ``--remat`` none, dots and full, each
      epoch validated through the kernel; a SIGTERM sent before the third
@@ -178,6 +195,30 @@ GLOO_METRIC_RTOL, GLOO_BUFFER_ATOL = 1e-6, 1e-5
 # one rank's float32 error alone reaches 5% on gradients ~1e-3 of the
 # largest, and the ranks' sum over rank order moves near-cancelling ones
 GLOO_GRAD_ATOL = 1e-4
+# the self_train_dist and gan_dist phases: a few steps a run through the
+# CLI loops under --distributed; the tiny two-rank self-training step's
+# pseudo-label threshold (rank 1's flat soft maps fall under it) and the
+# tiny GAN's pools (they swap from the second step); its metrics against
+# one rank: Canny's edge decisions may part at float noise between batch
+# shapes, each moving a contour L1 by ~1/32768 of the 4 x 64 x 128 pixels
+DIST_STEPS = 4
+GLOO_ST_THRESHOLD, GLOO_POOL, GLOO_GAN_RTOL = 0.3, 2, 1e-3
+# the two-rank self-training step's gradients against float64, in units of
+# the largest, may be off by twice one rank's error plus this: on the CPU
+# the two ranks are 3.4e-4 off at conv1.weight (the synchronised BN's
+# one-pass variance, E[x^2] - E[x]^2 as flax computes it), one rank
+# 7.5e-5; without the gradient all-reduce 0.6, without the synchronised
+# BN 0.12
+GLOO_ST_GRAD_ATOL = 1e-3
+# the two-rank GAN step's first gradients against one rank's on the joined
+# batch, in units of the largest, and their global norm (the CPU test's
+# rtol): summing where the ranks should average, or averaging where they
+# should sum, puts both off by a half
+GLOO_GAN_GRAD_ATOL, GLOO_GAN_NORM_RTOL = 1e-3, 1e-3
+# the data_parallel phase: two replicas on the one card; prototypes of one
+# batch of 64, 3 server batches of 8, 16 translated frames
+DP_REPLICAS, DP_PROTO_IMAGES, DP_SERVE_BATCHES, DP_TRANSLATE_IMAGES = (
+    2, 64, 3, 16)
 
 
 def fail(msg: str) -> None:
@@ -2451,6 +2492,53 @@ def pil_bicubic_matrix(in_size: int, out_size: int):
     return m
 
 
+def translate_float64(fake, fake32):
+    """The translator's pixels from the float64 generator output ``fake``
+    (N, H, W): de-normalised and truncated to 8 bits, then PIL's two
+    rounded BICUBIC passes (width, then height). Returns (pixels, allowed,
+    counts). A float32 run can part from float64 only at a decision whose
+    float64 value lies within float32's error of its boundary: a
+    truncation within ``tau_t`` of an integer, ``tau_t`` the float32
+    generator's largest error against float64 on this batch (``fake32``)
+    in grey levels; a rounding within ``tau_r`` of a half, ``tau_r`` the
+    float32 accumulation bound of a pass (taps x 2^-23 x sum |w x|). Each
+    such decision in a pixel's support can move it by one more level, so
+    ``allowed`` is the count of them in the support, and 1 where there is
+    none; ``counts`` says how many there were."""
+    import numpy as np
+
+    mh = pil_bicubic_matrix(SERVE_OUT[1], TRANSLATE_HW[1])   # (out_w, w)
+    mv = pil_bicubic_matrix(SERVE_OUT[0], TRANSLATE_HW[0])   # (out_h, h)
+    v = np.clip((fake * 0.5 + 0.5) * 255.0, 0, 255)
+    tau_t = float(np.abs(fake32 - fake).max()) * 127.5
+    frac = v - np.floor(v)
+    near_t = (np.minimum(frac, 1.0 - frac) <= tau_t) & (v > 0) & (v < 255)
+    x8 = np.floor(v)
+    tau = {}
+    for name, m in (("h", mh), ("v", mv)):
+        taps = int((m != 0).sum(1).max())
+        tau[name] = taps * 2.0 ** -23 * 255.0 * float(np.abs(m).sum(1).max())
+    h = x8 @ mh.T                                         # (n, h, out_w)
+    near_h = np.abs(h - np.floor(h) - 0.5) <= tau["h"]
+    hr = np.clip(np.floor(h + 0.5), 0, 255)
+    o = mv @ hr                                           # (n, out_h, out_w)
+    near_v = np.abs(o - np.floor(o) - 0.5) <= tau["v"]
+    want = np.clip(np.floor(o + 0.5), 0, 255)
+    # the near decisions in each output pixel's support, by the supports'
+    # indicator matrices
+    sh, sv = (mh != 0).astype(np.float32), (mv != 0).astype(np.float32)
+    k = (sv @ (near_t.astype(np.float32) @ sh.T) + sv @ near_h.astype(
+        np.float32) + near_v)
+    k = np.rint(k).astype(np.int64)
+    counts = {"tau_t_levels": tau_t, "tau_r_levels": max(tau.values()),
+              "truncations": int(near_t.sum()),
+              "first_roundings": int(near_h.sum()),
+              "second_roundings": int(near_v.sum()),
+              "pixels_with_near_decisions": int((k > 0).sum()),
+              "most_in_one_pixel": int(k.max())}
+    return want, np.maximum(k, 1), counts
+
+
 def phase_translate(card: str, root: str) -> None:
     """Translate seeded frames through the translator's batch loop from
     the gan phase's checkpoint; check the PNGs (zlib) against a float64
@@ -2498,27 +2586,27 @@ def phase_translate(card: str, root: str) -> None:
     # float64: the generator, de-normalisation (truncated to 8 bits as the
     # JAX translator does) and PIL's two rounded resample passes
     model64 = copy.deepcopy(model).double()
-    x = torch.from_numpy(frames.images[:TRANSLATE_BATCH]).cuda().double()
-    with torch.no_grad():
-        fake = model64(x.permute(0, 3, 1, 2))[:, 0].cpu().numpy()
-    want = np.floor(np.clip((fake * 0.5 + 0.5) * 255.0, 0, 255))
-    for m, axis in ((pil_bicubic_matrix(SERVE_OUT[1], TRANSLATE_HW[1]), 2),
-                    (pil_bicubic_matrix(SERVE_OUT[0], TRANSLATE_HW[0]), 1)):
-        want = np.clip(np.floor(np.moveaxis(
-            np.tensordot(want, m, axes=([axis], [1])), -1, axis) + 0.5),
-            0, 255)
+    x = torch.from_numpy(frames.images[:TRANSLATE_BATCH]).cuda()
+    with torch.inference_mode():
+        fake = model64(x.double().permute(0, 3, 1, 2))[:, 0].cpu().numpy()
+        fake32 = model(x.permute(0, 3, 1, 2))[:, 0].double().cpu().numpy()
     got = np.stack(pixels[:TRANSLATE_BATCH]).astype(np.int64)
+    want, allowed, counts = translate_float64(fake, fake32)
     err = np.abs(got - want)
     print(f"translate check: {len(files)} PNGs of {pixels[0].shape} from a "
           f"ngf {ngf} generator; the first batch against float64: max "
           f"{int(err.max())} grey levels, {float((err > 0).mean()):.5f} of "
-          f"pixels off", flush=True)
+          f"pixels off, {int((err > 1).sum())} by more than 1; decisions "
+          f"within float32's error of their boundary: {json.dumps(counts)}",
+          flush=True)
     if files != [f"{i:04d}.png" for i in range(TRANSLATE_IMAGES)] or any(
             p.shape != TRANSLATE_HW for p in pixels):
         fail(f"the translator wrote {files[:3]}... of "
              f"{[p.shape for p in pixels[:2]]}")
-    if err.max() > 1:
-        fail(f"translated pixels {int(err.max())} grey levels off float64")
+    if (err > allowed).any():
+        fail(f"translated pixels off float64 by more than their near "
+             f"decisions allow: {int((err > allowed).sum())} pixels, worst "
+             f"{int(err.max())} grey levels")
     n = summary["images"]
     breakdown = {"forward_ms": statistics.median(per["forward"]),
                  "resize_ms": statistics.median(per["resize"]),
@@ -2707,7 +2795,7 @@ class SigtermAtPoll:
         return self.inner.signum
 
 
-def phase_dist(card: str) -> dict:
+def phase_dist(card: str, gloo: dict) -> dict:
     """The train CLI's loop under ``--distributed`` with one rank over
     NCCL, full width, in each remat mode, and a SIGTERM with its resume;
     then the remat modes' speed, memory and gradients, and two ranks over
@@ -2820,7 +2908,7 @@ def phase_dist(card: str) -> dict:
               f"one NCCL rank) on {card}", flush=True)
     remat_gradients(image, label)
     dist.destroy_process_group()
-    two_ranks_over_gloo()
+    two_ranks_over_gloo(gloo)
     return launches
 
 
@@ -2926,8 +3014,9 @@ class SeededPairs:
 
 def gloo_results(rank, sharded: bool) -> dict:
     """A tiny model's 'sync' and 'per_replica' steps (rank ``rank``'s
-    images of the joined batch, or all of them with one rank), and its
-    validation, distance eval and prototypes, on ``cuda:0``."""
+    images of the joined batch, or all of them with one rank), its
+    validation, distance eval and prototypes, and a tiny self-training
+    step and two tiny CycleGAN steps, on ``cuda:0``."""
     import torch
 
     from thermal_semantic_segmentation_torch.data.loader import DataLoader
@@ -2979,6 +3068,9 @@ def gloo_results(rank, sharded: bool) -> dict:
                           shuffle=True, drop_last=True, shard=shard,
                           shard_lockstep=False),
         num_classes=NUM_CLASSES, device=dev)
+    mesh = make_mesh(dev) if sharded else None
+    out["st"] = gloo_self_train(rows, mesh, dev)
+    out["gan"] = gloo_gan(rows, mesh, dev)
     return out
 
 
@@ -3023,34 +3115,14 @@ def dist_worker(rank: int, port: int, root: str) -> int:
     return 0
 
 
-def two_ranks_over_gloo() -> None:
-    """Two gloo ranks on the one card against one rank here."""
-    import os
-
+def two_ranks_over_gloo(gloo: dict) -> None:
+    """Two gloo ranks on the one card (``gloo``, from ``gloo_runs``)
+    against one rank: the seg step, validation, distance eval and
+    prototype merge."""
     import numpy as np
     import torch
 
-    with tempfile_dir() as root:
-        port = free_port()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dist-worker",
-             str(r), str(port), root], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(GLOO_WORLD)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=GLOO_TIMEOUT)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                fail(f"gloo rank {r} failed:\n{log[-4000:]}")
-        ranks = [torch.load(f"{root}/gloo{r}.pt", weights_only=False)
-                 for r in range(GLOO_WORLD)]
-    one = gloo_results(0, sharded=False)
+    ranks, one = gloo["ranks"], gloo["one"]
 
     for mode in ("sync", "per_replica"):
         (l0, sd0), (l1, sd1) = ranks[0][mode], ranks[1][mode]
@@ -3123,6 +3195,788 @@ def two_ranks_over_gloo() -> None:
         if not np.array_equal(g, other, equal_nan=True):
             fail(f"the two ranks' {name} differ")
 
+def dist_flags_one_rank() -> list:
+    """The CLI flags of a one-rank NCCL group on a free localhost port."""
+    return ["--distributed", "true", "--coordinator_address",
+            f"localhost:{free_port()}", "--num_processes", "1",
+            "--process_id", "0"]
+
+
+def step_ms(fn, reps: int = DIST_TIMED_STEPS) -> float:
+    """Median wall ms of ``fn`` (one train step), each call synchronised,
+    after two warm-ups."""
+    import torch
+    times = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_self_train_dist(card: str, root: str, gloo: dict) -> dict:
+    """The self-training CLI's loop under ``--distributed`` with one NCCL
+    rank, the full-width model at batch 4: a run SIGTERMed before its
+    third step and its resume from ``preempt_``; the mesh step's time
+    against the plain step's on one batch; then two gloo ranks of a tiny
+    model (``gloo``, from ``gloo_runs``). Returns the kernels' launch
+    counts from the CLI runs."""
+    import math
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        load_seg_checkpoint)
+    from thermal_semantic_segmentation_torch.cli.options import (
+        self_train_parse)
+    from thermal_semantic_segmentation_torch.cli.self_train_main import (
+        self_train_epochs)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        host_shard, make_mesh)
+    from thermal_semantic_segmentation_torch.train.self_train import (
+        make_self_train_step)
+    from thermal_semantic_segmentation_torch.utils.logging import get_logger
+    from thermal_semantic_segmentation_torch.utils.preempt import (
+        GracefulShutdown)
+
+    source = SeededImages(ST_IMAGES, SERVE_OUT, seed=7)
+    target = SeededSelfTrainTarget(ST_IMAGES, seed=8)
+    test = SeededImages(ST_VAL_IMAGES, SERVE_OUT, seed=9)
+    val_batches = math.ceil(ST_VAL_IMAGES / ST_BATCH)
+    flags = dist_flags_one_rank()
+    logger = get_logger(os.path.join(root, "logs", "self-training-dist"))
+
+    def run(checkpoint, shutdown=None):
+        args = self_train_parse().parse_args(
+            ["--root", root, "--model_root_path", root, "-checkpoint_name",
+             checkpoint, "-new_checkpoint_name", "smoke_st_dist.pth",
+             "--epochs", "1", "-max_steps", str(DIST_STEPS), "-batch_size",
+             str(ST_BATCH), *flags])
+        loaders = [DataLoader(data, ST_BATCH, shuffle=shuffle,
+                              drop_last=shuffle, seed=args.seed + k,
+                              shard=host_shard() if shuffle else None)
+                   for k, (data, shuffle) in enumerate(
+                       ((source, True), (target, True), (test, False)))]
+        return self_train_epochs(args, logger, *loaders, shutdown=shutdown)
+
+    upsample_argmax.launches = 0      # counts from the main path only
+    with GracefulShutdown() as shutdown:
+        state, first = run("smoke.pth", SigtermAtPoll(shutdown,
+                                                      PREEMPT_AT_POLL))
+    _, meta = load_seg_checkpoint(os.path.join(root,
+                                               "preempt_smoke_st_dist.pth"))
+    del state
+    state, resumed = run("preempt_smoke_st_dist.pth")
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    torch.cuda.synchronize()
+    backend, world = dist.get_backend(), dist.get_world_size()
+    history = first + resumed
+    steps = sum(h["steps"] for h in history)
+    validations = sum(len(h["validations"]) for h in history)
+    losses = [x for h in history for pair in h["losses"] for x in pair]
+    print(f"self_train_dist check: {backend} process group of {world}; "
+          f"SIGTERM at poll {PREEMPT_AT_POLL}: epochs "
+          f"{[(h['epoch'], h['steps'], h['preempted']) for h in history]}, "
+          f"preempt checkpoint epoch {meta['epoch']} with prototypes "
+          f"{'objective_vectors' in meta}; losses {losses}; launches "
+          f"{launches} for {steps} steps and {validations} validations of "
+          f"{val_batches} batches", flush=True)
+    if backend != "nccl" or world != 1:
+        fail(f"the --distributed self-training joined a {backend} group of "
+             f"{world}")
+    if [(h["steps"], h["preempted"]) for h in history] != [
+            (PREEMPT_AT_POLL - 1, True), (DIST_STEPS, False)] or \
+            resumed[0]["epoch"] != first[0]["epoch"] or \
+            meta["epoch"] != first[0]["epoch"] - 1 or \
+            "objective_vectors" not in meta:
+        fail("the SIGTERM and resume of the --distributed self-training "
+             "did not stop, save and redo the epoch")
+    if not (losses and all(map(math.isfinite, losses))):
+        fail("the --distributed self-training: a non-finite or missing loss")
+    if launches["upsample_argmax"] != steps + validations * val_batches:
+        fail(f"upsample_argmax launched {launches['upsample_argmax']} times "
+             f"for {steps} steps and {validations * val_batches} validation "
+             f"batches")
+
+    b = next(iter(self_train_batches(target, source)))
+    kw = dict(num_classes=NUM_CLASSES, ignore_index=IGNORE, base_lr=ST_LR)
+    ms = {name: step_ms(lambda step=make_self_train_step(mesh=mesh, **kw):
+                        run_step(step, state, b))
+          for name, mesh in (("plain", None), ("mesh", make_mesh()))}
+    print(f"self_train_dist step: one-rank NCCL mesh step {ms['mesh']:.2f} "
+          f"ms ({ST_BATCH * 1e3 / ms['mesh']:.2f} images/s), plain step "
+          f"{ms['plain']:.2f} ms ({ms['mesh'] / ms['plain']:.4f} x), batch "
+          f"{ST_BATCH}, float32, median of {DIST_TIMED_STEPS} on {card}",
+          flush=True)
+    del state
+    dist.destroy_process_group()
+    self_train_gloo_check(gloo)
+    return launches
+
+
+def phase_gan_dist(card: str, root: str, gloo: dict) -> dict:
+    """The GAN CLI's loop under ``--distributed`` with one NCCL rank, the
+    full-width CycleGAN with the contour and module2 sem losses at batch
+    4: a run SIGTERMed before its third step and its resume from
+    ``preempt_``; the mesh step's time against the plain step's; then two
+    gloo ranks of tiny nets with bit-equal pools (``gloo``). Returns the
+    kernels' launch counts from the CLI runs."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        load_gan_checkpoint)
+    from thermal_semantic_segmentation_torch.cli.main import (
+        gan_epochs, load_sem_nets)
+    from thermal_semantic_segmentation_torch.cli.options import train_parse
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        host_shard, make_mesh)
+    from thermal_semantic_segmentation_torch.train.gan import make_gan_step
+    from thermal_semantic_segmentation_torch.utils.preempt import (
+        GracefulShutdown)
+
+    source = SeededGanImages(GAN_IMAGES, SERVE_OUT, 3, seed=21, labels=True)
+    target = SeededGanImages(GAN_IMAGES, SERVE_OUT, 1, seed=22)
+    flags = dist_flags_one_rank()
+
+    def run(load: str, shutdown=None):
+        args = train_parse().parse_args(gan_argv(
+            root, "module2", "-max_steps", str(DIST_STEPS),
+            "-checkpoint_name", load or "smoke_gan.pth",
+            "-new_checkpoint_name", "smoke_gan_dist.pth", "-load_model",
+            "true" if load else "false", *flags))
+        loaders = [DataLoader(data, GAN_BATCH, shuffle=True, drop_last=True,
+                              seed=args.seed + k, shard=host_shard())
+                   for k, data in enumerate((source, target))]
+        return (args, *gan_epochs(args, *loaders, shutdown=shutdown))
+
+    upsample_argmax.launches = 0      # counts from the main path only
+    with GracefulShutdown() as shutdown:
+        _, state, first = run("", SigtermAtPoll(shutdown, PREEMPT_AT_POLL))
+    preempt = load_gan_checkpoint(f"{root}/preempt_smoke_gan_dist.pth")
+    del state
+    args, state, resumed = run("preempt_smoke_gan_dist.pth")
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    torch.cuda.synchronize()
+    backend, world = dist.get_backend(), dist.get_world_size()
+    history = first + resumed
+    steps = sum(h["steps"] for h in history)
+    values = [x for h in history for v in h["metrics"].values() for x in v]
+    print(f"gan_dist check: {backend} process group of {world}; SIGTERM at "
+          f"poll {PREEMPT_AT_POLL}: epochs "
+          f"{[(h['epoch'], h['steps'], h['preempted']) for h in history]}, "
+          f"preempt checkpoint epoch {preempt['epoch']}; launches "
+          f"{launches} for {steps} steps", flush=True)
+    if backend != "nccl" or world != 1:
+        fail(f"the --distributed GAN joined a {backend} group of {world}")
+    if [(h["epoch"], h["steps"], h["preempted"]) for h in history] != [
+            (0, PREEMPT_AT_POLL - 1, True), (-1, DIST_STEPS, False)] or \
+            preempt["epoch"] != -1:
+        fail("the SIGTERM and resume of the --distributed GAN did not stop, "
+             "save and resume at the JAX CLI's epoch")
+    if len(history[0]["metrics"]) != 11 or not all(
+            map(math.isfinite, values)):
+        fail("the --distributed GAN: a non-finite or missing loss")
+    if launches["upsample_argmax"] != steps:
+        fail(f"upsample_argmax launched {launches['upsample_argmax']} times "
+             f"for {steps} GAN steps")
+
+    b = next(iter(gan_batches(source, target)))
+    sem_nets = load_sem_nets(args, "cuda")
+    ms = {}
+    for name, mesh in (("plain", None), ("mesh", make_mesh())):
+        step, make_pools = make_gan_step(
+            pool_size=50, mesh=mesh, **gan_step_kwargs(args, sem_nets))
+        pools = make_pools({"t": (*SERVE_OUT, 1), "s": (*SERVE_OUT, 3)},
+                           device="cuda")
+        ms[name] = step_ms(lambda: step(state, pools, b["real_s"],
+                                        b["real_t"], b["label_s"],
+                                        with_sem=True))
+    print(f"gan_dist step: one-rank NCCL mesh step {ms['mesh']:.2f} ms "
+          f"({GAN_BATCH * 1e3 / ms['mesh']:.2f} images/s), plain step "
+          f"{ms['plain']:.2f} ms ({ms['mesh'] / ms['plain']:.4f} x), batch "
+          f"{GAN_BATCH}, float32, median of {DIST_TIMED_STEPS} on {card}",
+          flush=True)
+    del state, sem_nets
+    dist.destroy_process_group()
+    gan_gloo_check(gloo)
+    return launches
+
+
+def phase_data_parallel(card: str, root: str) -> dict:
+    """``--data_parallel`` over a ``LocalMesh`` of two replicas on the one
+    card (``[cuda:0, cuda:0]``): the full-width model's eval
+    (``seg_validate``), hard pseudo-labels, prototypes and server batches,
+    and the gan phase's generator's translations, each against the
+    one-replica run: ids equal outside near-ties, confusion matrices
+    apart only there, val_loss rtol ``LOSS_RTOL``, confidences within a
+    float16 ulp, prototypes rel err ``PROTO_RTOL`` with equal counts,
+    frames within one grey level; images/s of both. Returns the kernels'
+    launch counts from the two-replica runs."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli._common import (
+        build_generator_from_gan_checkpoint)
+    from thermal_semantic_segmentation_torch.cli.options import (
+        evaluation_parse)
+    from thermal_semantic_segmentation_torch.cli.translator import (
+        translate_batches)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.eval.validate import (
+        _split_eval, seg_validate)
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.ops.resize import upsample_logits
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        local_data_mesh, replicate, split_rows)
+    from thermal_semantic_segmentation_torch.serving.batcher import (
+        InferenceServer)
+    from thermal_semantic_segmentation_torch.train.prototypes import (
+        calc_prototypes)
+    from thermal_semantic_segmentation_torch.train.pseudo import (
+        generate_pseudo_labels)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        build_seg_eval_step, forward_nhwc, frozen_inference)
+
+    mesh = local_data_mesh(batch_size=EVAL_BATCH,
+                           devices=["cuda:0"] * DP_REPLICAS)
+    model = load_smoke_model(evaluation_parse, root).eval()
+    generator, _ = build_generator_from_gan_checkpoint(
+        f"{root}/smoke_gan.pth", "s2t", input_nc=3, output_nc=1)
+    evals = SeededImages(EVAL_IMAGES, SERVE_OUT, seed=40)
+    named = NamedImages(PSEUDO_IMAGES, SERVE_OUT, seed=41)
+    protos = SeededImages(DP_PROTO_IMAGES, SERVE_OUT, seed=42)
+    serve_x = np.random.default_rng(43).random(
+        (DP_SERVE_BATCHES, EVAL_BATCH, *SERVE_OUT, 1), dtype=np.float32)
+
+    def run_all(m, tag):
+        """Every path once with mesh ``m`` (None: one replica); (results,
+        seconds per path)."""
+        out, secs = {}, {}
+        server = InferenceServer(model, batch_size=EVAL_BATCH, mesh=m)
+        for name in ("eval", "pseudo", "proto", "translate", "serve"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "eval":
+                out[name] = seg_validate(model, DataLoader(
+                    evals, EVAL_BATCH, drop_last=False), mesh=m)
+            elif name == "pseudo":
+                out[name] = f"{root}/dp_pseudo_{tag}"
+                generate_pseudo_labels(model, DataLoader(
+                    named, PSEUDO_BATCH, drop_last=False),
+                    save_path=out[name], mesh=m)
+            elif name == "proto":
+                out[name] = calc_prototypes(model, DataLoader(
+                    protos, DP_PROTO_IMAGES, drop_last=True), mesh=m)
+            elif name == "translate":
+                out[name] = f"{root}/dp_translate_{tag}"
+                translate_batches(generator, DataLoader(SeededFrames(
+                    DP_TRANSLATE_IMAGES, seed=44, root=out[name]),
+                    TRANSLATE_BATCH, drop_last=False), denormalize=[0.5],
+                    save_hw=TRANSLATE_HW, suffix="", device="cuda", mesh=m)
+            else:
+                out[name] = np.stack([server._predict(x) for x in serve_x])
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        return out, secs
+
+    run_all(mesh, "warm")                    # cuDNN's choices, both sizes
+    # in turns (one, two, two, one): each path's seconds are the mean of
+    # its two runs of each kind; the launches are the two-replica runs'
+    launches = {"upsample_argmax": 0}
+    runs = {}
+    for tag, m in (("one", None), ("two", mesh), ("two_b", mesh),
+                   ("one_b", None)):
+        upsample_argmax.launches = 0      # counts from the main path only
+        runs[tag] = run_all(m, tag)
+        if m is not None:
+            launches["upsample_argmax"] += upsample_argmax.launches
+    (one, one_s), (two, two_s) = runs["one"], runs["two"]
+    one_s = {k: (v + runs["one_b"][1][k]) / 2 for k, v in one_s.items()}
+    two_s = {k: (v + runs["two_b"][1][k]) / 2 for k, v in two_s.items()}
+    # one launch a replica with rows (a batch of n rows has min(n, R)),
+    # over the two two-replica runs
+    want_launches = 2 * (
+        sum(min(EVAL_BATCH, EVAL_IMAGES - i, DP_REPLICAS)
+            for i in range(0, EVAL_IMAGES, EVAL_BATCH))
+        + sum(min(PSEUDO_BATCH, PSEUDO_IMAGES - i, DP_REPLICAS)
+              for i in range(0, PSEUDO_IMAGES, PSEUDO_BATCH))
+        + DP_REPLICAS * (1 + DP_SERVE_BATCHES))
+
+    # per-pixel checks: a batch's ids and confusion matrix through the
+    # two replicas against one, outside the one replica's near-ties
+    eval_step = build_seg_eval_step(num_classes=NUM_CLASSES,
+                                    ignore_index=IGNORE)
+    replicas = replicate(mesh, model)
+    image = torch.from_numpy(evals.images[:EVAL_BATCH]).cuda()
+    label = torch.from_numpy(evals.labels[:EVAL_BATCH]).cuda()
+    hist1, loss1, pred1 = eval_step(model, image, label)
+    shares = split_rows(mesh, EVAL_BATCH)
+    hist2, loss2, pred2 = _split_eval(
+        eval_step, replicas, [image[r] for r in shares],
+        [label[r] for r in shares], torch.device("cuda"), NUM_CLASSES,
+        IGNORE)
+    with frozen_inference(model):
+        logits = forward_nhwc(model, image)["out"]
+        top2 = upsample_logits(logits, *SERVE_OUT).topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > TIE_GAP
+    parted = pred1 != pred2
+    eval_wrong = int((parted & decided).sum())
+    hist_diff = int((hist1 - hist2).abs().sum())
+    loss_err = abs(float(loss2) - float(loss1)) / abs(float(loss1))
+    del replicas
+
+    # pseudo-labels: ids outside the stride-8 logits' near-ties,
+    # confidences within a float16 ulp
+    pseudo_wrong = conf_bad = 0
+    with frozen_inference(model):
+        for i in range(0, PSEUDO_IMAGES, PSEUDO_BATCH):
+            x = torch.from_numpy(named.images[i:i + PSEUDO_BATCH]).cuda()
+            t2 = forward_nhwc(model, x)["out"].topk(2, dim=-1).values
+            ok = ((t2[..., 0] - t2[..., 1]) > TIE_GAP).cpu().numpy()
+            for k in range(x.shape[0]):
+                stem = f"{i + k:04d}"
+                a = read_png_ids(f"{one['pseudo']}/{stem}.png")
+                b_ = read_png_ids(f"{two['pseudo']}/{stem}.png")
+                pseudo_wrong += int(((a != b_) & ok[k]).sum())
+                ca = np.load(f"{one['pseudo']}/{stem}_conf.npy")
+                cb = np.load(f"{two['pseudo']}/{stem}_conf.npy")
+                ulp = np.spacing(ca).astype(np.float32)
+                conf_bad += int((np.abs(ca.astype(np.float32)
+                                        - cb.astype(np.float32)) > ulp).sum())
+    (p1, n1), (p2, n2) = one["proto"], two["proto"]
+    proto_err = float(np.abs(p2 - p1).max() / np.abs(p1).max())
+    frames_err = max(
+        int(np.abs(read_png_ids(f"{one['translate']}/{f}").astype(int)
+                   - read_png_ids(f"{two['translate']}/{f}").astype(int))
+            .max()) for f in sorted(os.listdir(one["translate"])))
+    n_frames = len(os.listdir(two["translate"]))
+    serve_wrong = 0
+    with frozen_inference(model):
+        for x, a, b_ in zip(serve_x, one["serve"], two["serve"]):
+            logits = forward_nhwc(model, torch.from_numpy(x).cuda())["out"]
+            t2 = upsample_logits(logits, *SERVE_OUT).topk(2, dim=-1).values
+            ok = ((t2[..., 0] - t2[..., 1]) > TIE_GAP).cpu().numpy()
+            serve_wrong += int(((a != b_) & ok).sum())
+    miou_diff = abs(two["eval"][0] - one["eval"][0])
+    val_err = abs(two["eval"][1] - one["eval"][1]) / abs(one["eval"][1])
+    print(f"data_parallel check: {mesh.size} replicas on cuda:0; eval batch "
+          f"ids parted from one replica's at {int(parted.sum())} pixels, "
+          f"{eval_wrong} outside {int((~decided).sum())} near-ties, "
+          f"confusion matrices {hist_diff} counts apart, batch CE rel err "
+          f"{loss_err:.3g}; whole run mIoU {two['eval'][0]} vs "
+          f"{one['eval'][0]} (diff {miou_diff:.3g}), val_loss rel err "
+          f"{val_err:.3g}; pseudo-label ids {pseudo_wrong} pixels apart "
+          f"outside near-ties, {conf_bad} confidences past a float16 ulp; "
+          f"prototypes rel err {proto_err:.3g}, counts "
+          f"{'equal' if np.array_equal(n1, n2) else 'DIFFER'}; {n_frames} "
+          f"translated frames at most {frames_err} grey levels apart; served "
+          f"ids {serve_wrong} pixels apart outside near-ties; launches "
+          f"{launches} (expected {want_launches})", flush=True)
+    if eval_wrong or hist_diff > 2 * int(parted.sum()) or not (
+            loss_err <= LOSS_RTOL and val_err <= LOSS_RTOL):
+        fail("the two-replica eval differs from one replica's")
+    if pseudo_wrong or conf_bad:
+        fail("the two-replica pseudo-labels differ from one replica's")
+    if not (proto_err <= PROTO_RTOL and np.array_equal(n1, n2)):
+        fail("the two-replica prototypes differ from one replica's")
+    if frames_err > 1 or n_frames != DP_TRANSLATE_IMAGES:
+        fail("the two-replica translations differ from one replica's")
+    if serve_wrong:
+        fail("the two-replica server's ids differ from one replica's")
+    if launches["upsample_argmax"] != want_launches:
+        fail(f"upsample_argmax launched {launches['upsample_argmax']} times "
+             f"on the two-replica paths, not {want_launches}")
+    counts = {"eval": EVAL_IMAGES, "pseudo": PSEUDO_IMAGES,
+              "proto": DP_PROTO_IMAGES, "translate": DP_TRANSLATE_IMAGES,
+              "serve": DP_SERVE_BATCHES * EVAL_BATCH}
+    rates = {name: {"one_replica": n / one_s[name],
+                    "two_replicas": n / two_s[name],
+                    "ratio": one_s[name] / two_s[name]}
+             for name, n in counts.items()}
+    # what the ratios are made of: the replicas (each seg_validate,
+    # pseudo-label, prototype and translator call makes them; entries on
+    # the model's own card share it) and the forward's per-image time at
+    # the half batch each replica runs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    copies = replicate(mesh, model)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    del copies
+    per_image = {}
+    with frozen_inference(model):
+        for n in (EVAL_BATCH // DP_REPLICAS, EVAL_BATCH):
+            x = torch.from_numpy(evals.images[:n]).cuda()
+            per_image[n] = time_ms(lambda: forward_nhwc(model, x), reps=5,
+                                   warmup=1) / n
+    print(f"data_parallel parts: replicate {copy_ms:.2f} ms (the "
+          f"replicas on cuda:0 share the model); forward {per_image[EVAL_BATCH // DP_REPLICAS]:.3f}"
+          f" ms an image at batch {EVAL_BATCH // DP_REPLICAS} against "
+          f"{per_image[EVAL_BATCH]:.3f} at batch {EVAL_BATCH} (ratio "
+          f"{per_image[EVAL_BATCH] / per_image[EVAL_BATCH // DP_REPLICAS]:.4f}"
+          f") on {card}", flush=True)
+    print(f"data_parallel images/s: {json.dumps(rates)} (means of two "
+          f"runs of each, in turns one, two, two, one; eval batch "
+          f"{EVAL_BATCH}, pseudo hard batch {PSEUDO_BATCH} with every file "
+          f"written, prototypes batch {DP_PROTO_IMAGES}, translate batch "
+          f"{TRANSLATE_BATCH} with every PNG written, serve batch "
+          f"{EVAL_BATCH}; two replicas share the one card's stream) on "
+          f"{card}", flush=True)
+    return launches
+
+
+def gloo_runs() -> dict:
+    """The two gloo ranks' results (``dist_worker``, two processes on the
+    one card) and the one-rank results here, for the phases that check
+    them."""
+    import os
+
+    import torch
+
+    with tempfile_dir() as root:
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             str(r), str(port), root], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(GLOO_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=GLOO_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"gloo rank {r} failed:\n{log[-4000:]}")
+        ranks = [torch.load(f"{root}/gloo{r}.pt", weights_only=False)
+                 for r in range(GLOO_WORLD)]
+    return {"ranks": ranks, "one": gloo_results(0, sharded=False)}
+
+
+def gloo_self_train_batch():
+    """The tiny self-training step's joined batch (``GLOO_WORLD *
+    GLOO_LOCAL`` rows at ``PARITY_HW``, 80x176 frames): rank 0's soft maps
+    peaked, rank 1's flat, so most of rank 1's pseudo-labels fall under
+    the threshold and the ranks' valid counts differ."""
+    import numpy as np
+    rng = np.random.default_rng(25)
+    n, hw, full = GLOO_WORLD * GLOO_LOCAL, PARITY_HW, (80, 176)
+    soft = rng.random((n, NUM_CLASSES, *hw), dtype=np.float32)
+    soft[:GLOO_LOCAL] **= 6
+    hard = np.full((n, *hw), IGNORE, np.int64)
+    hard[0, 10:30, 20:60], hard[n - 1, 40:60, 90:120] = 5, 11
+    label = rng.integers(0, NUM_CLASSES, (n, *hw))
+    label[GLOO_LOCAL:][rng.random((n - GLOO_LOCAL, *hw)) < 0.5] = 255
+    return {"s_image": rng.random((n, *hw, 1), dtype=np.float32),
+            "s_label": label,
+            "t_image": rng.random((n, *hw, 1), dtype=np.float32),
+            "t_full": rng.random((n, *full, 1), dtype=np.float32),
+            "t_soft": soft / soft.sum(1, keepdims=True), "t_hard": hard,
+            "wp": {"resized_hw": np.array([[96, 160], [120, 200]] * 2,
+                                          np.int32),
+                   "crop": np.array([[8, 72, 16, 144], [4, 68, 8, 136]] * 2,
+                                    np.int32),
+                   "flip": np.array([True, False, False, True])}}
+
+
+def gloo_self_train(rows, mesh, dev) -> dict:
+    """One tiny self-training step on ``rows`` of the joined batch."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.train.self_train import (
+        create_self_train_state, make_self_train_step)
+
+    batch = gloo_self_train_batch()
+    protos = (np.random.default_rng(26).standard_normal((NUM_CLASSES, 256))
+              * 0.1).astype(np.float32)
+    model = create_deeplab(12, device=dev, layers=(1, 1, 1, 1))
+    model.layer5.head[0].p = 0.0
+    state = create_self_train_state(model, prototypes=protos,
+                                    learning_rate=TRAIN_LR, device=dev)
+    step = make_self_train_step(
+        num_classes=NUM_CLASSES, ignore_index=IGNORE, base_lr=TRAIN_LR,
+        train_thred=GLOO_ST_THRESHOLD, label_hw=PARITY_HW,
+        proto_momentum=ST_CHECK_MOMENTUM, mesh=mesh, device=dev)
+    b = {k: ({kk: torch.from_numpy(vv[rows]).to(dev)
+              for kk, vv in v.items()} if isinstance(v, dict)
+             else torch.from_numpy(v[rows]).to(dev))
+         for k, v in batch.items()}
+    lp, ls = run_step(step, state, b)
+    return {"losses": [float(lp), float(ls)],
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()},
+            "student": {k: v.detach().cpu()
+                        for k, v in model.state_dict().items()},
+            "teacher": {k: v.detach().cpu()
+                        for k, v in state.teacher.state_dict().items()},
+            "protos": state.prototypes.cpu(),
+            "counts": state.proto_counts.cpu()}
+
+
+def gloo_self_train_reference(dev="cuda:0") -> dict:
+    """The gradients of the tiny self-training step's loss on the joined
+    batch, one rank in float64 on ``cuda:0``: the pseudo-labels from the
+    float32 teacher as the step makes them, then the student's two passes
+    and the source CE, pseudo CE and reverse CE in float64."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.ops.resize import resize_bilinear
+    from thermal_semantic_segmentation_torch.train.seg import (
+        forward_nhwc, frozen_inference)
+    from thermal_semantic_segmentation_torch.train.self_train import (
+        pseudo_labels)
+
+    dev = torch.device(dev)
+    b = gloo_self_train_batch()
+    t = {k: (torch.from_numpy(v).to(dev) if not isinstance(v, dict) else
+             {kk: torch.from_numpy(vv).to(dev) for kk, vv in v.items()})
+         for k, v in b.items()}
+    protos = torch.from_numpy((np.random.default_rng(26).standard_normal(
+        (NUM_CLASSES, 256)) * 0.1).astype(np.float32)).to(dev)
+    model = create_deeplab(12, device=dev, layers=(1, 1, 1, 1))
+    model.layer5.head[0].p = 0.0
+    teacher = copy.deepcopy(model)
+    fh, fw = (s // 4 for s in t["t_full"].shape[1:3])
+    oh, ow = PARITY_HW[0] // 4, PARITY_HW[1] // 4
+    with frozen_inference(teacher):
+        feat = resize_bilinear(forward_nhwc(teacher, t["t_full"])["feat"],
+                               fh, fw)
+        pseudo = pseudo_labels(feat, protos, t["t_soft"], t["t_hard"],
+                               t["wp"], out_hw=(oh, ow), ignore_index=IGNORE,
+                               train_thred=GLOO_ST_THRESHOLD)
+    model = model.double().train()
+
+    def logits(x, hw):
+        out = model(x.double().permute(0, 3, 1, 2))["out"]
+        return F.interpolate(out, size=hw, mode="bilinear",
+                             align_corners=True).permute(0, 2, 3, 1)
+
+    def ce(z, y):
+        ok = (y != IGNORE) & (y >= 0) & (y < NUM_CLASSES)
+        nll = -torch.log_softmax(z, -1).gather(
+            -1, torch.where(ok, y, 0)[..., None])[..., 0]
+        return torch.where(ok, nll, 0.0).sum() / ok.sum().clamp_min(1)
+
+    def rce(z, y):
+        p = torch.softmax(z, -1).clamp(1e-7, 1.0)
+        onehot = y[..., None] == torch.arange(NUM_CLASSES, device=dev)
+        per = -(p * torch.where(onehot, 0.0, float(np.log(1e-4)))).sum(-1)
+        mask = (y != IGNORE).double()
+        return (per * mask).sum() / (mask.sum() + 1e-6)
+
+    tgt = logits(t["t_image"], (oh, ow))
+    loss = (ce(logits(t["s_image"], PARITY_HW), t["s_label"].long())
+            + 0.1 * ce(tgt, pseudo) + rce(tgt, pseudo))
+    loss.backward()
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def gloo_gan(rows, mesh, dev, steps: int = 2) -> dict:
+    """``steps`` tiny CycleGAN steps (U-Net-32 ngf 8, PatchGAN ndf 8,
+    module2 sem nets at layers 1,1,1,1; the contour and sem losses;
+    device pools of ``GLOO_POOL``, so the pools swap from the second
+    image of the second step) on ``rows`` of the joined batch."""
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.models import factory
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.train import gan
+
+    rng = np.random.default_rng(27)
+    n = GLOO_WORLD * GLOO_LOCAL
+    batches = [{"real_s": rng.uniform(-1, 1, (n, *PARITY_HW, 3)),
+                "real_t": rng.uniform(-1, 1, (n, *PARITY_HW, 1)),
+                "label_s": rng.integers(0, NUM_CLASSES, (n, *PARITY_HW))}
+               for _ in range(steps)]
+    g = {"s2t": factory.unet_32(ngf=8, output_nc=1),
+         "t2s": factory.unet_32(ngf=8, input_nc=1, output_nc=3)}
+    d = {"t": factory.patchgan(ndf=8), "s": factory.patchgan(ndf=8,
+                                                             input_nc=3)}
+    for i, net in enumerate((*g.values(), *d.values())):
+        factory.init_gan_net(net, 30 + i, device=dev)
+    sem = {name: create_deeplab(40 + i, device=dev, num_channels=c,
+                                layers=(1, 1, 1, 1)).requires_grad_(False)
+           for i, (name, c) in enumerate((("s", 3), ("t", 1)))}
+    state = gan.create_gan_state(g_nets=g, d_nets=d, learning_rate=TRAIN_LR,
+                                 device=dev)
+    step, make_pools = gan.make_gan_step(pool_size=GLOO_POOL, cycle=True,
+                                         with_contour=True, sem_nets=sem,
+                                         sem_norm="module2", mesh=mesh)
+    pools = make_pools({"t": (*PARITY_HW, 1), "s": (*PARITY_HW, 3)},
+                       device=dev)
+    metrics, grads = [], {}
+    for b in batches:
+        t = {k: torch.from_numpy(v[rows].astype(np.float32)
+                                 if v.dtype.kind == "f" else v[rows]).to(dev)
+             for k, v in b.items()}
+        m, _ = step(state, pools, t["real_s"], t["real_t"], t["label_s"],
+                    with_sem=True)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if not grads:          # the first step's G and D gradients
+            grads = {f"{name}.{k}": (p.grad.detach().cpu() if p.grad
+                                     is not None else torch.zeros_like(
+                                         p, device="cpu"))
+                     for name, net in {**g, **d}.items()
+                     for k, p in net.named_parameters()}
+    return {"metrics": metrics, "grads": grads,
+            "state": {f"{name}.{k}": v.detach().cpu()
+                      for name, net in {**g, **d}.items()
+                      for k, v in net.state_dict().items()},
+            "params": [f"{name}.{k}" for name, net in {**g, **d}.items()
+                       for k, _ in net.named_parameters()],
+            "pools": {f"{name}.{f}": getattr(p, f).cpu()
+                      for name, p in pools.items()
+                      for f in ("buffer", "count")}}
+
+
+def envelope(got: dict, want: dict, names, steps: int = 1):
+    """(outside, total, worst): parameters ``names`` of ``got`` outside
+    ``steps`` Adam steps' lr envelope around ``want``."""
+    outside = total = 0
+    worst = 0.0
+    for k in names:
+        ratio = (got[k].double() - want[k].double()).abs() / (
+            steps * TRAIN_LR)
+        worst = max(worst, float(ratio.max()))
+        outside += int((ratio > 1.0).sum())
+        total += ratio.numel()
+    return outside, total, worst
+
+
+def self_train_gloo_check(runs) -> None:
+    """The two gloo ranks' self-training step: bit-equal on both ranks;
+    against one rank on the joined batch (losses rtol ``LOSS_RTOL``, the
+    one-step lr envelope with at most 5e-4 outside and none past 2 x,
+    prototypes rel err ``PROTO_RTOL`` and equal counts); the gradients
+    tensor by tensor against float64 in units of the largest gradient,
+    no worse than twice one rank's float32 error plus
+    ``GLOO_ST_GRAD_ATOL``."""
+    import torch
+
+    r0, r1 = (r["st"] for r in runs["ranks"])
+    one = runs["one"]["st"]
+    differ = [k for part in ("grads", "student", "teacher")
+              for k in r0[part] if not torch.equal(r0[part][k], r1[part][k])]
+    differ += [k for k in ("protos", "counts")
+               if not torch.equal(r0[k], r1[k])]
+    ref = gloo_self_train_reference()
+    scale = max(float(g.abs().max()) for g in ref.values())
+
+    def errs(grads):
+        return {n: float((grads[n].to(g.device, torch.float64) - g).abs()
+                         .max()) / scale for n, g in ref.items()}
+
+    two_e, one_e = errs(r0["grads"]), errs(one["grads"])
+    worse = [n for n in ref if two_e[n] > 2 * one_e[n] + GLOO_ST_GRAD_ATOL]
+    del ref
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                       one["losses"]))
+    outside, total, worst = envelope(r0["student"], one["student"],
+                                     r0["grads"])
+    proto_err = float((r0["protos"] - one["protos"]).abs().max()
+                      / one["protos"].abs().max())
+    counts_equal = torch.equal(r0["counts"], one["counts"])
+    print(f"self_train_dist gloo: two ranks' step vs one rank on the joined "
+          f"batch: losses {r0['losses']} vs {one['losses']} (rel err "
+          f"{loss_err:.3g}); gradients' largest error from float64 "
+          f"{max(two_e.values()):.3g} of the largest gradient (one rank's "
+          f"{max(one_e.values()):.3g}; {len(worse)} tensors past the bound); "
+          f"{outside} of {total} parameters outside the one-step lr "
+          f"envelope, worst {worst:.4f} x lr; prototypes rel err "
+          f"{proto_err:.3g}, counts {'equal' if counts_equal else 'DIFFER'}"
+          f"; ranks {'bit-equal' if not differ else differ[:5]}", flush=True)
+    if differ:
+        fail(f"the two ranks' self-training state differs: {differ[:5]}")
+    if not (loss_err <= LOSS_RTOL and not worse and outside <= 5e-4 * total
+            and worst <= 2.01 and proto_err <= PROTO_RTOL and counts_equal):
+        fail("the two-rank self-training step is not the one-rank step")
+
+
+def gan_gloo_check(runs) -> None:
+    """The two gloo ranks' CycleGAN steps: pools, parameters, gradients
+    and metrics bit-equal on both ranks; against one rank on the joined
+    batch the metrics within rtol ``GLOO_GAN_RTOL``, the pools within
+    ``GLOO_BUFFER_ATOL``, the first step's G and D gradients tensor by
+    tensor within ``GLOO_GAN_GRAD_ATOL`` of the largest gradient and
+    their global norm within rtol ``GLOO_GAN_NORM_RTOL`` (Adam's update
+    does not see a scaled gradient, so only these catch a mean over ranks
+    taken for the sum), and the parameters inside two steps' lr envelope
+    (at most 5e-4 outside, none past 2 x)."""
+    import torch
+
+    r0, r1 = (r["gan"] for r in runs["ranks"])
+    one = runs["one"]["gan"]
+    differ = [k for part in ("state", "pools", "grads") for k in r0[part]
+              if not torch.equal(r0[part][k], r1[part][k])]
+    largest = max(float(v.abs().max()) for v in one["grads"].values())
+    grad_errs = {k: float((r0["grads"][k].double() - v.double()).abs().max())
+                 / largest for k, v in one["grads"].items()}
+    norms = [sum(float(v.double().square().sum()) for v in gr.values())
+             ** 0.5 for gr in (r0["grads"], one["grads"])]
+    norm_err = abs(norms[0] - norms[1]) / norms[1]
+    grad_worst = max(grad_errs, key=grad_errs.get)
+    same_metrics = r0["metrics"] == r1["metrics"]
+    metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                     for a, b in zip(r0["metrics"], one["metrics"])
+                     for k in b)
+    pool_err = max(float((r0["pools"][k].double()
+                          - one["pools"][k].double()).abs().max())
+                   for k in one["pools"])
+    outside, total, worst = envelope(r0["state"], one["state"],
+                                     one["params"], steps=2)
+    counts = {k: int(v) for k, v in r0["pools"].items()
+              if k.endswith("count")}
+    print(f"gan_dist gloo: two ranks' steps vs one rank on the joined batch:"
+          f" metrics max rel err {metric_err:.3g}; step-1 gradients' "
+          f"largest error {grad_errs[grad_worst]:.3g} of the largest "
+          f"gradient ({grad_worst}), global norm {norms[0]:.6g} vs "
+          f"{norms[1]:.6g} (rel err {norm_err:.3g}); pools (counts {counts}) "
+          f"max abs err {pool_err:.3g}; {outside} of {total} parameters "
+          f"outside two steps' lr envelope, worst {worst:.4f} x lr; ranks' "
+          f"pools, parameters, gradients and metrics "
+          f"{'bit-equal' if not differ and same_metrics else differ[:5]}",
+          flush=True)
+    if differ or not same_metrics:
+        fail(f"the two ranks' GAN state or pools differ: {differ[:5]}")
+    if not (metric_err <= GLOO_GAN_RTOL and pool_err <= GLOO_BUFFER_ATOL
+            and grad_errs[grad_worst] <= GLOO_GAN_GRAD_ATOL
+            and norm_err <= GLOO_GAN_NORM_RTOL
+            and outside <= 5e-4 * total and worst <= 2.01
+            and set(counts.values()) == {GLOO_POOL}):
+        fail("the two-rank GAN steps are not the one-rank steps")
+
+
 def main() -> int:
     import torch
     t0 = time.perf_counter()
@@ -3142,11 +3996,16 @@ def main() -> int:
         by_path["pseudo"] = phase_pseudo(card, root)
         by_path["prototypes"] = phase_prototypes(card, root)
         by_path["self_train"] = phase_self_train(card, root)
+        # two gloo ranks of tiny models for the three multi-process phases
+        gloo = gloo_runs()
+        by_path["self_train_dist"] = phase_self_train_dist(card, root, gloo)
         by_path["gan"] = phase_gan(card, root)
+        by_path["gan_dist"] = phase_gan_dist(card, root, gloo)
         by_path["gan_legacy"] = phase_gan(card, root, "legacy")
         phase_translate(card, root)     # launches no kernel
         phase_distance(card, root)      # launches no kernel
-    by_path["dist"] = phase_dist(card)
+        by_path["data_parallel"] = phase_data_parallel(card, root)
+    by_path["dist"] = phase_dist(card, gloo)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]]
                                  for path, launches in by_path.items()}

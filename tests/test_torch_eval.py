@@ -349,11 +349,21 @@ def test_float32_confusion_matrix_stops_counting_past_2_24(jx):
 
 
 def test_seg_validate_refuses_multi_gpu(tiny):
-    """One process over several cards (``mesh``) is not yet ported; the
-    cross-process reduction is, and with one process it changes nothing
-    (tests/test_torch_dist.py runs it over two)."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        seg_validate(tiny[2], [], device="cpu", mesh=object())
+    """One process over several devices (a ``LocalMesh``, here two CPU
+    replicas) gives the one-device scores of a batch of 3 (2 + 1 rows);
+    the cross-process reduction with one process changes nothing
+    (tests/test_torch_dist.py runs it over two, and
+    tests/test_torch_data_parallel.py holds the mesh to JAX's)."""
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        local_data_mesh)
+    rng = np.random.default_rng(3)
+    three = [{"image": rng.uniform(0, 1, (3, 16, 32, 1)).astype(np.float32),
+              "label": rng.integers(0, 13, (3, 16, 32))}]
+    want = seg_validate(tiny[2], three, device="cpu")
+    got = seg_validate(tiny[2], three, device="cpu",
+                       mesh=local_data_mesh(devices=["cpu", "cpu"]))
+    assert got[0] == want[0] and got[2] == want[2]
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
     batches = [{"image": np.zeros((1, 16, 32, 1), np.float32),
                 "label": np.zeros((1, 16, 32), np.int64)}]
     assert seg_validate(tiny[2], batches, device="cpu",

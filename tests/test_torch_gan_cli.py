@@ -33,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 from PIL import Image  # noqa: E402
 
 from tests.synthetic import make_freiburg_tree  # noqa: E402
+from tests.test_torch_isolation import one_process_group  # noqa: E402,F401
 from thermal_semantic_segmentation_tpu.cli import (  # noqa: E402
     _common as jax_common, main as jax_main, main_gan as jax_main_gan,
     translator as jax_translator)
@@ -428,3 +429,58 @@ def test_legacy_sem_nets_load_from_each_source(world, monkeypatch, tmp_path,
     random = weights(main.load_sem_nets(args, "cpu"))
     assert "random weights" in capsys.readouterr().out
     assert not torch.equal(random["t"], from_flags["t"])
+
+
+@pytest.mark.parametrize("cycle", [True, False], ids=["main", "main_gan"])
+def test_gan_cli_accepts_distributed(world, narrow, tmp_path, cycle,
+                                     one_process_group, capsys):
+    """``--distributed true`` as one gloo process, with the device pools:
+    the plain run's metrics and checkpoint, bit for bit. (Two processes:
+    tests/test_torch_dist_train.py.)"""
+    run = main.main if cycle else main_gan.main
+    out = {}
+    for name, extra in (("one", []), ("dist", one_process_group)):
+        argv = _argv(world, str(tmp_path / name), "g.pth")
+        argv[argv.index("-host_pool") + 1] = "false"
+        _, history = run(argv + ["--device", "cpu"] + extra)
+        out[name] = (history[0]["metrics"], _common.load_gan_checkpoint(
+            str(tmp_path / name / "g.pth")))
+    assert out["dist"][0] == out["one"][0]
+    for key, sd in out["one"][1].items():
+        if key != "epoch":
+            for k, v in sd.items():
+                assert torch.equal(out["dist"][1][key][k], v), (key, k)
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("flag", ["distributed", "data_parallel"])
+def test_translator_accepts_multi_device_flags(world, narrow, tmp_path,
+                                               one_process_group,
+                                               monkeypatch, flag):
+    """``--distributed true`` as one gloo process (its slice is the whole
+    set) and ``--data_parallel true`` over two CPU replicas (batches of 2
+    and a tail of 1): the one-device translator's files, byte for byte."""
+    from thermal_semantic_segmentation_torch.parallel import mesh as pmesh
+    monkeypatch.setattr(pmesh, "default_devices",
+                        lambda: [torch.device("cpu")] * 2)
+    ckpt_dir = str(tmp_path / "ckpt")
+    os.makedirs(ckpt_dir)
+    os.link(os.path.join(world["root"], "start.pth"),
+            os.path.join(ckpt_dir, "g.pth"))
+    out_dir = os.path.join(world["tree"], "translation", "seq_00_day", "00",
+                           "fl_rgb")
+    extra = (one_process_group if flag == "distributed"
+             else ["--data_parallel", "true"])
+    for suffix, more in ((f"one{flag}", []), (flag, extra)):
+        summary = translator.main(
+            ["-dataset", "freiburg_rgb", "-batch_size", "2",
+             "-checkpoint_name", "g.pth", "-input_nc", "3", "-output_nc",
+             "1", "-save_image_size", "40", "72", "-translation_name_suffix",
+             suffix, "--freiburg_root", world["tree"],
+             "--gan_model_root_path", ckpt_dir, "--device", "cpu", *more])
+        assert summary["images"] == 5
+    for i in range(5):
+        with open(os.path.join(out_dir, f"{i:04d}_{flag}.png"), "rb") as f:
+            got = f.read()
+        with open(os.path.join(out_dir, f"{i:04d}_one{flag}.png"), "rb") as f:
+            assert got == f.read(), i

@@ -181,14 +181,15 @@ def _params(cases, ported):
 
 
 DISTRIBUTED = ["--distributed", "true"]
+DATA_PARALLEL = ["--data_parallel", "true"]
 REMAT_FULL = ["--remat", "full"]
 
 
 @pytest.mark.parametrize("argv", _params([
-    DISTRIBUTED, ["--data_parallel", "true"],
+    DISTRIBUTED, DATA_PARALLEL,
     ["--native_decode", "true"], ["--wire", "packed_bf16"],
     ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"]],
-    [DISTRIBUTED]))
+    [DISTRIBUTED, DATA_PARALLEL]))
 def test_eval_cli_refuses_flags_not_yet_ported(argv, capsys):
     with pytest.raises(SystemExit) as exit_info:
         segmentation_evaluate.main(argv + ["--device", "cpu"])
@@ -201,11 +202,11 @@ TRAIN_PORTED = [DISTRIBUTED, ["-bn_mode", "per_replica"], REMAT_FULL,
 
 
 @pytest.mark.parametrize("argv", _params([
-    DISTRIBUTED, ["--data_parallel", "true"],
+    DISTRIBUTED, DATA_PARALLEL,
     ["--native_decode", "true"], ["--wire", "packed_bf16"],
     ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"],
     ["-device_aug", "true"], ["-bn_mode", "per_replica"],
-    REMAT_FULL, ["--remat", "dots"]], TRAIN_PORTED))
+    REMAT_FULL, ["--remat", "dots"]], TRAIN_PORTED + [DATA_PARALLEL]))
 def test_train_cli_refuses_flags_not_yet_ported(argv, capsys):
     with pytest.raises(SystemExit) as exit_info:
         segmentation_train.main(argv + ["--device", "cpu"])
@@ -217,10 +218,10 @@ def test_train_cli_refuses_flags_not_yet_ported(argv, capsys):
 @pytest.mark.parametrize("cli", [generate_pseudo_label, cal_prototype],
                          ids=["generate_pseudo_label", "cal_prototype"])
 @pytest.mark.parametrize("argv", _params([
-    DISTRIBUTED, ["--data_parallel", "true"],
+    DISTRIBUTED, DATA_PARALLEL,
     ["--native_decode", "true"], ["--native_encode", "true"],
     ["--wire", "packed_bf16"], ["--decode_cache_mb", "512"],
-    ["--decode_cache_dir", "cache"]], [DISTRIBUTED]))
+    ["--decode_cache_dir", "cache"]], [DISTRIBUTED, DATA_PARALLEL]))
 def test_pseudo_and_prototype_clis_refuse_flags_not_yet_ported(cli, argv,
                                                                capsys):
     with pytest.raises(SystemExit) as exit_info:
@@ -231,10 +232,10 @@ def test_pseudo_and_prototype_clis_refuse_flags_not_yet_ported(cli, argv,
 
 
 @pytest.mark.parametrize("argv", _params([
-    DISTRIBUTED, ["--data_parallel", "true"],
+    DISTRIBUTED, DATA_PARALLEL,
     ["--native_decode", "true"], ["--wire", "packed_bf16"],
     ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"],
-    REMAT_FULL], [REMAT_FULL]))
+    REMAT_FULL], [REMAT_FULL, DISTRIBUTED, DATA_PARALLEL]))
 def test_self_train_cli_refuses_flags_not_yet_ported(argv, capsys):
     with pytest.raises(SystemExit) as exit_info:
         self_train_main.main(argv + ["--device", "cpu"])
@@ -247,7 +248,7 @@ GAN_CLIS = [("main", main), ("main_gan", main_gan),
             ("translator", translator),
             ("distance_evaluate", distance_evaluate)]
 GAN_REFUSED = [
-    DISTRIBUTED, ["--data_parallel", "true"],
+    DISTRIBUTED, DATA_PARALLEL,
     ["--native_decode", "true"], ["--native_encode", "true"],
     ["--wire", "packed_bf16"], ["--decode_cache_mb", "512"],
     ["--decode_cache_dir", "cache"], REMAT_FULL]
@@ -256,14 +257,18 @@ GAN_REFUSED = [
 @pytest.mark.parametrize("argv,cli", [
     pytest.param(argv, cli, id=f"argv{i}-{name}")
     for i, argv in enumerate(GAN_REFUSED) for name, cli in GAN_CLIS
-    if argv != REMAT_FULL
-    and not (argv == DISTRIBUTED and name == "distance_evaluate")])
+    if argv != REMAT_FULL and argv != DISTRIBUTED
+    and not (argv == DATA_PARALLEL and name == "translator")])
 def test_gan_clis_refuse_flags_not_yet_ported(cli, argv, capsys):
+    """``--data_parallel`` stays refused where the JAX CLI reads it
+    nowhere (main, main_gan, distance_evaluate), with that reason."""
     with pytest.raises(SystemExit) as exit_info:
         cli.main(argv + ["--device", "cpu"])
     assert exit_info.value.code != 0
     err = capsys.readouterr().err
-    assert f"error: {argv[0]} " in err and "is not yet ported" in err
+    why = ("is read nowhere by this entry point" if argv == DATA_PARALLEL
+           else "is not yet ported")
+    assert f"error: {argv[0]} " in err and why in err
 
 
 # -- the flags this port now runs, in place of their refusals -------------
@@ -376,6 +381,80 @@ def test_distance_cli_accepts_distributed(tmp_path, one_process_group):
     got = distance_evaluate.main(argv + one_process_group)
     assert _joined_one_gloo_process()
     assert got == want and np.isfinite(got).all()
+
+
+@pytest.fixture
+def two_cpu_replicas(monkeypatch):
+    """``--data_parallel`` sees two devices, both the CPU: the
+    ``LocalMesh`` runs two model copies on it."""
+    from thermal_semantic_segmentation_torch.parallel import mesh as pmesh
+    monkeypatch.setattr(pmesh, "default_devices",
+                        lambda: [torch.device("cpu")] * 2)
+
+
+def test_eval_cli_accepts_data_parallel(tiny_tree, two_cpu_replicas, capsys):
+    """Batches of 2 and a tail of 1 split over two CPU replicas: the
+    one-device scores (mIoU exactly, val_loss rtol 1e-6)."""
+    root, tree = tiny_tree
+    argv = ["-dataset", "freiburg_ir", "-checkpoint_name", "s.pth",
+            "--model_root_path", str(root), "--freiburg_root", tree,
+            "-val_batch_size", "2", "--device", "cpu"]
+    want = segmentation_evaluate.main(argv)
+    got = segmentation_evaluate.main(argv + DATA_PARALLEL)
+    assert "evaluating data-parallel over 2 devices" in capsys.readouterr().out
+    assert got[0] == want[0] and got[2] == want[2]
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+
+
+def test_train_cli_accepts_data_parallel(tiny_tree, two_cpu_replicas,
+                                         tmp_path, monkeypatch):
+    """The train CLI validates over two CPU replicas: the same step, the
+    one-device val_loss (rtol 1e-6)."""
+    root, tree = tiny_tree
+    monkeypatch.chdir(tmp_path)        # the CLI writes logs/<name>/
+    argv = ["-dataset", "freiburg_ir", "--freiburg_root", tree, "-epochs",
+            "1", "-batch_size", "2", "-val_batch_size", "2", "-max_steps",
+            "1", "--layers", "1,1,1,1", "--model_root_path", str(tmp_path),
+            "-new_checkpoint_name", "n.pth", "--device", "cpu"]
+    _, want = segmentation_train.main(argv)
+    _, got = segmentation_train.main(argv + DATA_PARALLEL)
+    assert got[0]["train_losses"] == want[0]["train_losses"]
+    np.testing.assert_allclose(got[0]["val_loss"], want[0]["val_loss"],
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("cli", [generate_pseudo_label, cal_prototype],
+                         ids=["generate_pseudo_label", "cal_prototype"])
+def test_pseudo_and_prototype_clis_accept_data_parallel(cli, tiny_tree,
+                                                        two_cpu_replicas,
+                                                        tmp_path):
+    """Batches of 2 and a tail of 1 over two CPU replicas: the one-device
+    files (ids equal, confidences 1e-6) and prototypes (5e-6, counts
+    exact)."""
+    root, tree = tiny_tree
+    argv = ["-checkpoint_name", "s.pth", "--model_root_path", str(root),
+            "--freiburg_root", tree, "-batch_size", "2", "--device", "cpu"]
+    if cli is generate_pseudo_label:
+        out = {}
+        for name, extra in (("one", []), ("two", DATA_PARALLEL)):
+            assert cli.main(argv + ["--root", str(tmp_path / name)]
+                            + extra) == 5
+            out[name] = tmp_path / name / "pseudo_labels" / "hard" / "s"
+        files = sorted(p.name for p in out["one"].iterdir())
+        assert files == sorted(p.name for p in out["two"].iterdir())
+        for f in files:
+            if f.endswith("_conf.npy"):
+                np.testing.assert_allclose(np.load(out["two"] / f),
+                                           np.load(out["one"] / f), atol=1e-6)
+            elif not f.endswith("_color.png"):
+                assert (out["two"] / f).read_bytes() == \
+                    (out["one"] / f).read_bytes(), f
+    else:
+        argv += ["-root", str(tmp_path), "-epochs", "1"]
+        want = cli.main(argv)
+        got = cli.main(argv + DATA_PARALLEL)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=5e-6)
 
 
 def test_self_train_cli_accepts_remat():

@@ -127,6 +127,15 @@ def test_full2weak_sample_matches_jax(flip):
                                    rtol=0, atol=1e-5)
 
 
+def _prototype_weights_f64(feat, protos, temperature):
+    f, p = feat.astype(np.float64), protos.astype(np.float64)
+    d = np.sqrt(np.maximum((f * f).sum(-1, keepdims=True) - 2 * f @ p.T
+                           + (p * p).sum(-1), 1e-12))
+    z = -(d - d.min(-1, keepdims=True)) * temperature
+    e = np.exp(z - z.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
 def test_prototype_weights_match_jax():
     rng = np.random.default_rng(2)
     feat = (rng.standard_normal((2, 16, 32, 256)) * 0.1).astype(np.float32)
@@ -137,9 +146,14 @@ def test_prototype_weights_match_jax():
                                                jnp.asarray(protos), 0.5))
     state = (torch.get_float32_matmul_precision(),
              torch.is_autocast_enabled("cpu"), torch.get_num_threads())
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6,
-                               err_msg=f"torch matmul precision, CPU "
-                                       f"autocast, threads: {state}")
+    # which side drifted, if one does: each against float64
+    exact = _prototype_weights_f64(feat, protos, 0.5)
+    np.testing.assert_allclose(
+        got, want, rtol=0, atol=1e-6,
+        err_msg=f"torch matmul precision, CPU autocast, threads: {state}; "
+                f"max error from float64: port "
+                f"{np.abs(got - exact).max():.3g}, JAX "
+                f"{np.abs(want - exact).max():.3g}")
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=1e-5)
 
 

@@ -28,6 +28,7 @@ import jax  # noqa: E402
 
 from tests.synthetic import make_freiburg_tree  # noqa: E402
 from tests.test_torch_deeplab import jax_deeplab_with_twin  # noqa: E402
+from tests.test_torch_isolation import one_process_group  # noqa: E402,F401
 from tests.test_torch_pseudo_proto_cli import _tiny  # noqa: E402
 from tests.test_torch_train import no_dropout  # noqa: E402
 from thermal_semantic_segmentation_tpu.cli import (  # noqa: E402
@@ -256,3 +257,31 @@ def test_self_train_cli_refuses_a_missing_prototype_file(world, tiny_port,
     argv[argv.index("--root") + 1] = str(tmp_path)
     with pytest.raises(FileNotFoundError):
         self_train_main.main(argv)
+
+
+@pytest.mark.parametrize("flag", ["distributed", "data_parallel"])
+def test_self_train_cli_accepts_multi_device_flags(world, tiny_port,
+                                                   tmp_path, monkeypatch,
+                                                   one_process_group, flag):
+    """``--distributed true`` as one gloo process, and ``--data_parallel
+    true`` validating over two CPU replicas: the one-device run's losses
+    and validations (mean_iu exactly, val_loss rtol 1e-6) and weights.
+    (Two processes: tests/test_torch_dist_train.py.)"""
+    from thermal_semantic_segmentation_torch.parallel import mesh as pmesh
+    monkeypatch.setattr(pmesh, "default_devices",
+                        lambda: [torch.device("cpu")] * 2)
+    runs = {}
+    for name, extra in (("one", []), ("flag", one_process_group
+                                      if flag == "distributed"
+                                      else ["--data_parallel", "true"])):
+        runs[name] = self_train_main.main(_argv(
+            world, f"{name}.pth", str(tmp_path / name), "--device", "cpu",
+            *extra))
+    (want_state, want), (got_state, got) = runs["one"], runs["flag"]
+    assert pmesh.process_count() == 1
+    assert got[0]["losses"] == want[0]["losses"]
+    for g, w in zip(got[0]["validations"], want[0]["validations"]):
+        assert g["mean_iu"] == w["mean_iu"] and g["saved"] == w["saved"]
+        np.testing.assert_allclose(g["val_loss"], w["val_loss"], rtol=1e-6)
+    for k, v in want_state.model.state_dict().items():
+        assert torch.equal(got_state.model.state_dict()[k], v), k

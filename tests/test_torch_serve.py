@@ -313,13 +313,40 @@ def test_native_msgpack_checkpoint_is_refused(exported, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--kind", "translator"], ["--artifact", "model.stablehlo"],
-    ["--data_parallel", "true"]])
+    pytest.param(["--kind", "translator"], id="argv0"),
+    pytest.param(["--artifact", "model.stablehlo"], id="argv1")])
 def test_serve_main_refuses_what_is_not_yet_ported(argv, capsys):
     with pytest.raises(SystemExit) as exit_info:
         serve.main(argv + ["--device", "cpu"])
     assert exit_info.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_serve_accepts_data_parallel(exported, monkeypatch, capsys):
+    """``--data_parallel`` over two CPU replicas: each coalesced batch of
+    4 splits 2 + 2 and the ids are the one-copy server's; a batch that
+    does not divide over the mesh is refused, as the JAX server refuses
+    it."""
+    from thermal_semantic_segmentation_torch.parallel import mesh as pmesh
+    monkeypatch.setattr(pmesh, "default_devices",
+                        lambda: [torch.device("cpu")] * 2)
+    root, _, _ = exported
+    argv = ["-checkpoint_name", "s.pth", "--model_root_path", str(root),
+            "--device", "cpu", "-batch_size", "4"]
+    one = serve.build_seg_server(serve.serve_parse().parse_args(argv))
+    two = serve.build_seg_server(serve.serve_parse().parse_args(
+        argv + ["--data_parallel", "true"]))
+    assert "serving data-parallel over 2 devices" in capsys.readouterr().out
+    # both entries are the CPU: they share the server's one model
+    assert two.mesh.size == 2 and two.replicas == [two.model, two.model]
+    x = np.random.default_rng(9).uniform(0, 1, (4, *batcher.HW, 1)).astype(
+        np.float32)
+    np.testing.assert_array_equal(two._predict(x), one._predict(x))
+    with pytest.raises(ValueError, match="must divide evenly"):
+        batcher.InferenceServer(one.model, batch_size=3, label_hw=HW,
+                                device="cpu",
+                                mesh=pmesh.local_data_mesh(
+                                    devices=["cpu", "cpu"]))
 
 
 def test_concurrent_http_clients_coalesce(pair):

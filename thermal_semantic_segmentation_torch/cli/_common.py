@@ -294,6 +294,24 @@ def build_generator_from_gan_checkpoint(path: str, generator_type: str, *,
                      memory_format=torch.channels_last).eval(), ngf
 
 
+def maybe_data_parallel(args, batch_size: int, verb: str):
+    """The ``LocalMesh`` of ``--data_parallel`` for an inference loop over
+    batches of ``batch_size`` (JAX ``maybe_data_parallel``), or None with
+    the flag off. Its devices: every card this process sees, shrunk to a
+    count that divides ``batch_size`` (``parallel/mesh.local_data_mesh``);
+    under ``--distributed`` this rank's own card, since every rank holds
+    one."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    from ..parallel.mesh import local_data_mesh, process_count
+    devices = None
+    if process_count() > 1:
+        devices = [resolve_device(getattr(args, "device", "") or None)]
+    mesh = local_data_mesh(batch_size=batch_size, devices=devices)
+    print(f"{verb} data-parallel over {mesh.size} devices")
+    return mesh
+
+
 def model_meta(args) -> dict:
     """The architecture ``args`` builds, in ``model_meta_from_state_dict``'s
     keys, so a saved checkpoint can be held to it."""

@@ -13,7 +13,9 @@ package's msgpack format, which its self-training reads, under
 Under ``--distributed`` each process folds its own slice of the set (the
 slices partition it), the partials merge count-weighted across the
 processes (``train/prototypes.merge_process_prototypes``), and process 0
-writes the file.
+writes the file. ``--data_parallel true`` splits each batch over the
+process's cards (``parallel/mesh.LocalMesh``); the per-sample class
+vectors come back in row order before the fold.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..device import resolve_device
 from ..parallel.mesh import host_shard
 from ..train.prototypes import calc_prototypes
 from ._common import (apply_model_meta, build_deeplab, load_seg_checkpoint,
-                      primary_host)
+                      maybe_data_parallel, primary_host)
 from .options import calc_proto_parse
 
 
@@ -63,7 +65,10 @@ def calc_prototype(args):
                                          num_classes=args.num_classes,
                                          epochs=args.epochs,
                                          max_steps=args.max_steps,
-                                         device=device, bf16=args.bf16)
+                                         device=device, bf16=args.bf16,
+                                         mesh=maybe_data_parallel(
+                                             args, args.batch_size,
+                                             "computing prototypes"))
     out_path = prototype_path(args.root, args.dataset, args.checkpoint_name)
     if primary_host():
         print("saving prototypes......")

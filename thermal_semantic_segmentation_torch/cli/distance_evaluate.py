@@ -37,7 +37,7 @@ def distance_parse():
                              "translated into another class's intensity "
                              "range.")
     parser.add_argument("--num_classes", type=int, default=13)
-    parser.distributed = True      # the translator's stays refused
+    parser.data_parallel = False   # the JAX CLI reads it nowhere
     return parser
 
 

@@ -12,7 +12,8 @@ reference ``.pth`` or a JAX msgpack checkpoint) and writes the files under
 
 Every image is labelled, the ragged tail batch at its own size. Under
 ``--distributed`` each process labels its own slice of the set (the slices
-partition it) and writes that slice's files.
+partition it) and writes that slice's files. ``--data_parallel true``
+splits each batch over the process's cards (``parallel/mesh.LocalMesh``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..device import resolve_device
 from ..parallel.mesh import host_shard
 from ..train.pseudo import generate_pseudo_labels
 from ._common import (apply_model_meta, build_deeplab, build_seg_dataset,
-                      load_seg_checkpoint, val_transform)
+                      load_seg_checkpoint, maybe_data_parallel, val_transform)
 from .options import pseudo_generation_parse
 
 
@@ -49,7 +50,8 @@ def main(argv=None):
     n = generate_pseudo_labels(model, loader, save_path=save_path,
                                soft=args.soft, flip=args.flip,
                                max_steps=args.max_steps, device=device,
-                               bf16=args.bf16)
+                               bf16=args.bf16, mesh=maybe_data_parallel(
+                                   args, args.batch_size, "labelling"))
     print(f"wrote pseudo labels for {n} images to {save_path}")
     return n
 

@@ -28,6 +28,14 @@ stops the loop after the step in flight and writes
 ``preempt_<-new_checkpoint_name>`` with the previous epoch's number, as the
 JAX CLI does (a resume from it starts at that epoch, the checkpoint's own,
 as every resume here does).
+
+With ``--distributed true`` (torchrun, or the ``--coordinator_address``
+flags) each rank trains on its ``host_shard`` of both sets, the step is
+the JAX step on the global batch (``train/gan.py``: synchronised
+BatchNorm, the pools fed every rank's fakes), the preemption poll is
+all-reduced and process 0 writes the checkpoints. ``-host_pool true`` is
+refused there (``train/gan.make_gan_steps``): the JAX host pool has no
+cross-process form.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import transforms as T
 from ..data.cityscapes import Cityscapes
@@ -46,7 +55,8 @@ from ..data.loader import DataLoader
 from ..data.simple import FlirTrain, Kitti
 from ..device import resolve_device
 from ..models.convert import GAN_KEYS
-from ..utils.preempt import GracefulShutdown, NullShutdown
+from ..parallel import mesh as pmesh
+from ..utils.preempt import GracefulShutdown, NullShutdown, cross_process
 from ..models.deeplab import create_deeplab
 from ..models.factory import (deeplabv2_resnet101, deeplabv2_resnet101_thermal,
                               init_gan_net, patchgan, unet_256)
@@ -104,12 +114,13 @@ def build_gan_datasets(args):
 
 def make_loaders(args):
     """The shuffled source and target loaders (drop_last), as the JAX CLI
-    seeds them."""
+    seeds them, each process on its ``host_shard``."""
     source, target = build_gan_datasets(args)
+    shard = pmesh.host_shard()
     return (DataLoader(source, args.batch_size, shuffle=True, drop_last=True,
-                       seed=args.seed),
+                       seed=args.seed, shard=shard),
             DataLoader(target, args.batch_size, shuffle=True, drop_last=True,
-                       seed=args.seed + 1))
+                       seed=args.seed + 1, shard=shard))
 
 
 def build_gan_nets(args, device):
@@ -188,8 +199,10 @@ def gan_epochs(args, src_loader, tgt_loader, shutdown=None):
     step; once requested, the loop writes ``preempt_<-new_checkpoint_name>``
     and returns."""
     device = resolve_device(args.device or None)
-    if shutdown is None:
-        shutdown = NullShutdown()
+    # a process group (even of one rank) trains through the mesh step
+    mesh = pmesh.make_mesh(device) if dist.is_initialized() else None
+    shutdown = cross_process(shutdown if shutdown is not None
+                             else NullShutdown())
     g_nets, d_nets = build_gan_nets(args, device)
     restart_epoch, ckpt = 0, None
     ckpt_path = os.path.join(args.gan_model_root_path, args.checkpoint_name)
@@ -209,7 +222,8 @@ def gan_epochs(args, src_loader, tgt_loader, shutdown=None):
         grayscale_source=args.grayscale,
         canny_rgb_threshold=args.canny_rgb_threshold,
         canny_thermal_threshold=args.canny_thermal_threshold,
-        sem_nets=sem_nets, sem_norm=args.sem_mode, bf16=args.bf16)
+        sem_nets=sem_nets, sem_norm=args.sem_mode, bf16=args.bf16,
+        mesh=mesh)
     if args.host_pool:
         g_step, d_step = make_gan_steps(**step_kwargs)
         pools = {k: ImagePool(POOL_SIZE, seed=args.seed + i)

@@ -13,7 +13,6 @@ import argparse
 # host-side modes of the JAX package that the port has not ported yet: the
 # flag and a test of its value that is true when the mode is asked for
 NOT_YET_PORTED = {
-    "data_parallel": bool,
     "native_decode": bool,
     "native_encode": bool,
     "wire": lambda v: v == "packed_bf16",
@@ -32,24 +31,34 @@ class HostConfigParser(argparse.ArgumentParser):
     device use, as the JAX parser calls ``jax.distributed.initialize``
     (``parallel/mesh.init_distributed``: NCCL on the card, gloo with
     ``--device cpu``). An entry point whose multi-process path is not yet
-    ported builds its parser with ``distributed=False`` and refuses it."""
+    ported builds its parser with ``distributed=False`` and refuses it.
+    One whose JAX counterpart reads ``--data_parallel`` nowhere builds it
+    with ``data_parallel=False`` and refuses that flag, as a flag that
+    would change nothing."""
 
-    def __init__(self, *a, distributed: bool = True, **kw):
+    def __init__(self, *a, distributed: bool = True,
+                 data_parallel: bool = True, **kw):
         super().__init__(*a, **kw)
         self.distributed = distributed
+        self.data_parallel = data_parallel
 
     def parse_args(self, *a, **kw):  # type: ignore[override]
         args = super().parse_args(*a, **kw)
-        refused = dict(NOT_YET_PORTED)
+        why = "is not yet ported to the PyTorch package (see ROADMAP.md)"
+        refused = {flag: (test, why) for flag, test in NOT_YET_PORTED.items()}
         if not self.distributed:
-            refused["distributed"] = bool
-        for flag, test in refused.items():
+            refused["distributed"] = (bool, why)
+        if not self.data_parallel:
+            refused["data_parallel"] = (
+                bool, "is read nowhere by this entry point, in the JAX "
+                      "package as here; --distributed true spreads its "
+                      "work over cards")
+        for flag, (test, reason) in refused.items():
             value = getattr(args, flag, None)
             if value is not None and test(value):
                 option = next(a.option_strings[0] for a in self._actions
                               if a.dest == flag)
-                self.error(f"{option} {value} is not yet ported to the "
-                           f"PyTorch package (see ROADMAP.md)")
+                self.error(f"{option} {value} {reason}")
         if getattr(args, "distributed", False):
             from ..parallel.mesh import init_distributed
             init_distributed(args.coordinator_address, args.num_processes,
@@ -112,7 +121,14 @@ def _add_roots(parser: argparse.ArgumentParser):
                              '(default 3,4,23,3 = ResNet-101). A checkpoint '
                              'overrides it with its own.')
     parser.add_argument('--data_parallel', type=str2bool, default=False,
-                        help='not yet ported: refused when true.')
+                        help='inference over every card this process '
+                             'sees (CUDA_VISIBLE_DEVICES narrows them): '
+                             'each batch split into contiguous shares, one '
+                             'model copy per card; a batch that does not '
+                             'divide over the cards shrinks the set with a '
+                             'warning. The trainers shard their validation '
+                             'with it: over the ranks under --distributed, '
+                             'else over the cards.')
     parser.add_argument('--distributed', type=str2bool, default=False,
                         help='join a multi-process job at parse time, one '
                              'process per card (NCCL; gloo with --device '
@@ -135,7 +151,7 @@ def train_parse():
     """GAN translation training options (reference options.py:4-24, with
     the JAX package's additions)."""
     parser = HostConfigParser(description='train options',
-                              distributed=False)
+                              data_parallel=False)
     parser.add_argument('-batch_size', type=int, default=4)
     parser.add_argument('-sem_loss', type=str2bool, default=False)
     parser.add_argument('-load_model', type=str2bool, default=False)
@@ -161,7 +177,9 @@ def train_parse():
     parser.add_argument('-host_pool', type=str2bool, default=False,
                         help='the host image pool between separate G and D '
                              'updates (the reference loop); default is one '
-                             'update with the pool on the device.')
+                             'update with the pool on the device. Refused '
+                             'with --distributed true: the host pool has no '
+                             'cross-process form.')
     parser.add_argument('-sem_checkpoint_s', type=str, default='',
                         help='the frozen RGB sem net: with -sem_mode legacy '
                              'a reference legacy .pth or the JAX package\'s '
@@ -194,8 +212,7 @@ def train_parse():
 
 def translation_parse():
     """Offline translator options (reference options.py:27-48)."""
-    parser = HostConfigParser(description='translation options',
-                              distributed=False)
+    parser = HostConfigParser(description='translation options')
     parser.add_argument('--root', type=str, default='')
     parser.add_argument('-dataset', type=str, default='Cityscapes')
     parser.add_argument('-batch_size', type=int, default=1)
@@ -340,7 +357,7 @@ def self_train_parse():
     """Self-training options (reference self_train_main.py:145-181), with
     the two the JAX ``cli/self_train_main.main`` adds:
     ``--initial_best_miou`` and ``--early_stop_patience``."""
-    parser = HostConfigParser(description="config", distributed=False)
+    parser = HostConfigParser(description="config")
     parser.add_argument('--root', type=str, default='')
     parser.add_argument('--resize', type=int, default=1200)
     parser.add_argument('--rcrop', type=int, nargs=2, default=[512, 256])

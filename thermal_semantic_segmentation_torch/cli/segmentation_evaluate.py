@@ -14,6 +14,8 @@ Every image is scored, the ragged tail batch at its own size, so any
 confusion matrices and loss sums are summed across the processes; with
 ``-visualize_prediction`` every process scores the whole set instead (the
 dump names would collide) and process 0 alone writes the PNGs.
+``--data_parallel true`` splits each batch over the process's cards
+(``parallel/mesh.LocalMesh``); the confusion matrices add up.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from ..device import resolve_device
 from ..eval.validate import seg_validate
 from ..parallel.mesh import host_shard
 from ._common import (apply_model_meta, build_deeplab, build_seg_dataset,
-                      load_seg_checkpoint, primary_host, val_transform)
+                      load_seg_checkpoint, maybe_data_parallel, primary_host,
+                      val_transform)
 from .options import evaluation_parse
 
 
@@ -76,7 +79,8 @@ def seg_evaluation(args):
         model, loader, num_classes=args.num_classes,
         ignore_index=args.ignore_index, visualize=visualize,
         save_root=save_root, device=device, bf16=args.bf16,
-        reduce_processes=shard is not None)
+        reduce_processes=shard is not None,
+        mesh=maybe_data_parallel(args, args.val_batch_size, "evaluating"))
     print("checkpoint name: " + args.checkpoint_name)
     print(f"mean iou score: [{mean_iu}]. val_loss: [{avg_loss}]")
     for k, v in class_iou.items():

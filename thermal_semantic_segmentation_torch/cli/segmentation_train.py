@@ -17,8 +17,12 @@ predictions.
 Under ``--distributed`` (one process per card; ``torchrun`` or the
 ``--coordinator_address`` flags) each rank trains on its ``host_shard`` of
 every epoch under ``DistributedDataParallel`` (``-bn_mode sync`` or
-``per_replica``, ``train/seg.py``), validates the whole split itself, and
-process 0 writes the checkpoints. A SIGTERM or SIGINT on any rank stops
+``per_replica``, ``train/seg.py``), validates the whole split itself (its
+shard of it, the scores reduced over the ranks, with ``--data_parallel
+true``), and process 0 writes the checkpoints. Without ``--distributed``,
+``--data_parallel true`` splits each validation batch over the process's
+cards (``parallel/mesh.LocalMesh``) when ``-val_batch_size`` divides
+over them. A SIGTERM or SIGINT on any rank stops
 every rank after the step in flight, and process 0 writes
 ``preempt_<-new_checkpoint_name>``, which ``-load_model true`` resumes
 (the interrupted epoch is redone):
@@ -42,6 +46,7 @@ from ..data.freiburg import FreiburgTest
 from ..data.loader import DataLoader, split_indices
 from ..device import resolve_device
 from ..eval.validate import seg_validate
+from ..parallel import mesh as pmesh
 from ..parallel.mesh import host_shard, make_mesh, process_index
 from ..train.seg import (build_seg_eval_step, create_seg_state,
                          make_seg_train_step)
@@ -61,17 +66,20 @@ def make_loaders(args, source_dataset, target_val_dataset):
     (in lockstep); source val through the train dataset, so through its
     augmenting transform, as the reference does (segmentation_train.py:143);
     the target test split in order. Every process validates the whole of
-    both splits."""
+    both splits, or with ``--data_parallel`` its shard of each."""
     train_idx, val_idx = split_indices(len(source_dataset), 0.2, seed=42)
     train_loader = DataLoader(source_dataset, args.batch_size, shuffle=True,
                               indices=train_idx, drop_last=True,
                               seed=args.seed, shard=host_shard())
+    val_shard = host_shard() if args.data_parallel else None
     val_loader = DataLoader(source_dataset, args.val_batch_size,
                             shuffle=True, indices=val_idx, drop_last=False,
-                            seed=args.seed + 1)
+                            seed=args.seed + 1, shard=val_shard,
+                            shard_lockstep=False)
     target_val_loader = DataLoader(target_val_dataset, args.val_batch_size,
                                    shuffle=False, drop_last=False,
-                                   seed=args.seed + 2)
+                                   seed=args.seed + 2, shard=val_shard,
+                                   shard_lockstep=False)
     return train_loader, val_loader, target_val_loader
 
 
@@ -95,6 +103,16 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader,
                              else NullShutdown())
     mesh = (make_mesh(device, batch_size=args.batch_size)
             if dist.is_initialized() else None)
+    reduce_val = getattr(val_loader, "shard", None) is not None
+    val_mesh = None
+    if args.data_parallel and pmesh.process_count() == 1:
+        cards = pmesh.default_devices()
+        if args.val_batch_size % len(cards) == 0:
+            val_mesh = pmesh.local_data_mesh(devices=cards)
+        else:
+            print(f"val_batch_size {args.val_batch_size} does not divide "
+                  f"the {len(cards)}-device mesh; validation stays "
+                  f"single-device")
     restart_epoch = 0
     lowest_val_loss = float("inf")
     if args.load_model:
@@ -182,7 +200,7 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader,
         mean_iu, val_loss, class_iou = seg_validate(
             state.model, val_loader, num_classes=args.num_classes,
             ignore_index=args.ignore_index, eval_step=eval_step,
-            device=device)
+            device=device, mesh=val_mesh, reduce_processes=reduce_val)
         state.lr_scale = scheduler.step(val_loss)
         record.update(val_loss=val_loss, lr_scale=state.lr_scale,
                       scheduler_steps=scheduler.num_steps,
@@ -211,7 +229,7 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader,
             mean_iu, _, class_iou = seg_validate(
                 state.model, target_val_loader, num_classes=13,
                 ignore_index=args.ignore_index, eval_step=eval_step,
-                device=device)
+                device=device, mesh=val_mesh, reduce_processes=reduce_val)
             line = "target test dataset mean iou score: " + str(mean_iu)
             logger.info(line); print(line)
             for k, v in class_iou.items():

@@ -19,6 +19,18 @@ the loop after the step in flight and writes
 ``preempt_<-new_checkpoint_name>`` (the moving prototypes included), which
 ``--load_model true -checkpoint_name preempt_<name>`` resumes, the
 interrupted epoch redone.
+
+With ``--distributed true`` (torchrun, or the ``--coordinator_address``
+flags) each rank trains on its ``host_shard`` of both train sets and the
+step is the JAX step on the global batch (``train/self_train.py``).
+Every decision that ends or steers the loop agrees across ranks: the
+preemption poll is all-reduced (``utils/preempt.cross_process``) and each
+validation's scores are rank 0's (or, with ``--data_parallel``, the
+ranks' shards reduced), so the plateau scheduler, the early stop and the
+best-mIoU save take the same turn everywhere; process 0 writes the
+checkpoints. ``--data_parallel true`` shards validation: over the ranks
+under ``--distributed``, else over this process's cards
+(``parallel/mesh.LocalMesh``).
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..core.checkpoint import load_checkpoint
 from ..core.schedule import ReduceLROnPlateau
@@ -36,13 +49,15 @@ from ..data.loader import DataLoader
 from ..data.self_train_aug import SelfTrainAugment
 from ..device import resolve_device
 from ..eval.validate import seg_validate
+from ..parallel import mesh as pmesh
 from ..train.seg import build_seg_eval_step
 from ..train.self_train import create_self_train_state, make_self_train_step
 from ..utils.logging import get_logger
 from ..utils.meters import AverageMeter, ProgressMeter
-from ..utils.preempt import GracefulShutdown, NullShutdown
+from ..utils.preempt import GracefulShutdown, NullShutdown, cross_process
 from ._common import (apply_model_meta, build_deeplab, load_seg_checkpoint,
-                      save_seg_checkpoint, train_transform, val_transform)
+                      maybe_data_parallel, primary_host, save_seg_checkpoint,
+                      train_transform, val_transform)
 from .cal_prototype import prototype_path
 from .options import self_train_parse
 
@@ -50,8 +65,9 @@ from .options import self_train_parse
 def make_loaders(args):
     """(source, target, target val) loaders as the JAX CLI builds them:
     the translated RGB train frames with ``train_transform``, the IR train
-    frames in self-training mode with their pseudo-labels, the IR test
-    split with ``val_transform``."""
+    frames in self-training mode with their pseudo-labels, each process on
+    its ``host_shard``, and the IR test split with ``val_transform``
+    (sharded over the processes too with ``--data_parallel``)."""
     source = Freiburg(args.freiburg_root, "train", "RGB",
                       translation_name=args.translation_name,
                       segmentation_mode=True, transforms=train_transform())
@@ -65,12 +81,15 @@ def make_loaders(args):
         proto_rectify=args.proto_rectify)
     target_val = FreiburgTest(args.freiburg_root, "test", "IR",
                               transforms=val_transform(), with_label=True)
+    shard = pmesh.host_shard()
     return (DataLoader(source, args.batch_size, shuffle=True, drop_last=True,
-                       seed=args.seed),
+                       seed=args.seed, shard=shard),
             DataLoader(target, args.batch_size, shuffle=True, drop_last=True,
-                       seed=args.seed + 1),
+                       seed=args.seed + 1, shard=shard),
             DataLoader(target_val, args.batch_size, shuffle=False,
-                       drop_last=False, seed=args.seed + 2))
+                       drop_last=False, seed=args.seed + 2,
+                       shard=shard if args.data_parallel else None,
+                       shard_lockstep=False))
 
 
 def merged_batches(tgt_loader, src_loader):
@@ -96,8 +115,18 @@ def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader,
     every step; once requested, ``preempt_<-new_checkpoint_name>`` is
     written with the previous epoch's number and the loop returns."""
     device = resolve_device(args.device or None)
-    if shutdown is None:
-        shutdown = NullShutdown()
+    shutdown = cross_process(shutdown if shutdown is not None
+                             else NullShutdown())
+    # a process group (even of one rank) trains through the mesh step
+    mesh = pmesh.make_mesh(device) if dist.is_initialized() else None
+    distributed = pmesh.process_count() > 1
+    # validation: every rank scores the whole set and takes rank 0's
+    # scores, or (--data_parallel) its shard, reduced over the ranks;
+    # one process shards it over its cards with --data_parallel
+    reduce_val = (distributed
+                  and getattr(val_loader, "shard", None) is not None)
+    val_mesh = (None if distributed else
+                maybe_data_parallel(args, args.batch_size, "validating"))
     restart_epoch, meta = 0, {}
     if args.load_model:
         path = os.path.join(args.model_root_path, args.checkpoint_name)
@@ -133,7 +162,7 @@ def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader,
         ema=args.ema, moving_prototype=args.moving_prototype,
         proto_momentum=args.proto_momentum,
         label_hw=(args.rcrop[1], args.rcrop[0]), dropout_seed=args.seed,
-        bf16=args.bf16, device=device)
+        bf16=args.bf16, mesh=mesh, device=device)
     eval_step = build_seg_eval_step(num_classes=args.num_classes,
                                     ignore_index=args.ignore_index,
                                     device=device, bf16=args.bf16)
@@ -194,11 +223,15 @@ def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader,
                 mean_iu, val_loss, class_iou = seg_validate(
                     state.model, val_loader, num_classes=args.num_classes,
                     ignore_index=args.ignore_index, eval_step=eval_step,
-                    visualize=args.visualize_prediction,
+                    visualize=(args.visualize_prediction
+                               if primary_host() else None),
                     save_root=os.path.join(
                         args.root, "predictions",
                         args.new_checkpoint_name.replace(".pth", "")),
-                    iter_counter=args.iter_counter, device=device)
+                    iter_counter=args.iter_counter, device=device,
+                    mesh=val_mesh, reduce_processes=reduce_val)
+                if distributed and not reduce_val:
+                    mean_iu, val_loss = agreed_scores(mean_iu, val_loss)
                 msg = "target test dataset mean iou score: " + str(mean_iu)
                 logger.info(msg); print(msg)
                 for k, v in class_iou.items():
@@ -249,6 +282,14 @@ def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader,
         if record["stopped_early"]:
             break
     return state, history
+
+
+def agreed_scores(mean_iu: float, val_loss: float):
+    """Rank 0's (mean_iu, val_loss) on every rank: the decisions they
+    steer must not part over a last bit of a rank's own validation."""
+    scores = pmesh.broadcast(torch.tensor([mean_iu, val_loss],
+                                          dtype=torch.float64))
+    return float(scores[0]), float(scores[1])
 
 
 def self_train_main(args, logger, shutdown=None):

@@ -19,8 +19,10 @@ Endpoints:
 
 Input: PNG/JPEG bytes. 16-bit images get the Freiburg IR radiometric window;
 8-bit images are scaled to [0, 1]; everything is resized to 256x512.
-``--kind translator``, ``--artifact`` and ``--data_parallel`` are not yet
-ported and exit with an error.
+``--data_parallel true`` splits every coalesced batch over the cards this
+process sees (``parallel/mesh.LocalMesh``, shrunk to a count that divides
+``-batch_size``), one model copy on each. ``--kind translator`` and
+``--artifact`` are not yet ported and exit with an error.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ def serve_parse():
 def build_seg_server(args) -> InferenceServer:
     """Checkpoint -> model on ``args.device`` -> a (not yet started)
     InferenceServer; what ``main`` serves."""
-    from ._common import apply_model_meta, build_deeplab, load_seg_checkpoint
+    from ._common import (apply_model_meta, build_deeplab,
+                          load_seg_checkpoint, maybe_data_parallel)
 
     state_dict, meta = load_seg_checkpoint(
         os.path.join(args.model_root_path, args.checkpoint_name))
@@ -70,7 +73,8 @@ def build_seg_server(args) -> InferenceServer:
     return InferenceServer(
         model, batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
         channels=1 if args.net_mode == "one_channel" else 3,
-        bf16=args.bf16, device=device)
+        bf16=args.bf16, device=device,
+        mesh=maybe_data_parallel(args, args.batch_size, "serving"))
 
 
 def main(argv=None):

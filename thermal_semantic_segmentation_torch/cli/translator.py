@@ -16,6 +16,12 @@ size (the JAX package pads it to keep one compiled shape). The forward,
 de-normalisation and resize run on the device; PNG destinations (the
 Freiburg frames) are encoded by ``data/png.py`` on writer threads, other
 extensions through PIL.
+
+``--distributed true``: each process translates its own slice of the
+dataset (``host_shard``, the slices partition it) and writes its own
+frames. ``--data_parallel true``: the generator is copied onto each card
+of the process (``parallel/mesh.LocalMesh``) and each batch's rows are
+split over the copies.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from ..data.freiburg import Freiburg
 from ..data.loader import DataLoader
 from ..device import resolve_device
 from ..ops.resize import resize_bicubic_8bit
-from ._common import build_generator_from_gan_checkpoint
+from ..parallel import mesh as pmesh
+from ._common import build_generator_from_gan_checkpoint, maybe_data_parallel
 from .options import translation_parse
 
 MAX_PENDING_WRITES = 4
@@ -76,19 +83,37 @@ def write_frame(path: str, pixels: np.ndarray) -> None:
 
 def translate_batches(model, loader, *, denormalize, save_hw, suffix: str,
                       device, bf16: bool = False,
-                      mark: Optional[Callable[[str], None]] = None):
+                      mark: Optional[Callable[[str], None]] = None,
+                      mesh=None):
     """Translate every batch of ``loader`` (dicts with an NHWC 'image' and
     the destinations 'img_path') and write the frames; the forward under
     bfloat16 autocast with ``bf16``. ``mark``, when given, is called with
     'batch' before each batch's device work is queued, then with 'forward'
-    and 'resize' as its stages are. Returns {'images', 'seconds',
+    and 'resize' as its stages are. ``mesh`` (``parallel/mesh.LocalMesh``)
+    splits each batch's rows over copies of the generator, one per device,
+    and gathers the frames in row order. Returns {'images', 'seconds',
     'encode_s'}: the frames written, the loop's seconds (every write
     finished) and the writer threads' seconds of encoding and writing."""
     mark = mark or (lambda stage: None)
-    device = torch.device(device)
-    denorm = torch.tensor(denormalize, dtype=torch.float32,
-                          device=device).reshape(1, -1, 1, 1)
+    device = resolve_device(device)
+    mesh = pmesh.LocalMesh.of(mesh, device)
+    replicas = pmesh.replicate(mesh, model)
+    denorms = {d: torch.tensor(denormalize, dtype=torch.float32,
+                               device=d).reshape(1, -1, 1, 1)
+               for d in set(mesh.devices)}
     encode_s = []
+
+    def frames(net, image):
+        """8-bit (N, H, W, C) frames at ``save_hw`` of one share."""
+        denorm = denorms[image.device]
+        with torch.inference_mode(), torch.autocast(
+                image.device.type, dtype=torch.bfloat16, enabled=bf16):
+            fake = net(image.permute(0, 3, 1, 2)).float()
+            mark("forward")
+            pixels = ((fake * denorm + denorm) * 255.0).clamp(0.0, 255.0)
+            pixels = resize_bicubic_8bit(pixels.to(torch.uint8), *save_hw)
+            mark("resize")
+        return pixels.permute(0, 2, 3, 1).contiguous()
 
     def write_batch(pixels, paths):
         start = time.perf_counter()
@@ -99,17 +124,10 @@ def translate_batches(model, loader, *, denormalize, save_hw, suffix: str,
     images, start = 0, time.perf_counter()
     futures = []
     with cf.ThreadPoolExecutor(max_workers=2) as pool:
-        for batch in device_prefetch(loader, device):
+        for batch in device_prefetch(loader, device, mesh=mesh):
             mark("batch")
-            with torch.inference_mode(), torch.autocast(
-                    device.type, dtype=torch.bfloat16, enabled=bf16):
-                fake = model(batch["image"].permute(0, 3, 1, 2)).float()
-                mark("forward")
-                pixels = ((fake * denorm + denorm) * 255.0).clamp(0.0, 255.0)
-                pixels = resize_bicubic_8bit(pixels.to(torch.uint8),
-                                             *save_hw)
-                mark("resize")
-            host = pixels.permute(0, 2, 3, 1).cpu().numpy()
+            host = pmesh.map_shares(frames, replicas, "cpu",
+                                    batch["image"]).numpy()
             paths = [destination(p, suffix) for p in batch["img_path"]]
             for p in paths:
                 os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
@@ -125,8 +143,11 @@ def translate_batches(model, loader, *, denormalize, save_hw, suffix: str,
 
 def translate(args):
     device = resolve_device(args.device or None)
+    # several processes partition the dataset: every frame is translated
+    # once, by the process whose slice holds it
     loader = DataLoader(build_translation_dataset(args), args.batch_size,
-                        shuffle=False, drop_last=False, seed=args.seed)
+                        shuffle=False, drop_last=False, seed=args.seed,
+                        shard=pmesh.host_shard(), shard_lockstep=False)
     model, _ = build_generator_from_gan_checkpoint(
         os.path.join(args.gan_model_root_path, args.checkpoint_name),
         "s2t" if args.generator_type == "s2t" else "t2s",
@@ -134,7 +155,8 @@ def translate(args):
     summary = translate_batches(
         model, loader, denormalize=args.denormalize,
         save_hw=tuple(args.save_image_size),
-        suffix=args.translation_name_suffix, device=device, bf16=args.bf16)
+        suffix=args.translation_name_suffix, device=device, bf16=args.bf16,
+        mesh=maybe_data_parallel(args, args.batch_size, "translating"))
     print("translation complete.")
     return summary
 

@@ -6,6 +6,8 @@ with ``non_blocking`` copies on a side stream, ``size`` batches ahead, so the
 next batch's copy runs under the current batch's compute. The JAX package's
 packed wire format (``data/wire.py``) exists for a slow host link; the port
 has no wire format: a pinned copy is already one lossless DMA per array.
+With a ``LocalMesh`` (``--data_parallel``) each replica's rows go to its
+own device, on that device's side stream.
 """
 
 from __future__ import annotations
@@ -16,49 +18,61 @@ import numpy as np
 import torch
 
 
-def device_prefetch(batches: Iterable[dict], device, *,
-                    size: int = 2) -> Iterator[dict]:
+def device_prefetch(batches: Iterable[dict], device, *, size: int = 2,
+                    mesh=None) -> Iterator[dict]:
     """Yield ``batches`` with their numpy arrays as tensors on ``device``
     (nested dicts of arrays too, such as self-training's ``weak_params``;
     other values pass through), ``size`` copies in flight. On a CUDA
-    device, a yielded batch is ready for the current stream."""
-    device = torch.device(device)
-    cuda = device.type == "cuda"
-    stream = torch.cuda.Stream(device) if cuda else None
+    device, a yielded batch is ready for the current stream.
+
+    With ``mesh`` (``parallel/mesh.LocalMesh``) each array becomes a list
+    of its replicas' shares (``split_rows``), each on its replica's
+    device, and ``device`` is not used."""
+    from ..parallel.mesh import LocalMesh, split_rows
+
+    shares = LocalMesh.of(mesh, device)
+    streams = {d: torch.cuda.Stream(d) for d in set(shares.devices)
+               if d.type == "cuda"}
+
+    def one(x: np.ndarray, dev):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if dev.type != "cuda":
+            return t
+        with torch.cuda.stream(streams[dev]):
+            return t.pin_memory().to(dev, non_blocking=True)
 
     def to_device(v):
         if isinstance(v, dict):
             return {k: to_device(x) for k, x in v.items()}
         if not isinstance(v, np.ndarray):
             return v
-        if not cuda:
-            return torch.from_numpy(v)
-        return torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+        parts = [one(v[rows], dev) for dev, rows in zip(
+            shares.devices, split_rows(shares, v.shape[0]))]
+        return parts if mesh is not None else parts[0]
 
     def tensors(v):
         if isinstance(v, dict):
             for x in v.values():
                 yield from tensors(x)
+        elif isinstance(v, list):
+            for x in v:
+                yield from tensors(x)
         elif isinstance(v, torch.Tensor):
             yield v
 
     def put(batch):
-        if not cuda:
-            return to_device(batch), None
-        with torch.cuda.stream(stream):
-            out = to_device(batch)
-            ready = stream.record_event()
-        return out, ready
+        out = to_device(batch)
+        return out, {d: st.record_event() for d, st in streams.items()}
 
     def take(item):
         batch, ready = item
-        if ready is not None:
-            current = torch.cuda.current_stream(device)
-            current.wait_event(ready)
-            for v in tensors(batch):
-                # made on the side stream, used on this one: the
-                # allocator must not reuse it before this stream is done
-                v.record_stream(current)
+        for dev, event in ready.items():
+            torch.cuda.current_stream(dev).wait_event(event)
+        for v in tensors(batch):
+            if v.device.type == "cuda":
+                # made on a side stream, used on the current one: the
+                # allocator must not reuse it before that stream is done
+                v.record_stream(torch.cuda.current_stream(v.device))
         return batch
 
     it = iter(batches)

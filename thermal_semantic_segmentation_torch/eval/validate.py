@@ -52,13 +52,17 @@ def seg_validate(model, loader, *, num_classes: int = 13,
     the processes after the loop (the shards may hold different numbers of
     batches), and every process returns the global scores. Leave it off
     when each process scores the whole set (the trainers' validation).
-    ``mesh`` (one process over several cards) is not yet ported.
+
+    ``mesh`` (``parallel/mesh.LocalMesh``, ``--data_parallel``): the model
+    is copied once onto each of the mesh's devices, each batch's rows are
+    split over the copies, and their confusion matrices add up on
+    ``device``; a batch's loss is the copies' CEs weighted by their valid
+    pixel counts, the CE of the whole batch. The predictions written with
+    ``visualize`` come back in row order.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (one process over several cards) is not yet ported to "
-            "the PyTorch package (see ROADMAP.md)")
     device = resolve_device(device)
+    mesh = pmesh.LocalMesh.of(mesh, device)
+    replicas = pmesh.replicate(mesh, model)
     if eval_step is None:
         eval_step = build_seg_eval_step(num_classes=num_classes,
                                         ignore_index=ignore_index,
@@ -69,12 +73,15 @@ def seg_validate(model, loader, *, num_classes: int = 13,
     n_seen = 0
     palette = freiburg_palette()
 
-    for i, batch in enumerate(device_prefetch(loader, device)):
-        image, label = batch["image"], batch["label"]
-        bhist, loss, pred = eval_step(model, image, label)
+    for i, batch in enumerate(device_prefetch(loader, device, mesh=mesh)):
+        bhist, loss, pred = _split_eval(eval_step, replicas, batch["image"],
+                                        batch["label"], device, num_classes,
+                                        ignore_index)
+        # the first share holds the batch's first row
+        image, label = batch["image"][0], batch["label"][0]
         hist += bhist
-        loss_sum += loss.double() * image.shape[0]  # no per-batch host sync
-        n_seen += image.shape[0]
+        loss_sum += loss * pred.shape[0]  # no per-batch host sync
+        n_seen += pred.shape[0]
         if visualize is not None and save_root:
             os.makedirs(save_root, exist_ok=True)
             if visualize == "save_all" or (visualize == "save_one" and i == 0):
@@ -101,3 +108,21 @@ def seg_validate(model, loader, *, num_classes: int = 13,
     scores = scores_from_hist(hist.cpu().numpy())
     val_loss = float(loss_sum) / max(n_seen, 1)
     return scores.mean_iu, val_loss, scores.cls_iu
+
+
+def _split_eval(eval_step, replicas, images, labels, device, num_classes,
+                ignore_index):
+    """``eval_step`` on each replica's share of a batch
+    (``parallel/mesh.map_shares``): the summed confusion matrix, the whole
+    batch's CE in float64 (each share's CE weighted by its valid pixel
+    count) and the predictions in row order, all on ``device``."""
+
+    def share(net, x, y):
+        hist, loss, pred = eval_step(net, x, y)
+        valid = ((y != ignore_index) & (y >= 0) & (y < num_classes)).sum()
+        valid = valid.double()
+        return hist[None], (loss.double() * valid)[None], valid[None], pred
+
+    hist, loss, valid, pred = pmesh.map_shares(share, replicas, device,
+                                               images, labels)
+    return hist.sum(0), loss.sum() / valid.sum().clamp_min(1), pred

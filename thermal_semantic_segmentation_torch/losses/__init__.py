@@ -57,6 +57,16 @@ def reverse_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     columns, the last dropped, as in the JAX package: a label outside
     [0, num_classes) has no class (an all-1e-4 row).
     """
+    total, count = reverse_cross_entropy_terms(
+        logits, labels, num_classes=num_classes, ignore_index=ignore_index)
+    return total / (count + 1e-6)
+
+
+def reverse_cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
+                                *, num_classes: int, ignore_index: int):
+    """(sum of the per-pixel reverse CE over the valid pixels, their count
+    as a float32 tensor): ``reverse_cross_entropy``'s numerator and
+    denominator, before the 1e-6."""
     p = torch.softmax(logits.float(), dim=-1).clamp(1e-7, 1.0)
     labels = labels.long()
     mask = (labels != ignore_index).float()
@@ -64,7 +74,7 @@ def reverse_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                                                device=labels.device)
     log_onehot = torch.where(onehot, 0.0, math.log(1e-4))
     per_pix = -(p * log_onehot).sum(dim=-1)
-    return (per_pix * mask).sum() / (mask.sum() + 1e-6)
+    return (per_pix * mask).sum(), mask.sum()
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -96,10 +106,19 @@ def semantic_consistency(logits: torch.Tensor, labels: torch.Tensor, *,
     """CyCADA semantic-consistency loss (reference utils/loss.py:102-150):
     cross entropy with ``ignore_index`` 255, the ``ignore_classes`` ids
     remapped to 255."""
+    nll_sum, count = semantic_consistency_terms(
+        logits, labels, ignore_classes=ignore_classes)
+    return nll_sum / count.clamp_min(1)
+
+
+def semantic_consistency_terms(logits: torch.Tensor, labels: torch.Tensor,
+                               *, ignore_classes: Sequence[int] = ()):
+    """``semantic_consistency``'s (NLL sum, valid count), as
+    ``cross_entropy_terms`` gives them."""
     labels = labels.long()
     for cid in ignore_classes:
         labels = torch.where(labels == cid, 255, labels)
-    return cross_entropy(logits, labels, ignore_index=255)
+    return cross_entropy_terms(logits, labels, ignore_index=255)
 
 
 def lsgan_loss(prediction: torch.Tensor, real: bool) -> torch.Tensor:

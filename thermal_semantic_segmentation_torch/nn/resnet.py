@@ -106,21 +106,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     and leaves every buffer as it was. A forward recomputed by a
     checkpointed block (``remat``) updates no buffer.
 
-    ``sync_group``, set by the train step in its 'sync' mode, is a process
-    group whose ranks' batches are normalised as one: the per-channel sums,
-    sums of squares and counts are all-reduced (differentiably), and the
-    biased global variance ``E[x^2] - E[x]^2`` is used and folded, as flax
-    computes it over the global batch. With one rank it changes nothing.
+    ``sync_group``, set by the train steps under a mesh
+    (``synchronised``), is a process group whose ranks' batches are
+    normalised as one in train mode: the per-channel sums, sums of squares
+    and counts are all-reduced (differentiably), and the biased global
+    variance ``E[x^2] - E[x]^2`` is used, and folded where the layer tracks
+    its statistics, as flax computes it over the global batch. With one
+    rank it changes nothing.
     """
 
     sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and self.track_running_stats):
+        if not self.training:
             return super().forward(x)
         group = self.sync_group
         if group is not None and dist.get_world_size(group) > 1:
             return self._synchronised(x, group)
+        if not self.track_running_stats:
+            return super().forward(x)
         m = self.momentum
         mean = self.running_mean.clone()
         folded = self.running_var.clone()
@@ -148,13 +152,28 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
         if self.weight is not None:
             y = y * self.weight.view(shape) + self.bias.view(shape)
-        if not _recomputing:
+        if self.track_running_stats and not _recomputing:
             m = self.momentum
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)
                 self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
                 self.running_var.mul_(1.0 - m).add_(m * var.detach())
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def synchronised(modules, group):
+    """Every ``BatchNorm2d`` of ``modules`` normalises over ``group``'s
+    global batch inside the block (no change with ``group`` None)."""
+    norms = [m for net in modules for m in net.modules()
+             if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.sync_group = None
 
 
 class Bottleneck(nn.Module):

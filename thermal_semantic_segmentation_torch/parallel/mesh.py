@@ -1,14 +1,33 @@
-"""Multi-process data parallelism (counterpart of the JAX
-``parallel/mesh.py``; the name is kept so a reader finds it).
+"""Data parallelism over processes and over one process's cards
+(counterpart of the JAX ``parallel/mesh.py``; the name is kept so a reader
+finds it).
 
-The JAX package spans processes with ``jax.distributed`` and one mesh axis
-``'data'`` over every chip of every process. The port runs one process per
-card: rank ``r`` owns ``cuda:LOCAL_RANK`` (torchrun's ``LOCAL_RANK``, else
-the rank modulo the host's card count), its loaders take ``host_shard()``'s
-slice of every epoch, and the ranks meet in a ``torch.distributed`` process
-group: NCCL on the card, gloo on the CPU. ``-batch_size`` stays per process,
-as in the JAX package, and the global batch is the ranks' local batches
-concatenated in rank order (JAX ``put_sharded``).
+The JAX package has one mesh axis ``'data'`` over every chip. The port
+maps it in two ways, keeping its rule of one process per card for
+training:
+
+- Across cards, training (``--distributed true``, torchrun or
+  ``--coordinator_address``): one process per card in a
+  ``torch.distributed`` group, NCCL on the card, gloo on the CPU. Rank
+  ``r`` owns ``cuda:LOCAL_RANK`` (torchrun's ``LOCAL_RANK``, else the rank
+  modulo the host's card count), its loaders take ``host_shard()``'s slice
+  of every epoch, and ``make_mesh`` gives the train steps their
+  ``DataMesh``. ``-batch_size`` stays per process, as in the JAX package,
+  and the global batch is the ranks' local batches concatenated in rank
+  order (JAX ``put_sharded``). Each step equals the JAX step on that
+  global batch: every BatchNorm statistic, mean and scan runs over it.
+- One process over this host's cards, inference (``--data_parallel
+  true``; JAX ``local_data_mesh``): a ``LocalMesh``, an ordered list of
+  devices (default every visible card, which ``CUDA_VISIBLE_DEVICES``
+  narrows) that shrinks to the largest count dividing the batch, as JAX
+  ``make_mesh`` does. ``replicate`` keeps one copy of the model a device,
+  ``split_rows`` gives each replica its contiguous rows and
+  ``map_shares`` runs each replica on its rows and puts the results back
+  in row order. Without ``--data_parallel`` the loops run the same code
+  over a one-device mesh (``LocalMesh.of``). Launches are
+  asynchronous, so one thread issuing each replica's rows to its own card
+  overlaps the cards. A device may repeat (``[cpu, cpu]``, ``[cuda:0,
+  cuda:0]``): its entries share one copy and, on a card, one stream.
 
 The collectives here put their tensors on the process group's device
 (NCCL takes only CUDA tensors) and hand the result back on the caller's.
@@ -16,9 +35,11 @@ The collectives here put their tensors on the process group's device
 
 from __future__ import annotations
 
+import copy
 import os
+import warnings
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -183,3 +204,137 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, x, group=group)
     return torch.stack(out).to(t.device)
+
+
+def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's rows of ``t`` (equal-sized on every rank) as one batch
+    in rank order: the global batch of a per-rank tensor."""
+    return all_gather(t, group).flatten(0, 1)
+
+
+def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Rank ``src``'s ``t`` on every rank, on ``t``'s device."""
+    dev = _group_device(group)
+    x = t.detach().to(dev if dev is not None else t.device, copy=True)
+    dist.broadcast(x, src, group=group)
+    return x.to(t.device)
+
+
+def all_reduce_grads(params, group=None) -> None:
+    """Sum the gradients of ``params`` over the group's ranks, in place,
+    through one flat buffer (a parameter without a gradient gets zeros).
+    The train steps write each rank's loss as its share of the global
+    batch's loss, so the sum is the global batch's gradient. The reduced
+    values are copied back into the gradients, which keep their
+    parameters' layout (``channels_last`` convolutions)."""
+    params = [p for p in params if p.requires_grad]
+    if not params:
+        return
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dev = _group_device(group)
+    if dev is not None and flat.device != dev:
+        flat = flat.to(dev)
+    dist.all_reduce(flat, group=group)
+    torch._foreach_copy_(grads, [part.view(g.shape) for g, part in zip(
+        grads, flat.split([g.numel() for g in grads]))])
+
+
+@dataclass(frozen=True)
+class LocalMesh:
+    """This process's devices for data-parallel inference, in row order:
+    replica ``k`` on ``devices[k]`` takes the ``k``-th contiguous share of
+    every batch (JAX ``local_data_mesh``). ``LocalMesh.of(mesh, device)``
+    is ``mesh``, or the one-device mesh of ``device`` without one."""
+
+    devices: tuple
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @staticmethod
+    def of(mesh: Optional["LocalMesh"], device) -> "LocalMesh":
+        return mesh if mesh is not None else LocalMesh(
+            (torch.device(device),))
+
+
+def default_devices() -> List[torch.device]:
+    """Every card this process sees (raises without one)."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError("--data_parallel needs CUDA devices; none is "
+                           "visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def local_data_mesh(batch_size: Optional[int] = None,
+                    devices: Optional[Sequence] = None) -> LocalMesh:
+    """A ``LocalMesh`` over ``devices`` (default ``default_devices()``).
+    When ``batch_size`` does not divide over them, the mesh shrinks to the
+    largest count that divides it, with the JAX ``make_mesh`` warning."""
+    devs = [torch.device(d) for d in (devices if devices is not None
+                                      else default_devices())]
+    n = len(devs)
+    if n == 0:
+        raise ValueError("a LocalMesh needs at least one device")
+    if batch_size is not None and n > 1 and batch_size % n:
+        keep = max(d for d in range(1, n + 1) if batch_size % d == 0)
+        warnings.warn(
+            f"global batch {batch_size} does not divide over {n} devices; "
+            f"using {keep} device(s) and leaving {n - keep} idle — "
+            f"use a batch size that is a multiple of {n} to engage every "
+            f"chip", stacklevel=2)
+        devs = devs[:keep]
+    return LocalMesh(tuple(devs))
+
+
+def replicate(mesh: LocalMesh, model: torch.nn.Module
+              ) -> List[torch.nn.Module]:
+    """The model of each entry of the mesh: one copy a device, made once
+    and shared by the entries that repeat the device (inference changes
+    no state). ``model`` itself on its own device, a deep copy
+    (``channels_last``, as the port keeps its nets) on every other; the
+    copies keep the model's mode."""
+    copies = {next(model.parameters()).device: model}
+    for dev in mesh.devices:
+        if dev not in copies:
+            copies[dev] = copy.deepcopy(model).to(
+                device=dev, memory_format=torch.channels_last)
+    return [copies[dev] for dev in mesh.devices]
+
+
+def split_rows(mesh: LocalMesh, n: int) -> List[slice]:
+    """The contiguous rows of a batch of ``n`` that each replica takes:
+    equal shares where the mesh divides ``n``; a ragged tail is split as
+    evenly as it goes, the first replicas one row more, and a replica
+    with no row gets an empty slice (nothing is padded)."""
+    q, r = divmod(n, mesh.size)
+    bounds = [k * q + min(k, r) for k in range(mesh.size + 1)]
+    return [slice(bounds[k], bounds[k + 1]) for k in range(mesh.size)]
+
+
+def gather_parts(parts, device) -> torch.Tensor:
+    """The replicas' outputs back on ``device`` as one batch in row
+    order."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts])
+
+
+def map_shares(fn, replicas, device, *shares):
+    """``fn(replica, *share)`` for each replica whose share of the batch
+    has rows, issued from this thread (each replica's launches queue on
+    its own device), with the results gathered on ``device`` in row
+    order: one tensor, or a tuple of them where ``fn`` returns a tuple.
+    ``shares`` holds one list of the replicas' shares per argument of
+    ``fn``. Every inference loop runs its batches through here, over a
+    one-device mesh without ``--data_parallel``."""
+    outs = [fn(r, *xs) for r, *xs in zip(replicas, *shares)
+            if xs[0].shape[0]]
+    if isinstance(outs[0], tuple):
+        return tuple(gather_parts(parts, device) for parts in zip(*outs))
+    return gather_parts(outs, device)

@@ -20,6 +20,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.upsample_argmax import upsample_argmax
 from ..ops.batching import pad_rows
+from ..parallel import mesh as pmesh
 
 HW = (256, 512)
 
@@ -67,11 +68,21 @@ class InferenceServer:
     device step. ``device`` defaults to the CUDA device (raises without
     one); ``bf16`` runs the forward under bfloat16 autocast, and the logits
     reach the kernel as float32.
+
+    ``mesh`` (``parallel/mesh.LocalMesh``, ``--data_parallel``): the model
+    is copied onto each of its devices for the server's lifetime, and each
+    coalesced batch's rows are split over the copies, ``batch_size /
+    mesh.size`` each; ``batch_size`` must divide over the mesh, as the JAX
+    server requires.
     """
 
     def __init__(self, model, *, batch_size: int = 8,
                  max_wait_ms: float = 10.0, label_hw=HW, channels: int = 1,
-                 bf16: bool = False, device=None):
+                 bf16: bool = False, device=None, mesh=None):
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(
+                f"batch_size {batch_size} must divide evenly over the "
+                f"{mesh.size}-device mesh (each device gets an equal share)")
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.max_wait = max_wait_ms / 1e3
@@ -81,6 +92,8 @@ class InferenceServer:
         # weights live on the device for the server's lifetime
         self.model = model.to(device=self.device,
                               memory_format=torch.channels_last).eval()
+        self.mesh = pmesh.LocalMesh.of(mesh, self.device)
+        self.replicas = pmesh.replicate(self.mesh, self.model)
         # one pinned host buffer per server: each batch is copied into it and
         # sent with a non_blocking copy. Reuse is safe because every batch
         # ends in a device->host copy that waits for the stream.
@@ -100,16 +113,26 @@ class InferenceServer:
     def _predict(self, images: np.ndarray) -> np.ndarray:
         """(batch, H, W, C) float32 -> (batch, H, W) uint8 class ids."""
         self._host.numpy()[...] = images
-        x = self._host.to(self.device, non_blocking=True)
+        # each copy's launches queue on its own device before any result
+        # is read back
+        shares = [self._host[rows].to(dev, non_blocking=True)
+                  for dev, rows in zip(self.mesh.devices, pmesh.split_rows(
+                      self.mesh, self.batch_size))]
+        return pmesh.map_shares(self._ids, self.replicas, "cpu",
+                                shares).numpy()
+
+    def _ids(self, model, x: torch.Tensor) -> torch.Tensor:
+        """One model's uint8 class ids of the NHWC batch ``x``, on its
+        device."""
         with torch.inference_mode():
-            with torch.autocast(self.device.type, dtype=torch.bfloat16,
+            with torch.autocast(x.device.type, dtype=torch.bfloat16,
                                 enabled=self.bf16):
-                out = self.model(x.permute(0, 3, 1, 2))["out"]
+                out = model(x.permute(0, 3, 1, 2))["out"]
             # channels_last NCHW logits viewed as NHWC: no copy
             logits = out.float().permute(0, 2, 3, 1)
             pred, _ = upsample_argmax(logits, *self.label_hw)
             # uint8 ids: 4x fewer bytes on the device->host copy
-            return pred.to(torch.uint8).cpu().numpy()
+            return pred.to(torch.uint8)
 
     def _preprocess(self, image_bytes: bytes) -> np.ndarray:
         return preprocess(image_bytes, self.label_hw, self.channels)

@@ -33,6 +33,26 @@ kernel on its stride-8 logits (the JAX package's ``argmax`` of the
 upsampled logits). The s2t and t2s terms that need a gradient upsample
 with ``ops/resize.upsample_logits``. Nothing waits for the device: the
 metrics come back as device tensors.
+
+Under a ``mesh`` (``parallel/mesh.DataMesh``, one rank per card) the step
+is the JAX step on the global batch, the ranks' batches in rank order:
+- every BatchNorm of G and D normalises over the global batch
+  (``nn/resnet.synchronised``), D's read-only pass in G's update too; the
+  frozen sem nets run in eval mode and need nothing;
+- each rank's loss is its share of the global batch's: the LSGAN, cycle
+  and contour means are over equal-sized rank batches, so the global mean
+  is the ranks' means averaged and each rank takes its mean / world; the
+  semantic terms are CEs with ignored pixels, whose share is the rank's
+  NLL sum over the all-reduced valid count;
+- G is used twice in the cycle and D takes no gradient in G's update, so
+  no DDP wrapper: after each backward ``all_reduce_grads`` sums the
+  ranks' gradients;
+- the device pools: every rank all-gathers the detached fakes into
+  global order and queries an identically seeded pool with them, then
+  feeds its own rows to D, so the pools' contents and counts stay
+  bit-equal on every rank. The host pool (``make_gan_steps``) has no
+  cross-process form in the JAX package, so the CLIs refuse it there.
+The metrics come back as the global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -46,10 +66,12 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels.upsample_argmax import upsample_argmax
-from ..losses import GAN_LOSSES, l1_loss, semantic_consistency
+from ..losses import GAN_LOSSES, l1_loss, semantic_consistency_terms
 from ..nn.canny import canny_edges
+from ..nn.resnet import synchronised
 from ..ops.image_pool import DevicePool
 from ..ops.resize import upsample_logits
+from ..parallel import mesh as pmesh
 from .seg import forward_nhwc
 
 _BGR_MEAN = (104.00698793, 116.66876762, 122.67891434)
@@ -148,12 +170,39 @@ def _make_gan_cores(*, cycle: bool = True, gan_loss: str = "lsgan",
                     contour_detached: bool = False,
                     sem_nets: Optional[Dict[str, nn.Module]] = None,
                     sem_ignore_classes: Sequence[int] = (),
-                    sem_norm: str = "legacy", bf16: bool = False):
+                    sem_norm: str = "legacy", bf16: bool = False,
+                    mesh=None):
     """(g_core, d_core), the updates shared by ``make_gan_steps`` and
     ``make_gan_step``; the arguments are the JAX ``_make_gan_cores``'s,
     with the frozen sem nets as modules ({'s': RGB net, 't': thermal
-    net}, eval mode)."""
-    adv = GAN_LOSSES[gan_loss]
+    net}, eval mode), and ``mesh`` as the module docstring says."""
+    gan_adv = GAN_LOSSES[gan_loss]
+    world = mesh.size if mesh is not None else 1
+    group = mesh.group if mesh is not None else None
+
+    def share(mean):
+        """This rank's share of a mean over the global batch."""
+        return mean if world == 1 else mean / world
+
+    def adv(prediction, real):
+        return share(gan_adv(prediction, real))
+
+    def l1(a, b):
+        return share(l1_loss(a, b))
+
+    def global_metrics(metrics):
+        """The global batch's metrics: the sum of the ranks' shares."""
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is None:
+            return metrics
+        total = pmesh.all_reduce(torch.stack(list(metrics.values())),
+                                 group=group)
+        return dict(zip(metrics, total.unbind()))
+
+    def all_reduce_grads(nets):
+        if mesh is not None:
+            pmesh.all_reduce_grads(
+                [p for net in nets for p in net.parameters()], group)
 
     def g_core(state: GanTrainState, real_s, real_t, label_s=None, *,
                with_sem: bool = False, mark: Callable[[str], None]):
@@ -162,7 +211,8 @@ def _make_gan_cores(*, cycle: bool = True, gan_loss: str = "lsgan",
             net.train()
         state.opt_g.zero_grad(set_to_none=True)
         metrics, outs = {}, {}
-        with _read_only(d.values()):
+        with _read_only(d.values()), synchronised(
+                [*g.values(), *d.values()], group):
             fake_t = _nhwc(g["s2t"], real_s, bf16)
             if cycle:
                 rec_s = _nhwc(g["t2s"], fake_t, bf16)
@@ -173,8 +223,8 @@ def _make_gan_cores(*, cycle: bool = True, gan_loss: str = "lsgan",
             loss = metrics["g_s2t"] = adv(_nhwc(d["t"], fake_t, bf16), True)
             if cycle:
                 metrics["g_t2s"] = adv(_nhwc(d["s"], fake_s, bf16), True)
-                metrics["cycle_s"] = l1_loss(rec_s, real_s) * cycle_weight
-                metrics["cycle_t"] = l1_loss(rec_t, real_t) * cycle_weight
+                metrics["cycle_s"] = l1(rec_s, real_s) * cycle_weight
+                metrics["cycle_t"] = l1(rec_t, real_t) * cycle_weight
                 loss = (loss + metrics["g_t2s"] + metrics["cycle_s"]
                         + metrics["cycle_t"])
             mark("g_forward")
@@ -189,7 +239,7 @@ def _make_gan_cores(*, cycle: bool = True, gan_loss: str = "lsgan",
                 edges = canny_edges(fake_t, threshold=canny_thermal_threshold)
                 if contour_detached:
                     edges = edges.detach()
-                metrics["con_s2t"] = l1_loss(contour_real_s, edges)
+                metrics["con_s2t"] = l1(contour_real_s, edges)
                 loss = loss + metrics["con_s2t"]
                 if cycle:
                     edges = canny_edges(
@@ -197,7 +247,7 @@ def _make_gan_cores(*, cycle: bool = True, gan_loss: str = "lsgan",
                         threshold=canny_rgb_threshold)
                     if contour_detached:
                         edges = edges.detach()
-                    metrics["con_t2s"] = l1_loss(contour_real_t, edges)
+                    metrics["con_t2s"] = l1(contour_real_t, edges)
                     loss = loss + metrics["con_t2s"]
                 mark("canny")
 
@@ -208,28 +258,34 @@ def _make_gan_cores(*, cycle: bool = True, gan_loss: str = "lsgan",
                     return forward_nhwc(sem_nets[name], gan_to_seg_tensor(
                         x, domain, sem_norm), bf16=bf16)["out"]
 
-                metrics["sem_s2t"] = semantic_consistency(
+                terms = {"sem_s2t": semantic_consistency_terms(
                     upsample_logits(sem_logits("t", fake_t, "target"), h, w),
-                    label_s, ignore_classes=sem_ignore_classes)
-                loss = loss + metrics["sem_s2t"]
+                    label_s, ignore_classes=sem_ignore_classes)}
                 if cycle:
                     with torch.no_grad():
                         ids, _ = upsample_argmax(
                             sem_logits("t", real_t, "target"), h, w)
-                    metrics["sem_t2s"] = semantic_consistency(
+                    terms["sem_t2s"] = semantic_consistency_terms(
                         upsample_logits(sem_logits("s", fake_s, "source"),
                                         h, w),
                         ids, ignore_classes=sem_ignore_classes)
-                    loss = loss + metrics["sem_t2s"]
+                counts = torch.stack([c for _, c in terms.values()])
+                if mesh is not None:
+                    counts = pmesh.all_reduce(counts, group=group)
+                for (k, (nll_sum, _)), count in zip(terms.items(), counts):
+                    # the NLL sum over the global batch's valid count
+                    metrics[k] = nll_sum / count.clamp_min(1)
+                    loss = loss + metrics[k]
                 mark("sem")
 
             loss.backward()
-            mark("g_backward")
+        all_reduce_grads(g.values())
+        mark("g_backward")
         state.opt_g.step()
         mark("g_adam")
         state.step += 1
         metrics["loss_g"] = loss
-        return ({k: v.detach() for k, v in metrics.items()},
+        return (global_metrics(metrics),
                 {k: v.detach() for k, v in outs.items()})
 
     def d_core(state: GanTrainState, reals: Dict[str, torch.Tensor],
@@ -237,17 +293,19 @@ def _make_gan_cores(*, cycle: bool = True, gan_loss: str = "lsgan",
                mark: Callable[[str], None]):
         state.opt_d.zero_grad(set_to_none=True)
         metrics, total = {}, 0.0
-        for which, real in reals.items():
-            net = state.d[which]
-            out_real = _nhwc(net, real, bf16)
-            out_fake = _nhwc(net, pooled_fakes[which].detach(), bf16)
-            loss_d = 0.5 * (adv(out_real, True) + adv(out_fake, False))
-            metrics[f"d_{which}"] = loss_d
-            total = total + loss_d
-        total.backward()
+        with synchronised(state.d.values(), group):
+            for which, real in reals.items():
+                net = state.d[which]
+                out_real = _nhwc(net, real, bf16)
+                out_fake = _nhwc(net, pooled_fakes[which].detach(), bf16)
+                loss_d = 0.5 * (adv(out_real, True) + adv(out_fake, False))
+                metrics[f"d_{which}"] = loss_d
+                total = total + loss_d
+            total.backward()
+        all_reduce_grads(state.d.values())
         state.opt_d.step()
         mark("d_step")
-        return {k: v.detach() for k, v in metrics.items()}
+        return global_metrics(metrics)
 
     return g_core, d_core
 
@@ -258,7 +316,9 @@ def _no_mark(stage: str) -> None:
 
 def make_gan_steps(**kwargs):
     """(g_step, d_step), the two updates with a host pool between them
-    (the reference's loop, ``-host_pool true``):
+    (the reference's loop, ``-host_pool true``); a ``mesh`` of more than
+    one rank is refused, since the JAX host pool has no cross-process
+    form:
 
       g_step(state, real_s, real_t, label_s=None, *, with_sem=False,
              mark=None) -> (metrics, outs)
@@ -266,6 +326,13 @@ def make_gan_steps(**kwargs):
 
     ``outs`` holds the detached 'fake_t' (and 'fake_s'). See
     ``_make_gan_cores`` for the arguments."""
+    mesh = kwargs.get("mesh")
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(
+            "the host pool (-host_pool true) cannot run with several "
+            "processes: the JAX host pool has no cross-process form (see "
+            "ROADMAP.md); use make_gan_step's device pools, which every "
+            "rank keeps equal")
     g_core, d_core = _make_gan_cores(**kwargs)
 
     def g_step(state, real_s, real_t, label_s=None, *, with_sem=False,
@@ -292,9 +359,18 @@ def make_gan_step(*, pool_size: int = 50, **kwargs):
     ``mark``, when given, is called with each stage's name once the stage
     is queued: 'g_forward', 'canny' (with the contour loss), 'sem' (with
     the sem loss), 'g_backward', 'g_adam', 'pool', 'd_step'. Nothing waits
-    for the device."""
+    for the device. Under a ``mesh`` every rank's pools see the global
+    batch's fakes (the module docstring)."""
     cycle = kwargs.get("cycle", True)
+    mesh = kwargs.get("mesh")
     g_core, d_core = _make_gan_cores(**kwargs)
+
+    def query(pool, fakes):
+        if mesh is None:
+            return pool.query(fakes)
+        n = fakes.shape[0]
+        pooled = pool.query(pmesh.gather_rows(fakes, mesh.group))
+        return pooled[mesh.rank * n:(mesh.rank + 1) * n]
 
     def step(state, pools, real_s, real_t, label_s=None, *, with_sem=False,
              mark=None):
@@ -302,10 +378,10 @@ def make_gan_step(*, pool_size: int = 50, **kwargs):
         metrics, outs = g_core(state, real_s, real_t, label_s,
                                with_sem=with_sem, mark=mark)
         reals = {"t": real_t}
-        fakes = {"t": pools["t"].query(outs["fake_t"])}
+        fakes = {"t": query(pools["t"], outs["fake_t"])}
         if cycle:
             reals["s"] = real_s
-            fakes["s"] = pools["s"].query(outs["fake_s"])
+            fakes["s"] = query(pools["s"], outs["fake_s"])
         mark("pool")
         metrics.update(d_core(state, reals, fakes, mark=mark))
         return metrics, outs

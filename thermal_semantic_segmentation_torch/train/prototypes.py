@@ -25,17 +25,29 @@ from ..parallel import mesh as pmesh
 from .seg import forward_nhwc, frozen_inference
 
 
-def make_prototype_step(model, *, num_classes: int, bf16: bool = False):
+def make_prototype_step(model, *, num_classes: int, bf16: bool = False,
+                        mesh=None):
     """Returns ``step(prototypes, counts, images) -> (prototypes, counts)``
-    for (N, H, W, C) ``images`` on the model's device."""
+    where ``images`` is the list of the replicas' (N, H, W, C) shares of a
+    batch (``device_prefetch(..., mesh=mesh)``) and ``mesh``
+    (``parallel/mesh.LocalMesh``, default the model's device alone) holds
+    the replicas: each copy of the model gives its rows' per-sample class
+    vectors, which are put back in row order on the model's device before
+    the fold, so the result is the one-device fold's."""
+    device = next(model.parameters()).device
+    replicas = pmesh.replicate(pmesh.LocalMesh.of(mesh, device), model)
 
-    def step(prototypes, counts, images):
-        with frozen_inference(model):
-            out = forward_nhwc(model, images, bf16=bf16)
+    def partials(net, images):
+        with frozen_inference(net):
+            out = forward_nhwc(net, images, bf16=bf16)
             _, h, w, _ = out["out"].shape
             pred, conf = upsample_argmax(out["out"], h, w)
-            vectors, valid = masked_class_means(out["feat"], pred, conf,
-                                                num_classes=num_classes)
+            return masked_class_means(out["feat"], pred, conf,
+                                      num_classes=num_classes)
+
+    def step(prototypes, counts, images):
+        vectors, valid = pmesh.map_shares(partials, replicas, device, images)
+        with torch.inference_mode():
             return fold_prototypes(prototypes, counts, vectors, valid,
                                    mode="mean")
 
@@ -53,25 +65,26 @@ def calc_prototypes(model, loader, *, num_classes: int = 13,
     With several processes each folds its own shard
     (``DataLoader(shard=host_shard(), shard_lockstep=False)``) and the
     partials merge after the loop (``merge_process_prototypes``); every
-    process returns the merged arrays. ``mesh`` (one process over several
-    cards) and ``wire='packed_bf16'`` are not yet ported.
+    process returns the merged arrays. ``mesh``
+    (``parallel/mesh.LocalMesh``, ``--data_parallel``) splits each batch
+    over copies of the model (``make_prototype_step``).
+    ``wire='packed_bf16'`` is not yet ported.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (one process over several cards) is not yet ported to the "
-            "PyTorch package (see ROADMAP.md)")
     if wire == "packed_bf16":
         raise NotImplementedError(
             "wire='packed_bf16' is not yet ported to the PyTorch package "
             "(see ROADMAP.md)")
     device = resolve_device(device)
-    step = make_prototype_step(model, num_classes=num_classes, bf16=bf16)
+    mesh = pmesh.LocalMesh.of(mesh, device)
+    step = make_prototype_step(model, num_classes=num_classes, bf16=bf16,
+                               mesh=mesh)
     prototypes = torch.zeros((num_classes, feat_dim), dtype=torch.float32,
                              device=device)
     counts = torch.zeros((num_classes,), dtype=torch.float32, device=device)
     for epoch in range(epochs):
         images = ({"image": b["image"]} for b in loader)
-        for i, batch in enumerate(device_prefetch(images, device)):
+        for i, batch in enumerate(device_prefetch(images, device,
+                                                  mesh=mesh)):
             if max_steps and i >= max_steps:
                 break
             prototypes, counts = step(prototypes, counts, batch["image"])

@@ -29,6 +29,7 @@ from ..data.png import write_gray_png, write_palette_png
 from ..device import resolve_device
 from ..kernels.upsample_argmax import upsample_argmax
 from ..ops.resize import resize_bilinear
+from ..parallel import mesh as pmesh
 from .seg import forward_nhwc, frozen_inference
 
 
@@ -100,11 +101,12 @@ def generate_pseudo_labels(model, loader, *, save_path: str,
     ``img_path`` list. Soft: ``write_soft``; hard (with ``flip``, the
     mirrored-average labels at input size): ``write_hard``. Every write's
     result is taken, so a failed write fails the run. ``mesh``
-    (multi-GPU), ``native_encode`` and ``wire='packed_bf16'`` are not yet
-    ported.
+    (``parallel/mesh.LocalMesh``, ``--data_parallel``): the model is
+    copied once onto each of its devices, each batch's rows are split over
+    the copies and the writers get their results in row order.
+    ``native_encode`` and ``wire='packed_bf16'`` are not yet ported.
     """
-    for flag, name in ((mesh is not None, "mesh (multi-GPU pseudo-labels)"),
-                       (native_encode, "native_encode"),
+    for flag, name in ((native_encode, "native_encode"),
                        (wire == "packed_bf16", "wire='packed_bf16'")):
         if flag:
             raise NotImplementedError(
@@ -112,7 +114,18 @@ def generate_pseudo_labels(model, loader, *, save_path: str,
                 f"ROADMAP.md)")
     device = resolve_device(device)
     os.makedirs(save_path, exist_ok=True)
-    soft_fn, hard_fn, hard_flip_fn = make_pseudo_fns(model, bf16=bf16)
+    mesh = pmesh.LocalMesh.of(mesh, device)
+    fns = [make_pseudo_fns(m, bf16=bf16)
+           for m in pmesh.replicate(mesh, model)]
+
+    def run(which, images):
+        """fns[k][which] on each replica's share, as numpy arrays in row
+        order."""
+        out = pmesh.map_shares(lambda f, x: f[which](x), fns, "cpu", images)
+        if isinstance(out, tuple):
+            return tuple(o.numpy() for o in out)
+        return out.numpy()
+
     palette = freiburg_palette()
     # labels, if the dataset has them, stay on the host
     batches = ({"image": b["image"], "img_path": b["img_path"]}
@@ -120,18 +133,18 @@ def generate_pseudo_labels(model, loader, *, save_path: str,
     n_written = 0
     with cf.ThreadPoolExecutor(max_workers=writer_threads) as pool:
         futures = []
-        for i, batch in enumerate(device_prefetch(batches, device)):
+        for i, batch in enumerate(device_prefetch(batches, device,
+                                                  mesh=mesh)):
             if max_steps and i >= max_steps:
                 break
             images = batch["image"]
             names = [os.path.basename(n) for n in batch["img_path"]]
             if soft:
-                probs = soft_fn(images).contiguous().cpu().numpy()
+                probs = run(0, images)
                 futures += [pool.submit(write_soft, save_path, name, probs[k])
                             for k, name in enumerate(names)]
             else:
-                conf, pseudo = (hard_flip_fn if flip else hard_fn)(images)
-                conf, pseudo = conf.cpu().numpy(), pseudo.cpu().numpy()
+                conf, pseudo = run(2 if flip else 1, images)
                 futures += [pool.submit(write_hard, save_path, name,
                                         pseudo[k], conf[k], palette)
                             for k, name in enumerate(names)]

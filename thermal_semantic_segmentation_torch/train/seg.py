@@ -41,7 +41,7 @@ from ..kernels.upsample_argmax import upsample_argmax
 from ..losses import cross_entropy, cross_entropy_terms
 from ..models.deeplab import backbone_and_head_params
 from ..nn.aspp import Dropout2d
-from ..nn.resnet import BatchNorm2d
+from ..nn.resnet import BatchNorm2d, synchronised
 from ..parallel import mesh as pmesh
 from ..ops.confmat import confusion_matrix
 from ..ops.resize import upsample_logits
@@ -177,11 +177,6 @@ def make_seg_train_step(*, ignore_index: int,
                       min(max((i + 1) * mb - rank * b, 0), b))
                 for i in range(grad_accum)]
 
-    def set_sync_group(model, group):
-        for m in model.modules():
-            if isinstance(m, BatchNorm2d):
-                m.sync_group = group
-
     def train_step(state: SegTrainState, image: torch.Tensor,
                    label: torch.Tensor) -> torch.Tensor:
         model = state.model
@@ -191,10 +186,9 @@ def make_seg_train_step(*, ignore_index: int,
             group["lr"] = base_lr * state.lr_scale * group["lr_mult"]
         state.optimizer.zero_grad(set_to_none=True)
         net = model if mesh is None else ddp_of(model)
-        if mesh is not None:
-            set_sync_group(model, mesh.group if sync else None)
         loss = torch.zeros((), device=image.device)
-        try:
+        with synchronised([model], mesh.group if mesh is not None and sync
+                          else None):
             for i, rows in enumerate(rows_of):
                 key = (((i,) if grad_accum > 1 else ())
                        + ((rank,) if world > 1 else ()))
@@ -210,9 +204,6 @@ def make_seg_train_step(*, ignore_index: int,
                     # DDP averages over the ranks; 'sync' wants their sum
                     (part * world if sync else part).backward()
                 loss += part.detach()
-        finally:
-            if mesh is not None:
-                set_sync_group(model, None)
         state.optimizer.step()
         state.step += 1
         if mesh is None:

@@ -22,6 +22,24 @@ One step, all on the device:
 
 Nothing syncs to the host inside the step; the losses come back as device
 tensors.
+
+Under a ``mesh`` (``parallel/mesh.DataMesh``, one rank per card) the step
+is the JAX step on the global batch, the ranks' batches in rank order:
+- both student passes normalise with the global batch's BatchNorm
+  statistics (``nn/resnet.synchronised``) and fold them, source then
+  target;
+- the source CE, the pseudo CE and the reverse CE are sums over each
+  rank's valid pixels divided by the all-reduced global counts (the
+  pseudo-labels are mostly ``ignore_index``, so the ranks' counts differ
+  and a mean of the ranks' means is not the global mean);
+- the student runs two forwards before one backward, so no DDP wrapper:
+  after the backward ``all_reduce_grads`` sums the ranks' gradients, each
+  the gradient of that rank's share of the global loss;
+- the moving prototypes: each rank runs the kernel and the masked means
+  on its own rows, the per-sample vectors are all-gathered into global
+  order and every rank folds them, so the prototypes and counts stay
+  bit-equal on every rank, as do the EMA teacher and its buffers (the
+  parameters are).
 """
 
 from __future__ import annotations
@@ -35,10 +53,12 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.upsample_argmax import upsample_argmax
-from ..losses import cross_entropy, reverse_cross_entropy
+from ..losses import cross_entropy_terms, reverse_cross_entropy_terms
+from ..nn.resnet import synchronised
 from ..ops.class_means import fold_prototypes, masked_class_means
 from ..ops.resize import (resize_bilinear, resize_bilinear_taps,
                           resize_nearest, sample_bilinear_at, upsample_logits)
+from ..parallel import mesh as pmesh
 from .seg import create_seg_state, forward_nhwc, frozen_inference, seed_dropout
 
 SCALE = 4   # self_training.py:29 scale_rate: pseudo labels at label_hw / 4
@@ -167,7 +187,7 @@ def make_self_train_step(*, num_classes: int, ignore_index: int,
                          ema_decay: float = 0.999,
                          label_hw: Tuple[int, int] = (256, 512),
                          dropout_seed: int = 0, bf16: bool = False,
-                         device=None):
+                         mesh=None, device=None):
     """Returns ``step(state, source_image, source_label, target_image,
     target_image_full, target_lp_soft, target_lp_hard, weak_params,
     mark=None) -> (loss_pseudo, loss_source)`` on ``device`` (default: the
@@ -183,10 +203,16 @@ def make_self_train_step(*, num_classes: int, ignore_index: int,
 
     The other arguments are the JAX step's (``pseudo_labels`` takes the
     rectification's); the student's passes run in sequence, which the JAX
-    package's ``fused_student=False`` is.
+    package's ``fused_student=False`` is. ``mesh``: the ranks of a process
+    group, each passing its own batch, all of one size; every rank gets
+    the global batch's losses (the module docstring says how). Each rank
+    seeds its dropout with its rank folded in, as ``train/seg`` does.
     """
     device = resolve_device(device)
     oh, ow = label_hw[0] // SCALE, label_hw[1] // SCALE
+    world, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+    pg = mesh.group if mesh is not None else None
+    rank_key = (rank,) if world > 1 else ()
 
     def step(state: SelfTrainState, source_image, source_label, target_image,
              target_image_full, target_lp_soft, target_lp_hard, weak_params,
@@ -213,23 +239,37 @@ def make_self_train_step(*, num_classes: int, ignore_index: int,
         for group in opt.param_groups:
             group["lr"] = base_lr * state.lr_scale * group["lr_mult"]
         opt.zero_grad(set_to_none=True)
-        seed_dropout(student, dropout_seed, state.step)
-        src = forward_nhwc(student, source_image, bf16=bf16)["out"]
-        loss_source = cross_entropy(upsample_logits(src, *label_hw),
-                                    source_label, ignore_index=ignore_index)
-        mark("student_source")
-        seed_dropout(student, dropout_seed, state.step, 1)
-        tgt = forward_nhwc(student, target_image, bf16=bf16)["out"]
-        tgt_logits = resize_bilinear(tgt, oh, ow)
-        loss_pseudo = cross_entropy(tgt_logits, pseudo,
-                                    ignore_index=ignore_index)
-        if rce:
-            loss_pseudo = rce_alpha * loss_pseudo + rce_beta * \
-                reverse_cross_entropy(tgt_logits, pseudo,
-                                      num_classes=num_classes,
-                                      ignore_index=ignore_index)
-        mark("student_target")
-        (loss_source + loss_pseudo).backward()
+        with synchronised([student], pg):
+            seed_dropout(student, dropout_seed, state.step, *rank_key)
+            src = forward_nhwc(student, source_image, bf16=bf16)["out"]
+            src_terms = cross_entropy_terms(
+                upsample_logits(src, *label_hw), source_label,
+                ignore_index=ignore_index)
+            mark("student_source")
+            seed_dropout(student, dropout_seed, state.step, 1, *rank_key)
+            tgt = forward_nhwc(student, target_image, bf16=bf16)["out"]
+            tgt_logits = resize_bilinear(tgt, oh, ow)
+            terms = [*src_terms, *cross_entropy_terms(
+                tgt_logits, pseudo, ignore_index=ignore_index)]
+            if rce:
+                terms += reverse_cross_entropy_terms(
+                    tgt_logits, pseudo, num_classes=num_classes,
+                    ignore_index=ignore_index)
+            sums, counts = terms[0::2], torch.stack(
+                [c.float() for c in terms[1::2]])
+            if mesh is not None:
+                counts = pmesh.all_reduce(counts, group=pg)
+            # each loss is this rank's share of the global batch's: its
+            # sum over the global count (with one process, the loss)
+            loss_source = sums[0] / counts[0].clamp_min(1)
+            loss_pseudo = sums[1] / counts[1].clamp_min(1)
+            if rce:
+                loss_pseudo = (rce_alpha * loss_pseudo + rce_beta
+                               * (sums[2] / (counts[2] + 1e-6)))
+            mark("student_target")
+            (loss_source + loss_pseudo).backward()
+        if mesh is not None:
+            pmesh.all_reduce_grads(student.parameters(), pg)
         mark("backward")
         opt.step()
         mark("adam")
@@ -239,6 +279,11 @@ def make_self_train_step(*, num_classes: int, ignore_index: int,
                 pred, conf = upsample_argmax(ema_out["out"], fh, fw)
                 vectors, valid = masked_class_means(
                     ema_feat, pred, conf, num_classes=num_classes)
+                if mesh is not None:
+                    # the global batch's vectors in sample order
+                    vectors = pmesh.gather_rows(vectors, pg)
+                    valid = pmesh.gather_rows(valid.to(torch.uint8),
+                                              pg).bool()
                 state.prototypes, state.proto_counts = fold_prototypes(
                     state.prototypes, state.proto_counts, vectors, valid,
                     momentum=proto_momentum, mode="moving_average",
@@ -253,6 +298,9 @@ def make_self_train_step(*, num_classes: int, ignore_index: int,
                                      list(student.buffers()))
                 mark("ema")
         state.step += 1
-        return loss_pseudo.detach(), loss_source.detach()
+        losses = torch.stack([loss_pseudo.detach(), loss_source.detach()])
+        if mesh is not None:
+            losses = pmesh.all_reduce(losses, group=pg)
+        return losses[0], losses[1]
 
     return step
