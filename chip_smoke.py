@@ -1,6 +1,15 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases export,serve_artifact,...]
+
+Without arguments every phase runs; ``--phases`` runs the ones named and
+those they need (``NEEDS``: translate and data_parallel take the gan
+phase's checkpoint, distance the translate phase's PNGs, serve_artifact the
+export phase's artifact; the multi-process phases the two gloo ranks' run),
+always after the device, build and kernels phases. The check that each
+kernel was launched holds over the phases that ran. The run closes with one
+``summary <phase>`` line a phase (seconds and key numbers), then the
+``kernels`` line, the card and the result line.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. device: a CUDA card must be present; prints its name and power limit;
@@ -94,7 +103,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      a tiny model: the two-rank 'sync' step against the one-rank step on
      the joined batch, 'per_replica''s state equal on both ranks, and the
      two-rank ``seg_validate``, ``evaluate_distance`` and prototype merge
-     against their one-rank results.
+     against their one-rank results;
+ 16. export: ``cli/export_stablehlo`` writes the full-width model as a
+     ``torch.export`` ids artifact with a symbolic batch (the kernel runs
+     inside it as the op ``tss::upsample_argmax``) and self-checks it; the
+     artifact, loaded back, answers batches of 3, 8 and 12 held to the live
+     model outside near-ties, with one launch a chunk of 8 rows and the
+     kernel named by ``torch.profiler``; the int8 container's bytes and ids;
+     at the tiny depth a fixed-batch logits artifact (also moved to the CPU)
+     and a generator; prints the export, save and load times and the
+     artifact's batch-8 forward against the live model's;
+ 17. serve_translator: ``serve --kind translator`` from a GAN .pth
+     (UNet-256, ngf 64) answers 24 requests from 4 threads at batch 8, each
+     PNG encoded by its thread, held to float64; frames/s, the forward of a
+     batch, the PNG encoding of a frame. It launches no kernel;
+ 18. serve_artifact: ``serve --artifact`` of the export phase's artifact
+     and the live server in turns of 96 requests from 4 threads at batch 8
+     (one warm-up turn each, then three; req/s as the median of the warm
+     turns, a batch's forward, ids outside near-ties), then a one-rank NCCL
+     ``serve --distributed`` answers a batch held to the live model; the
+     artifact's and the ranked server's launches are counted apart
+     (``serve_artifact`` and ``serve_distributed`` in the kernels line).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -219,11 +248,40 @@ GLOO_GAN_GRAD_ATOL, GLOO_GAN_NORM_RTOL = 1e-3, 1e-3
 # batch of 64, 3 server batches of 8, 16 translated frames
 DP_REPLICAS, DP_PROTO_IMAGES, DP_SERVE_BATCHES, DP_TRANSLATE_IMAGES = (
     2, 64, 3, 16)
+# the export phase: the ids artifact's batches (12 runs as 8 + 4: the
+# program takes at most 8 rows a call at 256x512); the int8 container's
+# bytes against the float artifact's may be at most this
+EXPORT_BATCHES = (3, 8, 12)
+INT8_MAX_RATIO = 0.4
+# the serving phases: the serve phase's traffic (24 requests from 4
+# threads at batch 8); the one-rank serve --distributed answers a batch
+SERVE_REQUESTS, SERVE_THREADS, SERVE_BATCH = 24, 4, 8
+# serve_artifact's traffic: turns of 96 requests (12 batches) through the
+# live server and the artifact's; the first turn of each warms it and is not
+# counted, then each goes first in one or two of the pairs
+ARTIFACT_REQUESTS = 96
+WARM_TURNS = ("live", "artifact")
+SERVE_TURNS = ("live", "artifact", "artifact", "live", "live", "artifact")
+# grey levels: a translated pixel whose float64 value lies this close to an
+# integer may truncate either side between two batch compositions
+TRANSLATE_SERVE_SLACK = 1e-3
 
 
 def fail(msg: str) -> None:
     print(f"FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+# each phase's key numbers for the closing summary, filled by ``note``
+NOTES: dict = {}
+
+
+def note(phase: str, **numbers) -> None:
+    """Keep ``numbers`` (6 significant digits) as ``phase``'s key numbers
+    for the summary that closes the run."""
+    NOTES.setdefault(phase, {}).update(
+        {k: float(f"{v:.6g}") if isinstance(v, float) else v
+         for k, v in numbers.items()})
 
 
 def phase_device():
@@ -387,6 +445,8 @@ def phase_kernels():
           f"(bound_share {bound_ms / plain_ms:.4f}), library {library_ms} ms "
           f"(bound_share {bound_ms / library_ms:.4f}), bound {bound_ms} ms "
           f"({bound_by}), one-element launch {floor_ms} ms", flush=True)
+    note("kernels", serve_shape_ms=kernel_ms, bound_ms=bound_ms,
+         library_ms=library_ms)
     try:
         sass = json.dumps(sass_counts(
             str(build.library_path("upsample_argmax")),
@@ -546,6 +606,8 @@ def phase_slice(card: str) -> dict:
           f"{n_requests / serve_s:.2f} req/s from {n_threads} threads "
           f"({serve_s:.3f} s; setup {setup_s:.1f} s) on {card}; "
           f"launches {launches}", flush=True)
+    note("serve", req_per_s=n_requests / serve_s,
+         mean_batch=server.requests_served / server.batches_run)
     print(f"batch breakdown: {json.dumps(batch_breakdown(server, images[:8]))}"
           f" on {card}", flush=True)
     return launches
@@ -755,6 +817,7 @@ def phase_eval(card: str) -> dict:
           f"{EVAL_IMAGES / eval_s:.2f} images/s ({eval_s:.3f} s, after one "
           f"warm-up pass) on {card}; mean_iu {mean_iu} val_loss {val_loss}; "
           f"launches {launches}", flush=True)
+    note("eval", images_per_s=EVAL_IMAGES / eval_s)
     breakdown = eval_breakdown(model, data.images[:EVAL_BATCH],
                                data.labels[:EVAL_BATCH])
     print(f"eval batch breakdown: {json.dumps(breakdown)} on {card}",
@@ -937,6 +1000,9 @@ def phase_train(card: str) -> dict:
     print(f"train peak device memory: {peak_gb:.3f} GiB "
           f"(torch.cuda.max_memory_allocated over epoch 1; {n_params} "
           f"parameters) on {card}", flush=True)
+    note("train", f32_images_per_s=h["train_images"] / h["train_s"],
+         bf16_images_per_s=bf["train_images"] / bf["train_s"],
+         peak_gib=peak_gb)
     print(f"train step breakdown: "
           f"{json.dumps(train_breakdown(state, image, label))} on {card}",
           flush=True)
@@ -1292,6 +1358,7 @@ def phase_pseudo(card: str, root: str) -> dict:
         print(f"pseudo {mode}: {PSEUDO_IMAGES} images at batch "
               f"{PSEUDO_BATCH} at {rate:.2f} images/s ({secs:.3f} s, files "
               f"written) on {card}", flush=True)
+        note("pseudo", **{f"{mode}_images_per_s": rate})
     for mode in ("hard", "soft"):
         print(f"pseudo {mode} batch breakdown: "
               f"{json.dumps(pseudo_breakdown(model, data, mode))} on {card}",
@@ -1529,6 +1596,8 @@ def phase_prototypes(card: str, root: str) -> dict:
           f"{PROTO_BATCH} at {PROTO_IMAGES / secs:.2f} images/s "
           f"({secs:.3f} s) on {card}; per batch: forward {forward_ms} ms, "
           f"masked means {means_ms} ms, fold {fold_ms} ms", flush=True)
+    note("prototypes", images_per_s=PROTO_IMAGES / secs,
+         forward_ms=forward_ms)
     return launches
 
 
@@ -1708,6 +1777,8 @@ def phase_self_train(card: str, root: str) -> dict:
     print(f"self_train peak device memory: {peak_gb:.3f} GiB "
           f"(torch.cuda.max_memory_allocated over the resumed epoch; student "
           f"and teacher of {n_params} parameters each) on {card}", flush=True)
+    note("self_train", images_per_s=h["target_images"] / h["train_s"],
+         peak_gib=peak_gb)
     breakdown = self_train_breakdown(state, batch)
     print(f"self_train step breakdown: {json.dumps(breakdown)} on {card}",
           flush=True)
@@ -2105,6 +2176,7 @@ def phase_gan(card: str, root: str, mode: str = "module2") -> dict:
           f"(torch.cuda.max_memory_allocated over the resumed epoch; "
           f"generators {n_g} and discriminators {n_d} parameters, two "
           f"frozen {mode} ResNet-101s) on {card}", flush=True)
+    note(label, images_per_s=h["images"] / h["train_s"], peak_gib=peak_gb)
     breakdown = gan_breakdown(args, state, sem_nets, batch)
     print(f"{label} step breakdown: {json.dumps(breakdown)} on {card}",
           flush=True)
@@ -2615,6 +2687,8 @@ def phase_translate(card: str, root: str) -> None:
           f"{TRANSLATE_HW} at {n / summary['seconds']:.2f} images/s "
           f"({summary['seconds']:.3f} s, every PNG written), on {card}",
           flush=True)
+    note("translate", images_per_s=n / summary["seconds"],
+         forward_ms=breakdown["forward_ms"])
     print(f"translate batch breakdown: {json.dumps(breakdown)} (median "
           f"over batches; encode on 2 writer threads) on {card}", flush=True)
 
@@ -2755,6 +2829,7 @@ def phase_distance(card: str, root: str) -> None:
               f"PNG decode on the loader's threads included); a batch's L1 "
               f"+ SSIM {ssim_ms} ms, per-class sums {class_ms} ms, on {card}",
               flush=True)
+        note("distance", **{f"batch{bs}_pairs_per_s": n / secs})
         if n != len(pairs) // bs * bs:
             fail(f"the distance eval scored {n} of {len(pairs)} pairs")
         if not (l1_err <= DISTANCE_RTOL and ssim_err <= SSIM_ATOL
@@ -2906,6 +2981,8 @@ def phase_dist(card: str, gloo: dict) -> dict:
               f"{TRAIN_BATCH * 1e3 / ms:.2f} images/s, peak device memory "
               f"{peak:.3f} GiB (batch {TRAIN_BATCH} at 256x512, float32, "
               f"one NCCL rank) on {card}", flush=True)
+        note("dist", **{f"{mode}_{'ddp' if step_mesh else 'plain'}_ms":
+                        ms})
     remat_gradients(image, label)
     dist.destroy_process_group()
     two_ranks_over_gloo(gloo)
@@ -3316,6 +3393,7 @@ def phase_self_train_dist(card: str, root: str, gloo: dict) -> dict:
           f"{ms['plain']:.2f} ms ({ms['mesh'] / ms['plain']:.4f} x), batch "
           f"{ST_BATCH}, float32, median of {DIST_TIMED_STEPS} on {card}",
           flush=True)
+    note("self_train_dist", mesh_ms=ms["mesh"], plain_ms=ms["plain"])
     del state
     dist.destroy_process_group()
     self_train_gloo_check(gloo)
@@ -3410,6 +3488,7 @@ def phase_gan_dist(card: str, root: str, gloo: dict) -> dict:
           f"{ms['plain']:.2f} ms ({ms['mesh'] / ms['plain']:.4f} x), batch "
           f"{GAN_BATCH}, float32, median of {DIST_TIMED_STEPS} on {card}",
           flush=True)
+    note("gan_dist", mesh_ms=ms["mesh"], plain_ms=ms["plain"])
     del state, sem_nets
     dist.destroy_process_group()
     gan_gloo_check(gloo)
@@ -3639,6 +3718,8 @@ def phase_data_parallel(card: str, root: str) -> dict:
           f"{TRANSLATE_BATCH} with every PNG written, serve batch "
           f"{EVAL_BATCH}; two replicas share the one card's stream) on "
           f"{card}", flush=True)
+    note("data_parallel", **{f"{name}_two_over_one": r["two_replicas"]
+                             / r["one_replica"] for name, r in rates.items()})
     return launches
 
 
@@ -3977,35 +4058,510 @@ def gan_gloo_check(runs) -> None:
         fail("the two-rank GAN steps are not the one-rank steps")
 
 
-def main() -> int:
+def ids_mismatches(got, logits) -> tuple:
+    """(pixels where the uint8 ids ``got`` differ from the argmax of the
+    float32 upsampled ``logits`` (a CUDA tensor) outside near-ties, the
+    near-ties): equality is asked only where the top-2 gap exceeds
+    ``TIE_GAP``."""
+    import numpy as np
+    top2 = logits.topk(2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1]) > TIE_GAP).cpu().numpy()
+    want = logits.argmax(-1).cpu().numpy()
+    got = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
+    return int(((got != want) & decided).sum()), int((~decided).sum())
+
+
+def live_logits(model, x):
+    """The live model's float32 logits of NHWC ``x`` upsampled to 256x512
+    (the plain path, no kernel)."""
     import torch
+
+    from thermal_semantic_segmentation_torch.ops.resize import (
+        upsample_logits)
+    from thermal_semantic_segmentation_torch.train.seg import forward_nhwc
+    with torch.inference_mode():
+        return upsample_logits(forward_nhwc(model, x)["out"], *SERVE_OUT)
+
+
+def phase_export(card: str, root: str) -> dict:
+    """The export CLI writes the full-width model of ``smoke.pth`` as an ids
+    artifact with a symbolic batch and self-checks it; the artifact, loaded
+    back, answers batches of 3, 8 and 12 (chunks of 8) held to the live
+    model outside near-ties, its launches counted and the kernel named by
+    ``torch.profiler`` inside the program; its batch-8 forward timed
+    against the live model's. Then the int8 container (bytes against the
+    float artifact's, ids against the live model on dequantized weights),
+    and at the tiny depth a fixed-batch logits artifact (also loaded onto
+    the CPU) and a generator. Returns the kernels' launch counts from the
+    artifacts' calls."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from thermal_semantic_segmentation_torch.cli import export_stablehlo
+    from thermal_semantic_segmentation_torch.core import export
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.models.factory import (
+        init_gan_net, unet_256)
+    from thermal_semantic_segmentation_torch.train.seg import forward_nhwc
+
+    def cli(out, *extra):
+        return export_stablehlo.main(
+            ["-checkpoint_name", "smoke.pth", "--model_root_path", root,
+             "--out", out, "--check", "true", *extra])
+
+    upsample_argmax.launches = 0
+    res = cli(f"{root}/smoke_ids.pt2")
+    check_launches = upsample_argmax.launches
+    t0 = time.perf_counter()
+    art = export.load_exported(res["artifact"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model = load_smoke_model(export_stablehlo.export_stablehlo_parse,
+                             root).eval()
+    rng = np.random.default_rng(50)
+    images = torch.from_numpy(rng.random(
+        (max(EXPORT_BATCHES), *SERVE_OUT, 1), dtype=np.float32)).cuda()
+    upsample_argmax.launches = 0      # counts from the artifact's calls
+    checks = {}
+    for n in EXPORT_BATCHES:
+        before = upsample_argmax.launches
+        got = art.call(images[:n])
+        torch.cuda.synchronize()
+        calls = upsample_argmax.launches - before
+        wrong, ties = ids_mismatches(got, live_logits(model, images[:n]))
+        checks[n] = {"launches": calls, "mismatches": wrong,
+                     "near_ties": ties}
+        if (got.shape != (n, *SERVE_OUT) or got.dtype != torch.uint8
+                or calls != -(-n // art.rows_per_call)):
+            fail(f"export: batch {n} gave {tuple(got.shape)} {got.dtype} in "
+                 f"{calls} launches")
+        if wrong:
+            fail(f"export: batch {n}'s ids disagree with the live model at "
+                 f"{wrong} pixels outside near-ties")
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    x8 = images[:SERVE_BATCH]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        art.call(x8)
+        torch.cuda.synchronize()
+    named = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "upsample_argmax" in e.key})
+    if not named:
+        fail("export: torch.profiler names no upsample_argmax kernel in "
+             "the program's run")
+    def live_ids():
+        return upsample_argmax(forward_nhwc(model, x8)["out"], *SERVE_OUT)
+
+    with torch.inference_mode():
+        art_ms = time_ms(lambda: art.call(x8), reps=5, warmup=1)
+        live_ms = time_ms(live_ids, reps=5, warmup=1)
+        kernel_diff = device_kernel_diff(lambda: art.call(x8), live_ids)
+
+    qres = cli(f"{root}/smoke_ids_int8.pt2", "--quantize", "int8")
+    ratio = qres["sidecar"]["bytes"] / res["sidecar"]["bytes"]
+    qart = export.load_exported(qres["artifact"])
+    got = qart.call(x8)
+    deq = export.dequantized_model(model)
+    qwrong, qties = ids_mismatches(got, live_logits(deq, x8))
+    del deq
+    if ratio > INT8_MAX_RATIO or qwrong:
+        fail(f"export int8: {ratio:.4f} of the float bytes, {qwrong} "
+             f"mismatches outside near-ties")
+
+    # the tiny depth: logits at a fixed batch, on the card and moved to
+    # the CPU; a generator with a symbolic batch
+    tiny = create_deeplab(0, layers=(1, 1, 1, 1))
+    exp = export.export_seg_forward(tiny, batch=2, output="logits")
+    export.save_exported(exp, f"{root}/tiny_logits.pt2",
+                         meta={"output_kind": "logits"})
+    logits_err = export._self_check(export.load_exported(
+        f"{root}/tiny_logits.pt2"), 1, SERVE_OUT, 2, tiny, "logits")
+    cpu_err = export._self_check(export.load_exported(
+        f"{root}/tiny_logits.pt2", device="cpu"), 1, SERVE_OUT, 2,
+        tiny.cpu(), "logits")
+    gen = init_gan_net(unet_256(ngf=8, input_nc=3, output_nc=1), 62).eval()
+    gexp = export.export_generator_forward(gen, channels=3)
+    export.save_exported(gexp, f"{root}/tiny_g.pt2")
+    gen_err = export._self_check(export.load_exported(f"{root}/tiny_g.pt2"),
+                                 3, SERVE_OUT, None, gen, "image")
+
+    print(f"export check: ids at batches {json.dumps(checks)} against the "
+          f"live model; the CLI's self-check {res['check']} near-tie flips "
+          f"({check_launches} launches); profiler names {named}; int8 "
+          f"{qwrong} mismatches outside {qties} near-ties; tiny logits "
+          f"{logits_err:.3g} (card), {cpu_err:.3g} (moved to the CPU), "
+          f"generator {gen_err:.3g} max abs", flush=True)
+    print(f"export: ResNet-101 ids artifact {res['sidecar']['bytes']} bytes "
+          f"(rows_per_call {art.rows_per_call}), export {res['export_s']:.2f}"
+          f" s, save {res['save_s']:.2f} s, load {load_s:.2f} s; int8 "
+          f"container {qres['sidecar']['bytes']} bytes ({ratio:.4f} of the "
+          f"float artifact), export {qres['export_s']:.2f} s; batch of 8: "
+          f"artifact {art_ms} ms, live forward + kernel {live_ms} ms "
+          f"({art_ms / live_ms:.4f} x); launches {launches} on {card}",
+          flush=True)
+    print(f"export kernels, artifact against live (device ms of one batch "
+          f"of 8 by kernel, torch.profiler): {json.dumps(kernel_diff)} on "
+          f"{card}", flush=True)
+    note("export", export_s=res["export_s"], load_s=load_s,
+         int8_bytes_ratio=ratio, artifact_ms=art_ms, live_ms=live_ms)
+    return launches
+
+
+def device_kernel_diff(fn_a, fn_b, top: int = 4) -> dict:
+    """The device time of one call of ``fn_a`` and of ``fn_b`` by kernel,
+    from ``torch.profiler``: the totals, and the ``top`` kernels whose time
+    differs most between them (a's ms, b's ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def by_kernel(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ms = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.key[:60]   # the names that share it, summed
+                ms[name] = ms.get(name, 0.0) + getattr(
+                    e, "self_device_time_total", 0.0) / 1e3
+        return ms
+
+    a, b = by_kernel(fn_a), by_kernel(fn_b)
+    names = sorted(set(a) | set(b),
+                   key=lambda k: -abs(a.get(k, 0.0) - b.get(k, 0.0)))
+    return {"total_ms": [sum(a.values()), sum(b.values())],
+            "most_apart": {k: [a.get(k, 0.0), b.get(k, 0.0)]
+                           for k in names[:top]}}
+
+
+def smoke_translator(root: str) -> str:
+    """A GAN .pth with a UNet-256 s2t generator at ngf 64 (the GAN CLI's
+    width; random weights from seed 60) in ``root``; its name."""
+    from thermal_semantic_segmentation_torch.cli._common import (
+        save_gan_checkpoint)
+    from thermal_semantic_segmentation_torch.models.factory import (
+        init_gan_net, unet_256)
+    g = init_gan_net(unet_256(ngf=64, input_nc=3, output_nc=1), 60)
+    save_gan_checkpoint(f"{root}/smoke_translator.pth", {"s2t": g}, {},
+                        epoch=0)
+    return "smoke_translator.pth"
+
+
+def drive(server, images, encode=None) -> tuple:
+    """One request a row of ``images`` from ``SERVE_THREADS`` threads
+    through a started ``server`` (HTTP bypassed), each thread encoding its
+    answers with ``encode`` as the HTTP handler would; returns ({request:
+    answer}, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def client(tid):
+        mine = range(tid, len(images), SERVE_THREADS)
+        waiters = [(i, server.submit(images[i])) for i in mine]
+        out = []
+        for i, w in waiters:
+            answer = w.get(timeout=600)
+            if isinstance(answer, Exception):
+                fail(f"request {i} failed: {answer!r}")
+            if encode is not None:
+                encode(answer, "png")
+            out.append((i, answer))
+        return out
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_THREADS) as pool:
+        answers = dict(a for part in pool.map(client, range(SERVE_THREADS))
+                       for a in part)
+    return answers, time.perf_counter() - t0
+
+
+def phase_serve_translator(card: str, root: str) -> None:
+    """``serve --kind translator`` from a GAN .pth (UNet-256, ngf 64) at
+    batch 8: 24 requests from 4 threads, each answer encoded to a PNG
+    (zlib) by its thread; the answers held to the generator's forward and
+    de-normalisation in float64 (a pixel may part from it only where its
+    truncation lies within float32's error of an integer, as
+    ``translate_float64`` bounds the translator); frames/s, the forward of
+    a batch and the PNG encoding of a frame. It launches no kernel."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli import serve
+
+    args = serve.serve_parse().parse_args(
+        ["--kind", "translator", "-checkpoint_name", smoke_translator(root),
+         "--gan_model_root_path", root, "-batch_size", str(SERVE_BATCH),
+         "--max_wait_ms", "20"])
+    server, handler_kw = serve.build_server(args)
+    encode = handler_kw["encode"]
+    server.warmup()
+    server.start()
+    # the preprocess's output: (x - 0.5) / 0.5 of seeded RGB pixels
+    images = np.random.default_rng(61).uniform(
+        -1, 1, (SERVE_REQUESTS, *SERVE_OUT, 3)).astype(np.float32)
+    try:
+        answers, secs = drive(server, images, encode)
+    finally:
+        server.stop()
+    if server.requests_served != SERVE_REQUESTS:
+        fail(f"translator served {server.requests_served} of "
+             f"{SERVE_REQUESTS}")
+    # the server's batch path on one batch of the first 8 requests, held to
+    # float64 on the same batch; the coalesced answers to those rows
+    rows = server._predict(images[:SERVE_BATCH])[..., 0].astype(np.int64)
+    served = np.stack([answers[i][..., 0] for i in range(SERVE_BATCH)]
+                      ).astype(np.int64)
+    x = torch.from_numpy(images[:SERVE_BATCH]).cuda().permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        # float32's de-normalisation as the server computes it: its error
+        # against float64 is the generator's and the arithmetic's together
+        v32 = ((server.model(x)[:, 0] * 0.5 + 0.5) * 255.0).clamp(
+            0, 255).double().cpu().numpy()
+        fake = copy.deepcopy(server.model).double()(x.double())[
+            :, 0].cpu().numpy()
+        forward_ms = time_ms(lambda: server.model(x), reps=5, warmup=1)
+    v = np.clip((fake * 0.5 + 0.5) * 255.0, 0, 255)
+    tau = float(np.abs(v32 - v).max())
+    frac = np.minimum(v - np.floor(v), np.ceil(v) - v)
+    near = (frac <= tau) & (v > 0) & (v < 255)
+    err = np.abs(rows - np.floor(v))
+    # another batch's composition moves a row's float32 by float32 noise
+    # too: a truncation within TRANSLATE_SERVE_SLACK levels of an integer
+    # may land either side
+    loose = (frac <= max(4 * tau, TRANSLATE_SERVE_SLACK)) & (v > 0) & (v < 255)
+    moved = np.abs(served - rows)
+    frame = answers[0]
+    t0 = time.perf_counter()
+    for i in range(SERVE_BATCH):
+        encode(answers[i], "png")
+    encode_ms = (time.perf_counter() - t0) / SERVE_BATCH * 1e3
+    print(f"serve_translator check: the batch path's {SERVE_BATCH} rows "
+          f"against float64: max {int(err.max())} grey levels, "
+          f"{int((err[~near] > 0).sum())} "
+          f"pixels off away from {int(near.sum())} near decisions (float32 "
+          f"error {tau:.3g} levels); the coalesced answers "
+          f"{int((moved > 0).sum())} pixels off those rows, "
+          f"{int((moved[~loose] > 0).sum())} away from a near integer; "
+          f"frame {frame.shape} {frame.dtype}", flush=True)
+    if frame.shape != (*SERVE_OUT, 1) or frame.dtype != np.uint8:
+        fail(f"translator answered {frame.shape} {frame.dtype}")
+    if (err[~near] > 0).any() or err.max() > 1:
+        fail("translated bytes part from float64 beyond float32's error")
+    if (moved[~loose] > 0).any() or moved.max() > 1:
+        fail("the coalesced answers part from the server's batch path")
+    print(f"serve_translator: {SERVE_REQUESTS} requests at batch "
+          f"{SERVE_BATCH} from {SERVE_THREADS} threads, each PNG encoded by "
+          f"its thread: {SERVE_REQUESTS / secs:.2f} frames/s ({secs:.3f} s, "
+          f"{server.batches_run} batches); forward {forward_ms} ms a batch "
+          f"of {SERVE_BATCH}, PNG encode {encode_ms:.3f} ms a frame on one "
+          f"host thread, on {card}", flush=True)
+    note("serve_translator", frames_per_s=SERVE_REQUESTS / secs,
+         forward_ms=forward_ms, encode_ms=encode_ms)
+
+
+def phase_serve_artifact(card: str, root: str) -> dict:
+    """``serve --artifact`` of the export phase's ids artifact and the live
+    server of ``smoke.pth``, ``ARTIFACT_REQUESTS`` requests a turn through
+    each (``WARM_TURNS`` not counted, then ``SERVE_TURNS``): req/s as the
+    median of each server's warm turns, a batch's forward ms, ids equal
+    outside the live model's near-ties. Then a one-rank NCCL ``serve
+    --distributed`` answers a batch, held to the live server. Returns the
+    kernels' launch counts of two paths: ``serve_artifact``, zeroed before
+    and read after each of the artifact's turns, and
+    ``serve_distributed``, zeroed before and read after the ranked
+    server's run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from thermal_semantic_segmentation_torch.cli import serve
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+
+    base = ["-batch_size", str(SERVE_BATCH), "--max_wait_ms", "20"]
+    seg = ["-checkpoint_name", "smoke.pth", "--model_root_path", root]
+    live, _ = serve.build_server(serve.serve_parse().parse_args(seg + base))
+    blob, _ = serve.build_server(serve.serve_parse().parse_args(
+        ["--artifact", f"{root}/smoke_ids.pt2", *base]))
+    images = np.random.default_rng(70).random(
+        (ARTIFACT_REQUESTS, *SERVE_OUT, 1), dtype=np.float32)
+    for server in (live, blob):
+        server.warmup()
+        server.start()
+    artifact_launches = 0
+    rates = {"live": [], "artifact": []}
+    answers = {}
+    try:
+        for turn, name in enumerate(WARM_TURNS + SERVE_TURNS):
+            server = live if name == "live" else blob
+            upsample_argmax.launches = 0      # counts from the path only
+            answers[name], secs = drive(server, images)
+            if name == "artifact":
+                artifact_launches += upsample_argmax.launches
+            if turn >= len(WARM_TURNS):
+                rates[name].append(ARTIFACT_REQUESTS / secs)
+    finally:
+        for server in (live, blob):
+            server.stop()
+    x8 = torch.from_numpy(images[:SERVE_BATCH]).cuda()
+    with torch.inference_mode():
+        art_ms = time_ms(lambda: blob._predict_rows(None, x8), reps=5,
+                         warmup=1)
+        live_ms = time_ms(lambda: live._ids(live.model, x8), reps=5,
+                          warmup=1)
+    got = np.stack([answers["artifact"][i] for i in range(ARTIFACT_REQUESTS)])
+    want = np.stack([answers["live"][i] for i in range(ARTIFACT_REQUESTS)])
+    logits = torch.cat([live_logits(live.model, torch.from_numpy(
+        images[k:k + SERVE_BATCH]).cuda()) for k in range(
+        0, ARTIFACT_REQUESTS, SERVE_BATCH)])
+    wrong, ties = ids_mismatches(got, logits)
+    live_wrong, _ = ids_mismatches(want, logits)
+    del logits
+
+    # one-rank NCCL serve --distributed: joins at parse time, serves its card
+    args = serve.serve_parse().parse_args(seg + base + dist_flags_one_rank())
+    ranked, _ = serve.build_server(args)
+    backend, world = dist.get_backend(), dist.get_world_size()
+    upsample_argmax.launches = 0          # counts from the path only
+    ranked.start()
+    try:
+        waiters = [ranked.submit(images[i]) for i in range(SERVE_BATCH)]
+        dist_ids = np.stack([w.get(timeout=600) for w in waiters])
+    finally:
+        ranked.stop()
+        dist.destroy_process_group()
+    launches = {"serve_artifact": {"upsample_argmax": artifact_launches},
+                "serve_distributed": {
+                    "upsample_argmax": upsample_argmax.launches}}
+    dist_wrong, _ = ids_mismatches(dist_ids, live_logits(
+        live.model, torch.from_numpy(images[:SERVE_BATCH]).cuda()))
+    print(f"serve_artifact check: artifact ids {wrong}, live ids "
+          f"{live_wrong}, serve --distributed ({backend}, world {world}) ids "
+          f"{dist_wrong} mismatches outside {ties} near-ties of the live "
+          f"model; launches {launches}", flush=True)
+    if wrong or live_wrong or dist_wrong or backend != "nccl" or world != 1:
+        fail("serve_artifact: ids disagree with the live model, or the "
+             "ranked server was not one NCCL rank")
+    median = {k: statistics.median(v) for k, v in rates.items()}
+    ratio = median["artifact"] / median["live"]
+    print(f"serve_artifact: {ARTIFACT_REQUESTS} requests a turn at batch "
+          f"{SERVE_BATCH} from {SERVE_THREADS} threads, a warm-up turn each "
+          f"({', '.join(WARM_TURNS)}) then {', '.join(SERVE_TURNS)}: "
+          f"artifact {rates['artifact']} req/s, live {rates['live']} req/s "
+          f"(medians {median['artifact']:.2f}, {median['live']:.2f}: "
+          f"{ratio:.4f} x); a batch of {SERVE_BATCH}: artifact {art_ms} ms, "
+          f"live {live_ms} ms on {card}", flush=True)
+    note("serve_artifact", req_per_s=median["artifact"],
+         live_req_per_s=median["live"], ratio=ratio, artifact_ms=art_ms,
+         live_ms=live_ms)
+    return launches
+
+
+# every phase in the order a full run takes them, and the phases each one
+# needs to have run first (their files under the run's root); "gloo" is
+# the two gloo ranks' run that the multi-process phases check
+PHASES = ("serve", "eval", "train", "pseudo", "prototypes", "self_train",
+          "self_train_dist", "gan", "gan_dist", "gan_legacy", "translate",
+          "distance", "data_parallel", "dist", "export", "serve_translator",
+          "serve_artifact")
+NEEDS = {"gan_dist": ("gan",), "translate": ("gan",),
+         "distance": ("translate",), "data_parallel": ("gan",),
+         "serve_artifact": ("export",)}
+NEEDS_GLOO = ("self_train_dist", "gan_dist", "dist")
+
+
+def selected_phases(arg: str) -> list:
+    """The phases ``--phases a,b,...`` asks for with the ones they need, in
+    the full run's order; every phase without the argument."""
+    if not arg:
+        return list(PHASES)
+    want = [p.strip() for p in arg.split(",") if p.strip()]
+    unknown = sorted(set(want) - set(PHASES))
+    if unknown:
+        fail(f"unknown phases {unknown}; the phases: {', '.join(PHASES)}")
+    todo = set()
+    while want:
+        phase = want.pop()
+        if phase not in todo:
+            todo.add(phase)
+            want.extend(NEEDS.get(phase, ()))
+    return [p for p in PHASES if p in todo]
+
+
+def main(argv) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default="",
+                        help="comma-separated phases to run (with the ones "
+                             "they need); default: every phase")
+    phases = selected_phases(parser.parse_args(argv).phases)
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
-    kernels = phase_kernels()
-    by_path = {"serve": phase_slice(card), "eval": phase_eval(card),
-               "train": phase_train(card)}
+    seconds = {}
+
+    def timed(name, fn, *a):
+        start = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    kernels = timed("kernels", phase_kernels)
+    by_path, paths = {}, {}
     with tempfile_dir() as root:
         from thermal_semantic_segmentation_torch.models.deeplab import (
             create_deeplab)
         # ResNet-101, 1 channel, 13 classes, module2 head: random weights
-        # from seed 0 in a reference .pth, for both offline phases
+        # from seed 0 in a reference .pth, for the phases that load it
         torch.save({"epoch": 0,
                     "sem_net_state_dict": create_deeplab(0).state_dict()},
                    f"{root}/smoke.pth")
-        by_path["pseudo"] = phase_pseudo(card, root)
-        by_path["prototypes"] = phase_prototypes(card, root)
-        by_path["self_train"] = phase_self_train(card, root)
-        # two gloo ranks of tiny models for the three multi-process phases
-        gloo = gloo_runs()
-        by_path["self_train_dist"] = phase_self_train_dist(card, root, gloo)
-        by_path["gan"] = phase_gan(card, root)
-        by_path["gan_dist"] = phase_gan_dist(card, root, gloo)
-        by_path["gan_legacy"] = phase_gan(card, root, "legacy")
-        phase_translate(card, root)     # launches no kernel
-        phase_distance(card, root)      # launches no kernel
-        by_path["data_parallel"] = phase_data_parallel(card, root)
-    by_path["dist"] = phase_dist(card, gloo)
+        gloo = (timed("gloo", gloo_runs)
+                if set(phases) & set(NEEDS_GLOO) else None)
+        runs = {
+            "serve": lambda: phase_slice(card),
+            "eval": lambda: phase_eval(card),
+            "train": lambda: phase_train(card),
+            "pseudo": lambda: phase_pseudo(card, root),
+            "prototypes": lambda: phase_prototypes(card, root),
+            "self_train": lambda: phase_self_train(card, root),
+            "self_train_dist": lambda: phase_self_train_dist(card, root,
+                                                             gloo),
+            "gan": lambda: phase_gan(card, root),
+            "gan_dist": lambda: phase_gan_dist(card, root, gloo),
+            "gan_legacy": lambda: phase_gan(card, root, "legacy"),
+            "translate": lambda: phase_translate(card, root),
+            "distance": lambda: phase_distance(card, root),
+            "data_parallel": lambda: phase_data_parallel(card, root),
+            "dist": lambda: phase_dist(card, gloo),
+            "export": lambda: phase_export(card, root),
+            "serve_translator": lambda: phase_serve_translator(card, root),
+            "serve_artifact": lambda: phase_serve_artifact(card, root),
+        }
+        for name in phases:
+            launches = timed(name, runs[name])
+            if launches is None:        # a phase that runs no kernel
+                continue
+            # {kernel: launches}, or {path: {kernel: launches}} from a phase
+            # that drives more than one path
+            if all(isinstance(v, dict) for v in launches.values()):
+                paths[name] = list(launches)
+                by_path.update(launches)
+            else:
+                paths[name] = [name]
+                by_path[name] = launches
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]]
                                  for path, launches in by_path.items()}
@@ -4014,8 +4570,15 @@ def main() -> int:
             if not n:
                 fail(f"kernel {k['name']} was not launched on the {path} "
                      f"path")
-    print(f"smoke: every phase passed in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    for name, secs in seconds.items():
+        launched = {(k["name"] if path == name else f"{path}:{k['name']}"):
+                    k["launches_by_path"][path]
+                    for path in paths.get(name, ()) for k in kernels}
+        print(f"summary {name}: {secs:.1f} s "
+              f"{json.dumps({**NOTES.get(name, {}), **launched})}",
+              flush=True)
+    print(f"smoke: every phase passed ({', '.join(phases)}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)     # nvidia-smi's name, power.limit
     print(json.dumps({"ok": True, "device": {
@@ -4027,4 +4590,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -82,7 +82,9 @@ def test_importing_every_module_loads_no_banned_package():
                 "nn.patchgan", "nn.canny", "ops.image_pool",
                 "models.factory", "train.gan", "cli.main", "cli.main_gan",
                 "cli.translator", "ops.ssim", "eval.distance",
-                "cli.distance_evaluate", "parallel.mesh", "utils.preempt"):
+                "cli.distance_evaluate", "parallel.mesh", "utils.preempt",
+                "core.export", "cli.export_stablehlo", "cli.export_torch",
+                "cli.serve", "serving.codec"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"

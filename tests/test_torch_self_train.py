@@ -20,6 +20,7 @@ moves by lr / 2) within a tenth of that move where the gradient is at least
 1e-4 and within twice it elsewhere, prototypes 5e-4, counts exact.
 """
 
+import contextlib
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -136,16 +137,35 @@ def _prototype_weights_f64(feat, protos, temperature):
     return e / e.sum(-1, keepdims=True)
 
 
+@contextlib.contextmanager
+def _pinned_numerics(threads: int = 2):
+    """The numerics the 1e-6 tolerance relies on, set here whatever an
+    earlier test in the process left: ``threads`` intra-op threads, float32
+    matmuls at full precision on both sides (torch's ``highest``, JAX's
+    ``jax.default_matmul_precision('highest')``) and no CPU autocast."""
+    before = torch.get_num_threads(), torch.get_float32_matmul_precision()
+    torch.set_num_threads(threads)
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with torch.autocast("cpu", enabled=False), \
+                jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_num_threads(before[0])
+        torch.set_float32_matmul_precision(before[1])
+
+
 def test_prototype_weights_match_jax():
     rng = np.random.default_rng(2)
     feat = (rng.standard_normal((2, 16, 32, 256)) * 0.1).astype(np.float32)
     protos = (rng.standard_normal((C, 256)) * 0.1).astype(np.float32)
-    got = self_train.prototype_weights(torch.from_numpy(feat),
-                                       torch.from_numpy(protos), 0.5).numpy()
-    want = np.asarray(jax_st.prototype_weights(jnp.asarray(feat),
-                                               jnp.asarray(protos), 0.5))
-    state = (torch.get_float32_matmul_precision(),
-             torch.is_autocast_enabled("cpu"), torch.get_num_threads())
+    with _pinned_numerics():
+        got = self_train.prototype_weights(
+            torch.from_numpy(feat), torch.from_numpy(protos), 0.5).numpy()
+        want = np.asarray(jax_st.prototype_weights(
+            jnp.asarray(feat), jnp.asarray(protos), 0.5))
+        state = (torch.get_float32_matmul_precision(),
+                 torch.is_autocast_enabled("cpu"), torch.get_num_threads())
     # which side drifted, if one does: each against float64
     exact = _prototype_weights_f64(feat, protos, 0.5)
     np.testing.assert_allclose(

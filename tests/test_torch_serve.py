@@ -1,9 +1,14 @@
-"""The port's seg server (serving/, cli/serve.py, cli/_common.py) against the
-JAX package's server: same weights, same request bytes, same HTTP surface.
+"""The port's server (serving/, cli/serve.py, cli/_common.py) against the
+JAX package's server: same weights, same request bytes, same HTTP surface,
+for the seg kind and the translator kind.
 
 Class ids must be equal except where the JAX top-2 logit gap is below 1e-5
 (a genuine near-tie that float32 reassociation may flip); ``preprocess`` must
-match exactly; status codes and stream framing must be the same.
+match exactly; status codes and stream framing must be the same. Translated
+frames (tiny U-Nets, ngf 4, the same weights on both sides): the uint8 bytes
+must be equal, except at pixels where the JAX float ``(y * d + d) * 255``
+lies within 1e-4 of an integer, where the truncation may land either side
+and the two may be 1 apart.
 """
 
 import http.client
@@ -313,9 +318,12 @@ def test_native_msgpack_checkpoint_is_refused(exported, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    pytest.param(["--kind", "translator"], id="argv0"),
-    pytest.param(["--artifact", "model.stablehlo"], id="argv1")])
+    pytest.param(["--native_decode", "true"], id="argv0"),
+    pytest.param(["--wire", "packed_bf16"], id="argv1")])
 def test_serve_main_refuses_what_is_not_yet_ported(argv, capsys):
+    """``--kind translator`` and ``--artifact``, which these cases tried
+    first, are ported (the tests below): the host flags that are not yet
+    are still refused."""
     with pytest.raises(SystemExit) as exit_info:
         serve.main(argv + ["--device", "cpu"])
     assert exit_info.value.code == 2
@@ -360,3 +368,216 @@ def test_concurrent_http_clients_coalesce(pair):
     assert all(_ids(body).shape == HW for _, body in results)
     assert srv.requests_served - before_r == 32
     assert srv.batches_run - before_b <= 24     # well below one per request
+
+
+# -- the translator kind ----------------------------------------------------
+
+TRANSLATE_HW = (256, 512)
+NEAR_INTEGER = 1e-4
+
+
+def _translation_pair(input_nc, output_nc, seed):
+    """(JAX server, port server, JAX model and variables): one tiny U-Net
+    (unet_256, ngf 4) on both sides, served at batch 4."""
+    from tests.test_torch_gan import jax_net, port_net
+    from thermal_semantic_segmentation_tpu.serving.codec import (
+        make_translation_fns as jax_translation_fns)
+    from thermal_semantic_segmentation_torch.serving.codec import (
+        make_translation_fns)
+    kw = dict(ngf=4, input_nc=input_nc, output_nc=output_nc)
+    model, variables = jax_net("unet_256", seed, (1, *TRANSLATE_HW,
+                                                  input_nc), **kw)
+    twin = port_net("unet_256", variables, **kw).eval()
+    fns = dict(channels=input_nc, normalize=[0.5, 0.5, 0.5],
+               denormalize=[0.5])
+    jax_pre, jax_predict, jax_encode = jax_translation_fns(model, **fns)
+    pre, predict, encode = make_translation_fns(**fns)
+    jax_srv = jax_batcher.InferenceServer(
+        model, variables, batch_size=4, max_wait_ms=30,
+        label_hw=TRANSLATE_HW, channels=input_nc, predict_fn=jax_predict,
+        preprocess_fn=jax_pre)
+    port_srv = batcher.InferenceServer(
+        twin, batch_size=4, max_wait_ms=30, label_hw=TRANSLATE_HW,
+        channels=input_nc, device="cpu", predict_fn=predict,
+        preprocess_fn=pre)
+    servers = []
+    for srv, factory, enc in ((jax_srv, jax_endpoints.make_handler,
+                               jax_encode),
+                              (port_srv, endpoints.make_handler, encode)):
+        srv.warmup()
+        srv.start()
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), factory(
+            srv, {"checkpoint": "g", "kind": "translator"}, encode=enc,
+            endpoints=("/translate", "/translate_stream"),
+            formats=("palette", "png")))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers.append((srv, httpd))
+    yield dict(model=model, variables=variables, jax_pre=jax_pre,
+               port_pre=pre,
+               jax_url=f"http://127.0.0.1:"
+                       f"{servers[0][1].server_address[1]}",
+               port_url=f"http://127.0.0.1:"
+                        f"{servers[1][1].server_address[1]}")
+    for srv, httpd in servers:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+
+
+@pytest.fixture(scope="module")
+def translation_rgb():
+    """s2t: RGB in, 1-channel out."""
+    yield from _translation_pair(3, 1, seed=20)
+
+
+@pytest.fixture(scope="module")
+def translation_ir():
+    """t2s: 1-channel (16-bit IR) in, RGB out (``-output_nc 3``)."""
+    yield from _translation_pair(1, 3, seed=21)
+
+
+def _near_integer(pair, payload):
+    """Pixels (H, W, C) where the JAX float de-normalised value lies within
+    NEAR_INTEGER of an integer."""
+    x = pair["jax_pre"](payload)[None]
+    y = np.asarray(pair["model"].apply(pair["variables"], jnp.asarray(x),
+                                       train=False, mutable=False))[0]
+    v = (y.astype(np.float64) * 0.5 + 0.5) * 255.0
+    return np.abs(v - np.round(v)) <= NEAR_INTEGER
+
+
+def _assert_frames_match(pair, payload, got_png, want_png):
+    got = np.asarray(Image.open(io.BytesIO(got_png)))
+    want = np.asarray(Image.open(io.BytesIO(want_png)))
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    near = _near_integer(pair, payload).reshape(got.shape)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert (diff[~near] == 0).all(), int((diff[~near] != 0).sum())
+    assert diff.max() <= 1
+
+
+def test_translation_kind_http_roundtrip(translation_rgb):
+    pair = translation_rgb
+    payload = _payload("u8_rgb", seed=30)
+    ctype, got = _post(f"{pair['port_url']}/translate", payload)
+    assert ctype == "image/png"
+    _, want = _post(f"{pair['jax_url']}/translate", payload)
+    assert np.asarray(Image.open(io.BytesIO(got))).shape == TRANSLATE_HW
+    _assert_frames_match(pair, payload, got, want)
+    # the ?format=png spelling answers the same PNG
+    _, again = _post(f"{pair['port_url']}/translate?format=png", payload)
+    assert again == got
+
+
+def test_translation_stream_endpoint(translation_rgb):
+    pair = translation_rgb
+    frames = [_payload("u8_rgb", seed=40 + i) for i in range(5)]
+    frames.insert(1, b"not an image")
+    got = list(stream_segment(f"{pair['port_url']}/translate_stream",
+                              frames))
+    want = list(stream_segment(f"{pair['jax_url']}/translate_stream",
+                               frames))
+    assert [s for s, _ in got] == [s for s, _ in want] == [0, 1, 0, 0, 0, 0]
+    for frame, (status, g), (_, w) in zip(frames, got, want):
+        if status == 0:
+            _assert_frames_match(pair, frame, g, w)
+
+
+def test_translation_16bit_ir_uses_radiometric_window(translation_ir):
+    """A 16-bit IR frame goes through the Freiburg window, as the JAX
+    server's, and the RGB output is a colour-type-2 PNG."""
+    pair = translation_ir
+    payload = _payload("u16", seed=50)
+    _, got = _post(f"{pair['port_url']}/translate", payload)
+    _, want = _post(f"{pair['jax_url']}/translate", payload)
+    assert got[25] == 2        # IHDR colour type: 8-bit RGB
+    assert np.asarray(Image.open(io.BytesIO(got))).shape == (
+        *TRANSLATE_HW, 3)
+    _assert_frames_match(pair, payload, got, want)
+    np.testing.assert_array_equal(pair["port_pre"](payload),
+                                  pair["jax_pre"](payload))
+
+
+def test_translation_kind_answers_404_on_segment(translation_rgb):
+    pair = translation_rgb
+    port = int(pair["port_url"].rsplit(":", 1)[1])
+    jax_port = int(pair["jax_url"].rsplit(":", 1)[1])
+    body = _payload("u8_rgb", seed=60)
+    for path in ("/segment", "/segment_stream"):
+        assert _status(port, "POST", path, body, False) == _status(
+            jax_port, "POST", path, body, False) == 404
+    assert _status(port, "POST", "/translate?format=ids", body,
+                   False) == 400
+
+
+def test_serve_cli_builds_the_translator_from_a_gan_checkpoint(tmp_path):
+    """``--kind translator`` from the JAX package's msgpack GAN checkpoint:
+    the server's rows are the generator's forward de-normalised, and its
+    handler serves /translate."""
+    from tests.test_torch_gan import jax_net, port_net
+    from thermal_semantic_segmentation_tpu.core.checkpoint import (
+        save_checkpoint)
+    model, variables = jax_net("unet_256", 22, (1, *TRANSLATE_HW, 3), ngf=4,
+                               output_nc=1)
+    save_checkpoint(str(tmp_path / "g.msgpack"),
+                    {"epoch": 1, "g_vars": {"s2t": variables}})
+    args = serve.serve_parse().parse_args(
+        ["--kind", "translator", "-checkpoint_name", "g.msgpack",
+         "--gan_model_root_path", str(tmp_path), "-batch_size", "2",
+         "--device", "cpu"])
+    srv, handler_kw = serve.build_server(args)
+    assert handler_kw["endpoints"] == ("/translate", "/translate_stream")
+    x = np.random.default_rng(1).uniform(-1, 1, (2, *TRANSLATE_HW, 3)
+                                         ).astype(np.float32)
+    got = srv._predict(x)
+    twin = port_net("unet_256", variables, ngf=4, output_nc=1).eval()
+    with torch.no_grad():
+        y = twin(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    want = ((y * 0.5 + 0.5) * 255.0).clamp(0, 255).to(torch.uint8).numpy()
+    assert got.shape == (2, *TRANSLATE_HW, 1) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture
+def one_process_group():
+    """``--distributed true`` with one process over gloo on a free port;
+    the group is torn down after the test."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    yield ["--distributed", "true", "--coordinator_address",
+           f"localhost:{port}", "--num_processes", "1", "--process_id", "0"]
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_serve_accepts_distributed(exported, one_process_group):
+    """``--distributed true``: the process joins a one-process gloo group
+    at parse time and its server answers /segment as the server without
+    the flag does."""
+    import torch.distributed as dist
+    root, _, _ = exported
+    argv = ["-checkpoint_name", "s.pth", "--model_root_path", str(root),
+            "--device", "cpu", "-batch_size", "2"]
+    answers = []
+    for extra in ([], one_process_group):
+        srv, kw = serve.build_server(serve.serve_parse().parse_args(
+            argv + extra))
+        srv.warmup()
+        srv.start()
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                    endpoints.make_handler(srv, {}, **kw))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            answers.append(_ids(_post(
+                f"http://127.0.0.1:{httpd.server_address[1]}/segment?"
+                f"format=ids", _payload("u16", seed=70))[1]))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            srv.stop()
+    assert dist.is_initialized() and dist.get_world_size() == 1
+    assert dist.get_backend() == "gloo"
+    np.testing.assert_array_equal(answers[1], answers[0])

@@ -1,7 +1,9 @@
 """The port's fused upsample + argmax (kernels/upsample_argmax.py) against
 the JAX package's Pallas kernel (interpret mode) and its XLA composite, the
 kernel's host-side launch plan (tiles, staged spans, shared memory), and
-(tests marked gpu) the CUDA kernel against its plain version on the card:
+(tests marked gpu) the CUDA kernel against its plain version on the card,
+and the op ``tss::upsample_argmax`` that carries it (also through
+``torch.export``):
 
     python -m pytest --noconftest tests/test_torch_upsample_argmax.py -m gpu
 
@@ -151,6 +153,40 @@ def test_launch_plan_rejects_rows_over_shared_memory():
         launch_plan(1, 17, 8000, 64, 128)
 
 
+class _Ids(torch.nn.Module):
+    """A function that calls the op, for ``torch.export``."""
+
+    def forward(self, x):
+        pred, _ = torch.ops.tss.upsample_argmax(x, 256, 512)
+        return pred.to(torch.uint8)
+
+
+def _export_keeps_the_op(x):
+    """``torch.export`` of ``_Ids`` on ``x``: the program, after checking
+    that it calls the op (its fake implementation gave the shapes)."""
+    ep = torch.export.export(_Ids(), (x,))
+    ops = [n for n in ep.graph.nodes if n.op == "call_function"
+           and n.target is torch.ops.tss.upsample_argmax.default]
+    assert len(ops) == 1
+    pred_val = ops[0].meta["val"][0]
+    assert tuple(pred_val.shape) == (x.shape[0], 256, 512)
+    assert pred_val.dtype == torch.int32
+    return ep
+
+
+def test_op_on_the_cpu_is_the_plain_version_and_exports():
+    """``tss::upsample_argmax`` on a CPU tensor runs the plain version (no
+    launch); an exported program keeps the op and runs it."""
+    x = torch.from_numpy(_logits((2, 33, 65, 13), seed=3))
+    before = upsample_argmax.launches
+    pred, conf = torch.ops.tss.upsample_argmax(x, 256, 512)
+    want_pred, want_conf = upsample_argmax_reference(x, 256, 512)
+    assert torch.equal(pred, want_pred) and torch.equal(conf, want_conf)
+    got = _export_keeps_the_op(x).module()(x)
+    assert torch.equal(got, want_pred.to(torch.uint8))
+    assert upsample_argmax.launches == before
+
+
 def test_wrapper_rejects_non_4d_input():
     with pytest.raises(ValueError, match="expected"):
         upsample_argmax(torch.zeros(9, 17, 13), 64, 128)
@@ -186,3 +222,27 @@ def test_kernel_rejects_non_float32_on_card(cuda_device):
     with pytest.raises(TypeError, match="float32"):
         upsample_argmax(torch.zeros(1, 9, 17, 13, dtype=torch.float16,
                                     device=cuda_device), 64, 128)
+
+
+@pytest.mark.gpu
+def test_op_launches_the_kernel_and_runs_in_an_exported_program_on_card(
+        cuda_device):
+    """On a CUDA tensor the op launches the kernel (once a call, counted),
+    equal to the plain version outside near-ties; ``torch.export`` keeps
+    the op's node, and the program runs it on the card."""
+    x = torch.from_numpy(_logits((2, 33, 65, 13), seed=4)).to(cuda_device)
+    before = upsample_argmax.launches
+    pred, conf = torch.ops.tss.upsample_argmax(x, 256, 512)
+    torch.cuda.synchronize()
+    assert upsample_argmax.launches == before + 1
+    want_pred, want_conf = upsample_argmax_reference(x, 256, 512)
+    _assert_matches(pred.cpu().numpy(), conf.cpu().numpy(),
+                    want_pred.cpu().numpy(), want_conf.cpu().numpy(),
+                    upsample_logits(x, 256, 512).cpu().numpy())
+    program = _export_keeps_the_op(x).module()
+    before = upsample_argmax.launches
+    got = program(x)
+    torch.cuda.synchronize()
+    assert upsample_argmax.launches == before + 1
+    assert got.device.type == "cuda"
+    assert torch.equal(got, pred.to(torch.uint8))

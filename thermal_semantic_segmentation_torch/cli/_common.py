@@ -101,8 +101,10 @@ def model_meta_from_state_dict(sd) -> dict:
     """Architecture of a reference DeepLabV2 (module2 head) state_dict: the
     checkpoint is authoritative for it, as its tensors ARE that model."""
     if "conv1.weight" not in sd or "layer5.head.1.weight" not in sd:
-        raise ValueError("not a DeepLabV2 state_dict with the module2 head "
-                         "(legacy-head checkpoints are not yet ported)")
+        raise ValueError("not a DeepLabV2 state_dict with the module2 head: "
+                         "the seg CLIs build the module2 head only, as the "
+                         "JAX package's do (a legacy-head net is a GAN's "
+                         "frozen sem net, -sem_mode legacy)")
     blocks = {}
     for key in sd:
         m = _BLOCK_KEY.match(key)
@@ -234,24 +236,29 @@ def save_gan_checkpoint(path: str, g_nets, d_nets, *, epoch: int) -> None:
     """Write the reference GAN ``.pth`` schema (reference main.py:128-136,
     main_gan.py:110-114): ``{'epoch', 'net_g_s2t_state_dict',
     'net_g_t2s_state_dict', 'net_d_t_state_dict', 'net_d_s_state_dict'}``
-    for the nets given ({'s2t', 't2s'} and {'t', 's'}), tensors on the CPU,
-    atomically. The JAX package's CLIs read it (its ``.pth`` path)."""
+    for the nets given ({'s2t', 't2s'} and {'t', 's'}: modules or their
+    state_dicts), tensors on the CPU, atomically. The JAX package's CLIs read it (its ``.pth`` path)."""
     payload = {"epoch": int(epoch)}
     for nets, keys in ((g_nets, GAN_KEYS["g"]), (d_nets, GAN_KEYS["d"])):
         for name, key in keys:
             if name in nets:
-                payload[key] = {k: v.detach().cpu()
-                                for k, v in nets[name].state_dict().items()}
+                net = nets[name]
+                sd = net.state_dict() if isinstance(net, torch.nn.Module) \
+                    else net
+                payload[key] = {k: v.detach().cpu() for k, v in sd.items()}
     _save_atomically(path, payload)
 
 
-def load_gan_checkpoint(path: str) -> dict:
+def load_gan_checkpoint(path: str, *, norm: str = "batch",
+                        num_downs=None) -> dict:
     """A GAN checkpoint in the reference ``.pth`` schema, read from a
     ``.pth`` (``torch.load(weights_only=True)``) or from the JAX package's
     msgpack GAN checkpoint (``{'epoch', 'g_vars', 'd_vars'}`` and any
     ``'sem_vars'``, converted by ``jax_gan_checkpoint_to_torch``). The
     frozen legacy sem nets of a reference ``.pth``
-    (``net_seg_s_state_dict``, ``net_seg_t_state_dict``) are kept."""
+    (``net_seg_s_state_dict``, ``net_seg_t_state_dict``) are kept.
+    ``norm`` and ``num_downs`` describe a msgpack checkpoint's nets
+    (``jax_gan_checkpoint_to_torch``)."""
     if zipfile.is_zipfile(path):
         ckpt = _torch_load(path)
     else:
@@ -263,7 +270,8 @@ def load_gan_checkpoint(path: str) -> dict:
         if not isinstance(ckpt, dict) or "g_vars" not in ckpt:
             raise ValueError(f"{path!r} is a msgpack file without a GAN "
                              f"checkpoint's 'g_vars'")
-        ckpt = jax_gan_checkpoint_to_torch(ckpt)
+        ckpt = jax_gan_checkpoint_to_torch(ckpt, norm=norm,
+                                           num_downs=num_downs)
     if "epoch" not in ckpt or not any(key in ckpt for _, key in
                                       GAN_KEYS["g"]):
         raise ValueError(f"{path!r} holds no GAN generator")

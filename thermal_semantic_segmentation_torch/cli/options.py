@@ -30,24 +30,19 @@ class HostConfigParser(argparse.ArgumentParser):
     ``--distributed true`` joins the job's process group here, before any
     device use, as the JAX parser calls ``jax.distributed.initialize``
     (``parallel/mesh.init_distributed``: NCCL on the card, gloo with
-    ``--device cpu``). An entry point whose multi-process path is not yet
-    ported builds its parser with ``distributed=False`` and refuses it.
-    One whose JAX counterpart reads ``--data_parallel`` nowhere builds it
-    with ``data_parallel=False`` and refuses that flag, as a flag that
-    would change nothing."""
+    ``--device cpu``). An entry point whose JAX counterpart reads
+    ``--data_parallel`` nowhere builds its parser with
+    ``data_parallel=False`` and refuses that flag, as a flag that would
+    change nothing."""
 
-    def __init__(self, *a, distributed: bool = True,
-                 data_parallel: bool = True, **kw):
+    def __init__(self, *a, data_parallel: bool = True, **kw):
         super().__init__(*a, **kw)
-        self.distributed = distributed
         self.data_parallel = data_parallel
 
     def parse_args(self, *a, **kw):  # type: ignore[override]
         args = super().parse_args(*a, **kw)
         why = "is not yet ported to the PyTorch package (see ROADMAP.md)"
         refused = {flag: (test, why) for flag, test in NOT_YET_PORTED.items()}
-        if not self.distributed:
-            refused["distributed"] = (bool, why)
         if not self.data_parallel:
             refused["data_parallel"] = (
                 bool, "is read nowhere by this entry point, in the JAX "
@@ -129,6 +124,11 @@ def _add_roots(parser: argparse.ArgumentParser):
                              'warning. The trainers shard their validation '
                              'with it: over the ranks under --distributed, '
                              'else over the cards.')
+    parser.add_argument('--compile_cache_dir', type=str, default='auto',
+                        help='accepted for the JAX package\'s command lines '
+                             '(its persistent XLA compilation cache) and '
+                             'changes nothing here: the port runs eagerly '
+                             'and has no torch.compile to cache.')
     parser.add_argument('--distributed', type=str2bool, default=False,
                         help='join a multi-process job at parse time, one '
                              'process per card (NCCL; gloo with --device '

@@ -3,7 +3,8 @@
 The pseudo-label files are an 8-bit grayscale PNG of class ids and an 8-bit
 palette ('P') PNG of the same ids under the Freiburg palette; the validation
 dumps are palette PNGs of the prediction and the ground truth and a gray or
-RGB PNG of the input image. The JAX package writes them all with PIL. The
+RGB PNG of the input image; the translation server answers with a gray or
+RGB PNG. The JAX package writes them all with PIL. The
 card's machine has no PIL, so the port writes them here: one IHDR, a PLTE
 for the palette image, one IDAT of filter-0 rows, IEND. PIL decodes them to
 the same pixels (and palette) as its own files.
@@ -62,10 +63,16 @@ def write_gray_png(path: str, pixels: np.ndarray) -> None:
         f.write(data)
 
 
+def rgb_png_bytes(pixels: np.ndarray) -> bytes:
+    """(H, W, 3) values in 0..255 -> the bytes of an 8-bit RGB PNG."""
+    return _png_bytes(pixels, _RGB)
+
+
 def write_rgb_png(path: str, pixels: np.ndarray) -> None:
-    """(H, W, 3) values in 0..255 -> an 8-bit RGB PNG at ``path``."""
+    """``rgb_png_bytes`` written to ``path``."""
+    data = rgb_png_bytes(pixels)
     with open(path, "wb") as f:
-        f.write(_png_bytes(pixels, _RGB))
+        f.write(data)
 
 
 def palette_png_bytes(indices: np.ndarray, palette) -> bytes:

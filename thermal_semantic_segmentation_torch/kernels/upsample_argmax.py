@@ -13,9 +13,15 @@ The kernel's floor is memory traffic: at the serving shape (8, 33, 65, 13)
 confidences. Its design never writes the upsampled (N, 256, 512, 13) float32
 logits (about 54 MB at batch 8), which the plain version below materialises.
 
-``upsample_argmax`` launches the kernel for a CUDA tensor and runs the plain
-version only for a CPU tensor. ``upsample_argmax.launches`` counts kernel
-launches (CPU calls leave it unchanged).
+The function is the ``torch.library`` custom op ``tss::upsample_argmax``
+(logits, out_h, out_w) -> (pred, conf), so that ``torch.export`` keeps the
+launch inside an exported program (``core/export.py``). Its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, and its fake implementation gives the output shapes for tracing.
+``upsample_argmax`` checks its arguments and calls the op: a CUDA tensor goes
+through the kernel, a CPU tensor through the plain version.
+``upsample_argmax.launches`` counts kernel launches (CPU calls leave it
+unchanged), wherever the op is called from.
 """
 
 from __future__ import annotations
@@ -143,23 +149,9 @@ def _kernel_fn():
     return _bind(build.load("upsample_argmax"))
 
 
-def upsample_argmax(logits_nhwc: torch.Tensor, out_h: int, out_w: int):
-    """(N, h, w, C) float32 logits -> (pred (N, out_h, out_w) int32,
-    conf (N, out_h, out_w) float32), bilinear align_corners.
-
-    A CUDA tensor goes through the hand-written kernel (any strides whose
-    offsets inside one image fit in 32 bits; no copy for a channels_last
-    model output viewed as NHWC); a CPU tensor through
-    ``upsample_argmax_reference``.
-    """
-    x = logits_nhwc
-    if x.dim() != 4:
-        raise ValueError(f"expected (N, h, w, C) logits, got shape "
-                         f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return upsample_argmax_reference(x, out_h, out_w)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _launch(x: torch.Tensor, out_h: int, out_w: int):
+    """The CUDA implementation of ``tss::upsample_argmax``: one launch of
+    the kernel on ``x``'s card."""
     if x.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32 logits, got {x.dtype}")
     n, h, w, c = x.shape
@@ -189,6 +181,42 @@ def upsample_argmax(logits_nhwc: torch.Tensor, out_h: int, out_w: int):
                            f"error {err}")
     upsample_argmax.launches += 1
     return pred, conf
+
+
+@torch.library.custom_op(
+    "tss::upsample_argmax", mutates_args=(), device_types="cpu",
+    schema="(Tensor logits, int out_h, int out_w) -> (Tensor, Tensor)")
+def upsample_argmax_op(logits, out_h, out_w):
+    return upsample_argmax_reference(logits, out_h, out_w)
+
+
+upsample_argmax_op.register_kernel("cuda")(_launch)
+
+
+@upsample_argmax_op.register_fake
+def _fake(logits, out_h, out_w):
+    shape = (logits.shape[0], out_h, out_w)
+    return (logits.new_empty(shape, dtype=torch.int32),
+            logits.new_empty(shape, dtype=torch.float32))
+
+
+def upsample_argmax(logits_nhwc: torch.Tensor, out_h: int, out_w: int):
+    """(N, h, w, C) float32 logits -> (pred (N, out_h, out_w) int32,
+    conf (N, out_h, out_w) float32), bilinear align_corners, through the op
+    ``tss::upsample_argmax``.
+
+    A CUDA tensor goes through the hand-written kernel (any strides whose
+    offsets inside one image fit in 32 bits; no copy for a channels_last
+    model output viewed as NHWC); a CPU tensor through
+    ``upsample_argmax_reference``.
+    """
+    x = logits_nhwc
+    if x.dim() != 4:
+        raise ValueError(f"expected (N, h, w, C) logits, got shape "
+                         f"{tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return torch.ops.tss.upsample_argmax(x, out_h, out_w)
 
 
 upsample_argmax.launches = 0

@@ -280,18 +280,19 @@ GAN_KEYS = {"g": (("s2t", "net_g_s2t_state_dict"),
 
 
 def jax_gan_checkpoint_to_torch(ckpt: Mapping, *, norm: str = "batch",
-                                n_layers: int = 3) -> dict:
+                                n_layers: int = 3, num_downs=None) -> dict:
     """The JAX package's GAN checkpoint (``{'epoch', 'g_vars', 'd_vars'}``,
     U-Net generators and PatchGANs, and ``'sem_vars'``, the frozen legacy
     sem nets, when it has them) -> the reference ``.pth`` schema
     ``{'epoch', 'net_g_s2t_state_dict', 'net_g_t2s_state_dict',
     'net_d_t_state_dict', 'net_d_s_state_dict', 'net_seg_s_state_dict',
-    'net_seg_t_state_dict'}`` (the nets it holds)."""
+    'net_seg_t_state_dict'}`` (the nets it holds). ``num_downs``: the
+    U-Nets' depth, read from their variables when None."""
     out = {"epoch": int(ckpt["epoch"])}
     for name, key in GAN_KEYS["g"]:
         if name in ckpt.get("g_vars", {}):
-            out[key] = unet_variables_to_state_dict(ckpt["g_vars"][name],
-                                                    norm=norm)
+            out[key] = unet_variables_to_state_dict(
+                ckpt["g_vars"][name], num_downs=num_downs, norm=norm)
     for name, key in GAN_KEYS["d"]:
         if name in ckpt.get("d_vars", {}):
             out[key] = patchgan_variables_to_state_dict(

@@ -4,7 +4,9 @@
 :class:`InferenceServer` coalesces concurrent requests into fixed-size padded
 device batches, up to a latency budget, and answers each with its (H, W)
 uint8 class ids: model forward, then the fused ``upsample_argmax`` kernel,
-then a cast to uint8 on the device before the copy back to the host.
+then a cast to uint8 on the device before the copy back to the host. Its
+``predict_fn`` and ``preprocess_fn`` hooks swap the forward and the request
+decoding (the translation kind, an exported artifact) and keep the batcher.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.upsample_argmax import upsample_argmax
+from ..models.forward import seg_forward
 from ..ops.batching import pad_rows
 from ..parallel import mesh as pmesh
 
@@ -74,11 +76,19 @@ class InferenceServer:
     coalesced batch's rows are split over the copies, ``batch_size /
     mesh.size`` each; ``batch_size`` must divide over the mesh, as the JAX
     server requires.
+
+    ``predict_fn(model, x)`` replaces the segmentation forward: it takes a
+    replica (None for each when ``model`` is None, as for an exported
+    artifact, whose ``predict_fn`` picks the program of ``x``'s device) and
+    one share ``x`` of the batch, (rows, H, W, ``channels``) float32 on the
+    replica's device, and returns its uint8 rows on that device.
+    ``preprocess_fn(bytes)`` replaces ``preprocess``.
     """
 
     def __init__(self, model, *, batch_size: int = 8,
                  max_wait_ms: float = 10.0, label_hw=HW, channels: int = 1,
-                 bf16: bool = False, device=None, mesh=None):
+                 bf16: bool = False, device=None, mesh=None,
+                 predict_fn=None, preprocess_fn=None):
         if mesh is not None and batch_size % mesh.size:
             raise ValueError(
                 f"batch_size {batch_size} must divide evenly over the "
@@ -90,10 +100,17 @@ class InferenceServer:
         self.channels = channels
         self.bf16 = bf16
         # weights live on the device for the server's lifetime
-        self.model = model.to(device=self.device,
-                              memory_format=torch.channels_last).eval()
         self.mesh = pmesh.LocalMesh.of(mesh, self.device)
-        self.replicas = pmesh.replicate(self.mesh, self.model)
+        if model is None:
+            self.model = None
+            self.replicas = [None] * self.mesh.size
+        else:
+            self.model = model.to(device=self.device,
+                                  memory_format=torch.channels_last).eval()
+            self.replicas = pmesh.replicate(self.mesh, self.model)
+        self._predict_rows = predict_fn or self._ids
+        self._preprocess = preprocess_fn or (
+            lambda data: preprocess(data, self.label_hw, self.channels))
         # one pinned host buffer per server: each batch is copied into it and
         # sent with a non_blocking copy. Reuse is safe because every batch
         # ends in a device->host copy that waits for the stream.
@@ -111,31 +128,22 @@ class InferenceServer:
         self.requests_served = 0
 
     def _predict(self, images: np.ndarray) -> np.ndarray:
-        """(batch, H, W, C) float32 -> (batch, H, W) uint8 class ids."""
+        """(batch, H, W, C) float32 -> the forward's uint8 rows ((batch, H,
+        W) class ids for the segmentation kind)."""
         self._host.numpy()[...] = images
         # each copy's launches queue on its own device before any result
         # is read back
         shares = [self._host[rows].to(dev, non_blocking=True)
                   for dev, rows in zip(self.mesh.devices, pmesh.split_rows(
                       self.mesh, self.batch_size))]
-        return pmesh.map_shares(self._ids, self.replicas, "cpu",
+        return pmesh.map_shares(self._predict_rows, self.replicas, "cpu",
                                 shares).numpy()
 
     def _ids(self, model, x: torch.Tensor) -> torch.Tensor:
         """One model's uint8 class ids of the NHWC batch ``x``, on its
-        device."""
+        device (``models/forward.seg_forward``)."""
         with torch.inference_mode():
-            with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                                enabled=self.bf16):
-                out = model(x.permute(0, 3, 1, 2))["out"]
-            # channels_last NCHW logits viewed as NHWC: no copy
-            logits = out.float().permute(0, 2, 3, 1)
-            pred, _ = upsample_argmax(logits, *self.label_hw)
-            # uint8 ids: 4x fewer bytes on the device->host copy
-            return pred.to(torch.uint8)
-
-    def _preprocess(self, image_bytes: bytes) -> np.ndarray:
-        return preprocess(image_bytes, self.label_hw, self.channels)
+            return seg_forward(model, x, self.label_hw, "ids", self.bf16)
 
     def warmup(self):
         """One forward at the serving shape, so the first request does not
@@ -174,7 +182,8 @@ class InferenceServer:
         return out
 
     def segment(self, image_bytes: bytes) -> np.ndarray:
-        """Blocking helper: bytes in, (H, W) uint8 class ids out."""
+        """Blocking helper: bytes in, the forward's per-image uint8 output
+        out ((H, W) class ids for the segmentation kind)."""
         result = self.submit(self._preprocess(image_bytes)).get()
         if isinstance(result, Exception):
             raise InferenceError(str(result))

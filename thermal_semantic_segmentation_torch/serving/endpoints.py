@@ -18,17 +18,21 @@ from http.server import BaseHTTPRequestHandler
 from .batcher import InferenceError, InferenceServer
 from .codec import _read_exact, encode_result
 
-ONE_PATH, STREAM_PATH = "/segment", "/segment_stream"
-FORMATS = frozenset(("palette", "ids", "json"))
 
 
-def make_handler(server: InferenceServer, model_info: dict):
+def make_handler(server: InferenceServer, model_info: dict, *,
+                 encode=None, endpoints=("/segment", "/segment_stream"),
+                 formats=("palette", "ids", "json")):
+    """The handler class. ``encode(pred, fmt)`` -> (bytes, content type)
+    replaces the class-id encoders; ``endpoints`` are the one-shot and the
+    stream paths (every other path answers 404); ``formats`` the ``format=``
+    values they take."""
     from ..data.palette import freiburg_palette
 
     palette = freiburg_palette()
-
-    def encode(pred, fmt):
-        return encode_result(pred, fmt, palette)
+    encode = encode or (lambda pred, fmt: encode_result(pred, fmt, palette))
+    one_path, stream_path = endpoints
+    allowed_formats = frozenset(formats)
 
     class Handler(BaseHTTPRequestHandler):
         # HTTP/1.1 enables chunked responses for /segment_stream (and
@@ -83,15 +87,15 @@ def make_handler(server: InferenceServer, model_info: dict):
             for part in query.split("&"):
                 if part.startswith("format="):
                     fmt = part.split("=", 1)[1]
-            if path in (ONE_PATH, STREAM_PATH) and fmt not in FORMATS:
+            if path in (one_path, stream_path) and fmt not in allowed_formats:
                 # an unsupported format must not come back as a silently
                 # different payload -- refuse before any inference runs
                 self._drain_body()
                 self._send(400, f"unsupported format {fmt!r}; one of "
-                                f"{sorted(FORMATS)}".encode(), "text/plain")
-            elif path == ONE_PATH:
+                                f"{sorted(allowed_formats)}".encode(), "text/plain")
+            elif path == one_path:
                 self._segment_one(fmt)
-            elif path == STREAM_PATH:
+            elif path == stream_path:
                 self._segment_stream(fmt)
             else:
                 self._drain_body()
@@ -107,7 +111,7 @@ def make_handler(server: InferenceServer, model_info: dict):
 
         def _segment_one(self, fmt):
             if "Content-Length" not in self.headers:
-                self._length_required(ONE_PATH)
+                self._length_required(one_path)
                 return
             try:
                 length = int(self.headers.get("Content-Length", 0))
@@ -150,7 +154,7 @@ def make_handler(server: InferenceServer, model_info: dict):
                 return item
 
             if "Content-Length" not in self.headers:
-                self._length_required(STREAM_PATH)
+                self._length_required(stream_path)
                 return
             remaining = int(self.headers.get("Content-Length", 0))
             done = []     # finalized (status, payload), in request order
