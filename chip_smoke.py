@@ -123,7 +123,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      turns, a batch's forward, ids outside near-ties), then a one-rank NCCL
      ``serve --distributed`` answers a batch held to the live model; the
      artifact's and the ranked server's launches are counted apart
-     (``serve_artifact`` and ``serve_distributed`` in the kernels line).
+     (``serve_artifact`` and ``serve_distributed`` in the kernels line);
+ 19. profile: ``cli/profile_step`` at full width, float32, for the eval and
+     seg steps (batch 8), the self-training step and the full CycleGAN
+     step with the contour and module2 sem losses (batch 4), 2 warm-up and
+     5 profiled steps each: each step's category table; its final line
+     held to the JAX CLI's keys, device time within wall time, the
+     categories summing to the device time; in the eval and GAN traces
+     ``upsample_argmax_kernel`` named, at the kernels phase's time;
+ 20. device_aug: the train CLI's epoch loop with ``-device_aug true`` on
+     seeded raw 320x700 frames (the loader's size), cropped to 256x512 on
+     the card, then one validation through the kernel; the card's
+     augmented batch against the CPU's from the same draws (images 1e-5,
+     labels exact); the augmentation's ms against the step's;
+ 21. host_data: eval under bfloat16 autocast with ``--wire packed_bf16``
+     against ``packed`` (the same ids; bytes and h2d ms of each), the
+     decode cache through a hit and a disk-tier reload, and the native C++
+     IO where the card's host can build it (encode -> decode_raw exact,
+     ``decode_ir_batch`` against numpy, frames/s at 1 and 8 threads);
+ 22. doctor: ``cli/doctor --check_backend true`` in a process of its own:
+     PASS with the card's name and the kernels built and loaded.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -4466,13 +4485,425 @@ def phase_serve_artifact(card: str, root: str) -> dict:
     return launches
 
 
+# the profile phase: profile_step's steps at full width (float32), each
+# step's batch and flags; 2 warm-up steps and 5 profiled ones
+PROFILE_STEPS = (
+    ("eval", 8, ()), ("seg", 8, ()), ("self_train", 4, ()),
+    ("gan", 4, ("--gan_cycle", "true", "--with_contour", "true",
+                "--sem_loss", "true", "--ngf", "64")))
+PROFILE_WARMUP, PROFILE_RUNS = 2, 5
+PROFILE_KEYS = {"step", "batch_size", "wall_ms_per_step",
+                "device_ms_per_step", "categories_ms_per_step"}
+# the profiler's kernel time against the kernels phase's CUDA-event time
+PROFILE_KERNEL_RATIO = (0.5, 2.0)
+# the device_aug phase: raw frames at the loader's size (RAW_SIZE 960x320
+# after the column crop 150:850), cropped to 256x512 in the step
+AUG_RAW_HW = (320, 700)
+AUG_IMAGES, AUG_VAL_IMAGES, AUG_BATCH = 40, 8, 8
+AUG_ATOL = 1e-5
+# the host_data phase: native decode of seeded 16-bit frames
+NATIVE_FRAMES, NATIVE_FRAME_HW = 32, (400, 1200)
+
+
+def profile_run(argv) -> tuple:
+    """``profile_step.main(argv)``: (its final JSON line, its printed
+    output, the trace's per-op microseconds)."""
+    import contextlib
+    import io
+
+    from thermal_semantic_segmentation_torch.cli import profile_step
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        profile_step.main(argv)
+    text = out.getvalue()
+    logdir = argv[argv.index("--logdir") + 1]
+    per_op, _ = profile_step._aggregate_trace(logdir)
+    return json.loads(text.strip().splitlines()[-1]), text, per_op
+
+
+def phase_profile(card: str, root: str, kernels: list) -> dict:
+    """``profile_step`` at full width for the eval, seg, self_train and
+    full GAN steps: each step's category table, its final line held to
+    the JAX CLI's keys, device time within wall time, the categories
+    summing to the device time, and (eval, gan) the kernel named among the
+    ops with the time the kernels phase measured. Returns the launches of
+    the phase's steps."""
+    import torch
+
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    kernel = kernels[0]
+    # the kernel's CUDA-event time at each step's shape (kernels phase)
+    expect_ms = {"eval": kernel["ms"], "gan": kernel["gan_shape"]["ms"]}
+    per_step = {}
+    upsample_argmax.launches = 0        # counts from the main path only
+    for step, batch, extra in PROFILE_STEPS:
+        before = upsample_argmax.launches
+        logdir = f"{root}/profile_{step}"
+        summary, text, per_op = profile_run(
+            ["--step", step, "--batch_size", str(batch), "--bf16", "false",
+             "--steps", str(PROFILE_RUNS), "--warmup", str(PROFILE_WARMUP),
+             "--logdir", logdir, *extra])
+        torch.cuda.empty_cache()
+        launched = upsample_argmax.launches - before
+        table = text[text.index(f"\n{step} step"):text.rindex("\n{")]
+        print(f"profile {step} (batch {batch}, float32, {card}):{table}",
+              flush=True)
+        print(f"profile {step} line: {json.dumps(summary)}", flush=True)
+        if set(summary) != PROFILE_KEYS:
+            fail(f"profile {step}: keys {sorted(summary)}, not the JAX "
+                 f"CLI's {sorted(PROFILE_KEYS)}")
+        wall, dev = summary["wall_ms_per_step"], summary["device_ms_per_step"]
+        cats = summary["categories_ms_per_step"]
+        if not 0 < dev <= wall:
+            fail(f"profile {step}: device {dev} ms/step outside (0, wall "
+                 f"{wall}]")
+        # each category is rounded to 0.001 ms
+        if abs(sum(cats.values()) - dev) > 1e-3 * (len(cats) + 1):
+            fail(f"profile {step}: categories sum to {sum(cats.values())}, "
+                 f"device {dev}")
+        conv = (cats.get("convolution", 0.0) + cats.get("gemm", 0.0)) / dev
+        info = {"wall_ms": wall, "device_ms": dev, "conv_gemm_share": conv,
+                "launches": launched}
+        if step in expect_ms:
+            names = [op for op in per_op if "upsample_argmax_kernel" in op]
+            if not names:
+                fail(f"profile {step}: upsample_argmax_kernel is not among "
+                     f"the trace's ops")
+            if launched != PROFILE_WARMUP + 2 * PROFILE_RUNS:
+                fail(f"profile {step}: {launched} kernel launches for "
+                     f"{PROFILE_WARMUP + 2 * PROFILE_RUNS} steps")
+            got = sum(per_op[op] for op in names) / 1e3 / PROFILE_RUNS
+            want = expect_ms[step]          # one launch a step
+            ratio = got / want
+            print(f"profile {step}: upsample_argmax_kernel {got:.5f} ms/step "
+                  f"in the trace, the kernels phase's {want:.5f} ms x 1 "
+                  f"launch a step (ratio {ratio:.3f})", flush=True)
+            if not PROFILE_KERNEL_RATIO[0] <= ratio <= PROFILE_KERNEL_RATIO[1]:
+                fail(f"profile {step}: the trace's kernel time {got} ms/step "
+                     f"is not the kernels phase's {want} ms")
+            info["kernel_ms"] = got
+        per_step[step] = info
+        note("profile", **{f"{step}_{k}": v for k, v in info.items()})
+    print(f"profile: {json.dumps(per_step)} on {card}", flush=True)
+    return {"upsample_argmax": upsample_argmax.launches}
+
+
+def phase_device_aug(card: str, root: str) -> dict:
+    """The train CLI's epoch loop with ``-device_aug true`` on raw frames
+    (the step crops them on the card), then one validation through the
+    kernel; the card's augmented batch against the CPU's from the same
+    crop parameters; the augmentation's time against the step's."""
+    import math
+
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli.options import seg_parse
+    from thermal_semantic_segmentation_torch.cli.segmentation_train import (
+        make_loaders, train_epochs)
+    from thermal_semantic_segmentation_torch.data.loader import split_indices
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.ops.augment import (
+        random_resized_crop_flip, resized_crop_flip, sample_crop_params)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        augment_generator)
+    from thermal_semantic_segmentation_torch.utils.logging import get_logger
+
+    raw = SeededImages(AUG_IMAGES, AUG_RAW_HW, seed=11)
+    val_source = SeededImages(AUG_IMAGES, SERVE_OUT, seed=12)
+    target = SeededImages(AUG_VAL_IMAGES, SERVE_OUT, seed=13)
+    n_train, n_val = map(len, split_indices(AUG_IMAGES))
+    steps = n_train // AUG_BATCH
+    val_batches = (math.ceil(n_val / AUG_BATCH)
+                   + math.ceil(AUG_VAL_IMAGES / AUG_BATCH))
+    args = seg_parse().parse_args(
+        ["-load_model", "true", "-checkpoint_name", "smoke.pth",
+         "-new_checkpoint_name", "smoke_aug.pth", "--model_root_path", root,
+         "-batch_size", str(AUG_BATCH), "-val_batch_size", str(AUG_BATCH),
+         "-epochs", "1", "-device_aug", "true"])
+    args.logdir = f"{root}/logs_aug"
+    upsample_argmax.launches = 0        # counts from the main path only
+    state, history = train_epochs(
+        args, get_logger(args.logdir),
+        *make_loaders(args, raw, target, val_source))
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    h = history[0]
+    losses = h["train_losses"]
+    print(f"device_aug: {h['train_images']} raw {AUG_RAW_HW} images in "
+          f"{len(losses)} steps of {AUG_BATCH}, losses {losses}, val_loss "
+          f"{h['val_loss']}; launches {launches} for {val_batches} "
+          f"validation batches", flush=True)
+    if len(losses) != steps or not all(map(math.isfinite,
+                                           losses + [h["val_loss"]])):
+        fail(f"device_aug: {len(losses)} steps (want {steps}) or a "
+             f"non-finite loss")
+    if launches["upsample_argmax"] != val_batches:
+        fail(f"device_aug: {launches['upsample_argmax']} kernel launches for "
+             f"{val_batches} validation batches")
+
+    # one step's augmentation on the card and on the CPU from the same
+    # draws (the step's generator at step 0)
+    image = torch.from_numpy(raw.images[:AUG_BATCH]).cuda()
+    label = torch.from_numpy(raw.labels[:AUG_BATCH]).cuda()
+    params = sample_crop_params(augment_generator(image.device, args.seed, 0),
+                                AUG_BATCH, AUG_RAW_HW)
+    got, got_lab = resized_crop_flip(image, params, SERVE_OUT, labels=label)
+    want, want_lab = resized_crop_flip(
+        image.cpu(), {k: v.cpu() for k, v in params.items()}, SERVE_OUT,
+        labels=label.cpu())
+    err = float((got.cpu() - want).abs().max())
+    lab_diff = int((got_lab.cpu() != want_lab).sum())
+    crops = {k: [round(float(x), 1) for x in v]
+             for k, v in params.items() if k != "flip"}
+    print(f"device_aug check: crops {crops}, flips "
+          f"{params['flip'].tolist()}; images max abs err {err:.3g} "
+          f"(tolerance {AUG_ATOL}), labels differing {lab_diff}", flush=True)
+    if err > AUG_ATOL or lab_diff:
+        fail(f"device_aug: the card's augmented batch differs from the "
+             f"CPU's (images {err}, labels {lab_diff})")
+    gen = augment_generator(image.device, args.seed, 0)
+    aug_ms = time_ms(lambda: random_resized_crop_flip(
+        gen, image, labels=label, out_hw=SERVE_OUT))
+    step_ms = h["train_s"] / len(losses) * 1e3
+    print(f"device_aug: augmentation {aug_ms:.4f} ms a batch of "
+          f"{AUG_BATCH} ({AUG_RAW_HW} -> {SERVE_OUT}) against {step_ms:.1f} "
+          f"ms a step of the loop (first epoch, cuDNN warm-up included), on "
+          f"{card}", flush=True)
+    note("device_aug", augment_ms=aug_ms, step_ms=step_ms,
+         images_max_abs_err=err)
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_png16(path: str, pixels) -> None:
+    """A 16-bit grayscale PNG of filter-0 rows, with zlib alone."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = pixels.shape
+    rows = np.zeros((h, 1 + 2 * w), np.uint8)
+    rows[:, 1:] = pixels.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0,
+                                             0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def ir_decode_numpy(pixels, resize_wh=(960, 320), crop=(150, 850),
+                    window=(21800.0, 25000.0)):
+    """``decode_ir_batch``'s arithmetic on one decoded frame, in numpy
+    float32 in the C++ source's order: the half-pixel bilinear resize,
+    the column crop, the window."""
+    import numpy as np
+
+    f32 = np.float32
+    src = pixels.astype(f32)
+    h, w = src.shape
+    ow, oh = resize_wh
+
+    def taps(n_out, n_in):
+        scale = f32(n_in) / f32(n_out)
+        pos = (np.arange(n_out, dtype=f32) + f32(0.5)) * scale - f32(0.5)
+        pos = np.minimum(np.maximum(pos, f32(0)), f32(n_in) - f32(1))
+        lo = pos.astype(np.int64)
+        return lo, np.minimum(lo + 1, n_in - 1), (pos - lo.astype(f32))
+
+    y0, y1, wy = taps(oh, h)
+    x0, x1, wx = taps(ow, w)
+    wx, wy = wx[None, :], wy[:, None]
+    top = src[y0][:, x0] * (f32(1) - wx) + src[y0][:, x1] * wx
+    bot = src[y1][:, x0] * (f32(1) - wx) + src[y1][:, x1] * wx
+    out = top * (f32(1) - wy) + bot * wy
+    v = np.clip(out[:, crop[0]:crop[1]], f32(window[0]), f32(window[1]))
+    return (v - f32(window[0])) * (f32(1) / (f32(window[1]) - f32(window[0])))
+
+
+def phase_host_data(card: str, root: str) -> dict:
+    """The host data path: eval under bfloat16 autocast with ``--wire
+    packed_bf16`` against ``packed`` (the same ids; the copy's bytes and
+    time), the decode cache through a hit and a disk-tier reload, and the
+    native C++ IO where the card's host can build it."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli.options import (
+        evaluation_parse)
+    from thermal_semantic_segmentation_torch.data import native_loader as nl
+    from thermal_semantic_segmentation_torch.data.cache import (
+        DecodeCache, decode_cache, set_decode_cache)
+    from thermal_semantic_segmentation_torch.data.device_pipeline import (
+        device_prefetch)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.eval.validate import (
+        seg_validate)
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        build_seg_eval_step)
+
+    data = SeededImages(EVAL_IMAGES, SERVE_OUT, seed=21)
+    model = load_smoke_model(evaluation_parse, root)
+    step = build_seg_eval_step(num_classes=NUM_CLASSES, ignore_index=IGNORE,
+                               bf16=True)
+
+    def loader():
+        return DataLoader(data, EVAL_BATCH, shuffle=False, drop_last=False)
+
+    results, preds = {}, {}
+    upsample_argmax.launches = 0        # counts from the main path only
+    for wire in ("packed", "packed_bf16"):
+        results[wire] = seg_validate(model, loader(), num_classes=NUM_CLASSES,
+                                     ignore_index=IGNORE, eval_step=step,
+                                     bf16=True, wire=wire)
+        preds[wire] = [step(model, b["image"], b["label"])[2].cpu()
+                       for b in device_prefetch(loader(), "cuda", wire=wire)]
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    mismatched = sum(int((a != b).sum())
+                     for a, b in zip(preds["packed"], preds["packed_bf16"]))
+    print(f"host_data wire: mIoU/val_loss packed {results['packed'][:2]}, "
+          f"packed_bf16 {results['packed_bf16'][:2]}; ids differing "
+          f"{mismatched} of {sum(p.numel() for p in preds['packed'])}; "
+          f"launches {launches}", flush=True)
+    if mismatched or results["packed"][0] != results["packed_bf16"][0]:
+        fail(f"--wire packed_bf16 changed {mismatched} ids of a bf16 eval")
+
+    batch = {"image": data.images[:EVAL_BATCH],
+             "label": data.labels[:EVAL_BATCH]}
+    for wire in ("packed", "packed_bf16"):
+        n_bytes = sum(v.nbytes // (2 if wire == "packed_bf16"
+                                   and v.dtype == np.float32 else 1)
+                      for v in batch.values())
+        image_bytes = batch["image"].nbytes // (2 if wire == "packed_bf16"
+                                                else 1)
+
+        def put():
+            for b in device_prefetch([batch], "cuda", wire=wire):
+                pass
+            torch.cuda.synchronize()
+        put()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            put()
+            times.append((time.perf_counter() - t0) * 1e3)
+        h2d = statistics.median(times)
+        print(f"host_data wire {wire}: {n_bytes} bytes a batch of "
+              f"{EVAL_BATCH} ({image_bytes} of images), host cast + pin + "
+              f"copy + restore {h2d:.4f} ms (median of 10, synchronised) on "
+              f"{card}", flush=True)
+        note("host_data", **{f"{wire}_bytes": n_bytes,
+                             f"{wire}_h2d_ms": h2d})
+
+    # the decode cache: a miss, a RAM hit, then a fresh cache's disk hit
+    frames_dir = os.path.join(root, "frames16")
+    os.makedirs(frames_dir, exist_ok=True)
+    rng = np.random.default_rng(22)
+    frames = rng.integers(21000, 26000, (NATIVE_FRAMES, *NATIVE_FRAME_HW),
+                          dtype=np.uint16)
+    paths = [os.path.join(frames_dir, f"{i:04d}.png")
+             for i in range(NATIVE_FRAMES)]
+    for path, frame in zip(paths, frames):
+        write_png16(path, frame)
+    calls = []
+
+    def decode():
+        calls.append(1)
+        return ir_decode_numpy(frames[0])
+
+    disk = os.path.join(root, "decoded")
+    try:
+        set_decode_cache(64, disk_dir=disk)
+        first = decode_cache().get_or_decode(("ir", paths[0]), decode)
+        hit = decode_cache().get_or_decode(("ir", paths[0]), decode)
+        fresh = DecodeCache(64 << 20, disk_dir=disk)
+        reloaded = fresh.get_or_decode(("ir", paths[0]), decode)
+        stats = (decode_cache().hits, decode_cache().misses, fresh.disk_hits)
+    finally:
+        set_decode_cache(0, disk_dir=None)
+    print(f"host_data decode cache: decodes {len(calls)}, (hits, misses, "
+          f"fresh disk hits) {stats}", flush=True)
+    if len(calls) != 1 or hit is not first or stats != (1, 1, 1) or \
+            not np.array_equal(reloaded, first):
+        fail(f"decode cache: {len(calls)} decodes, stats {stats}")
+
+    if not nl.available():
+        why = nl.unavailable_reason().splitlines()[0]
+        print(f"host_data native: the C++ IO does not build on this host "
+              f"(needs g++ with png.h and jpeglib.h): {why}", flush=True)
+        note("host_data", native="unavailable")
+        return launches
+    # encode -> decode_raw round trips, gray and RGB
+    imgs = rng.integers(0, 256, (3, 37, 53, 3), dtype=np.uint8)
+    gray = rng.integers(0, 256, (2, 29, 41), dtype=np.uint8)
+    enc = [os.path.join(root, f"enc_{i}.png") for i in range(5)]
+    nl.encode_batch(enc[:3], imgs)
+    nl.encode_batch(enc[3:], gray)
+    exact = all(np.array_equal(nl.decode_raw(p), x) for p, x in zip(
+        enc, [*imgs, *gray[..., None]]))
+    got = nl.decode_ir_batch(paths)
+    want = np.stack([ir_decode_numpy(f) for f in frames])[..., None]
+    diff = int((got != want).sum())
+    rates = {}
+    for threads in (1, 8):
+        nl.decode_ir_batch(paths, n_threads=threads)
+        t0 = time.perf_counter()
+        nl.decode_ir_batch(paths, n_threads=threads)
+        rates[threads] = NATIVE_FRAMES / (time.perf_counter() - t0)
+    print(f"host_data native: {nl.library_path().name} built; encode -> "
+          f"decode_raw exact {exact}; decode_ir_batch of {NATIVE_FRAMES} "
+          f"16-bit {NATIVE_FRAME_HW} frames against numpy: {diff} values "
+          f"differ; frames/s at 1 thread {rates[1]:.1f}, at 8 threads "
+          f"{rates[8]:.1f} (warm page cache, {os.cpu_count()} host cores)",
+          flush=True)
+    if not exact or diff:
+        fail(f"native IO: round trips exact {exact}, {diff} decoded values "
+             f"differ from numpy")
+    note("host_data", native_frames_per_s_1=rates[1],
+         native_frames_per_s_8=rates[8])
+    return launches
+
+
+def phase_doctor(card: str) -> None:
+    """The port's doctor with ``--check_backend true`` in a process of its
+    own: PASS with the card's name and the kernels built and loaded."""
+    import os
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "thermal_semantic_segmentation_torch.cli.doctor",
+         "--check_backend", "true", "--freiburg_root",
+         os.path.join("nonexistent", "freiburg")],
+        capture_output=True, text=True, timeout=600)
+    print(f"doctor (exit {proc.returncode}):\n{proc.stdout.strip()}",
+          flush=True)
+    backend = [line for line in proc.stdout.splitlines()
+               if "backend" in line]
+    name = card.split(",")[0].strip()
+    if proc.returncode != 0 or not backend or "PASS" not in backend[0] or \
+            name not in backend[0] or "built and loaded" not in backend[0]:
+        fail(f"doctor: exit {proc.returncode}, backend line {backend}, "
+             f"stderr {proc.stderr.strip()[-2000:]}")
+    note("doctor", backend="PASS")
+
+
 # every phase in the order a full run takes them, and the phases each one
 # needs to have run first (their files under the run's root); "gloo" is
 # the two gloo ranks' run that the multi-process phases check
 PHASES = ("serve", "eval", "train", "pseudo", "prototypes", "self_train",
           "self_train_dist", "gan", "gan_dist", "gan_legacy", "translate",
           "distance", "data_parallel", "dist", "export", "serve_translator",
-          "serve_artifact")
+          "serve_artifact", "profile", "device_aug", "host_data", "doctor")
 NEEDS = {"gan_dist": ("gan",), "translate": ("gan",),
          "distance": ("translate",), "data_parallel": ("gan",),
          "serve_artifact": ("export",)}
@@ -4549,6 +4980,10 @@ def main(argv) -> int:
             "export": lambda: phase_export(card, root),
             "serve_translator": lambda: phase_serve_translator(card, root),
             "serve_artifact": lambda: phase_serve_artifact(card, root),
+            "profile": lambda: phase_profile(card, root, kernels),
+            "device_aug": lambda: phase_device_aug(card, root),
+            "host_data": lambda: phase_host_data(card, root),
+            "doctor": lambda: phase_doctor(card),
         }
         for name in phases:
             launches = timed(name, runs[name])

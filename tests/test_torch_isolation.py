@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of the
 JAX package (nor PIL when a module is imported: the card's machine has
 none), its entry points refuse to fall back to the CPU quietly, and its CLIs
-refuse the JAX package's flags they have not ported."""
+take the JAX package's host flags where the JAX CLIs take them."""
 
 import ast
 import pkgutil
@@ -84,13 +84,56 @@ def test_importing_every_module_loads_no_banned_package():
                 "cli.translator", "ops.ssim", "eval.distance",
                 "cli.distance_evaluate", "parallel.mesh", "utils.preempt",
                 "core.export", "cli.export_stablehlo", "cli.export_torch",
-                "cli.serve", "serving.codec"):
+                "cli.serve", "serving.codec", "cli.profile_step",
+                "cli.doctor", "ops.augment", "data.cache",
+                "data.native_loader", "data.triple_transforms"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {BANNED!r})\n"
         "bad += ['PIL'] if 'PIL' in sys.modules else []\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the files of the port's last slice that are not Python modules, and the
+# modules, which the import checks above cover too
+LAST_SLICE_FILES = ["cli/profile_step.py", "cli/doctor.py", "ops/augment.py",
+                    "data/cache.py", "data/native_loader.py",
+                    "data/triple_transforms.py", "csrc/tss_io.cpp",
+                    "recipes/full_pipeline.sh", "recipes/assert_miou.py"]
+
+
+@pytest.mark.parametrize("rel", LAST_SLICE_FILES)
+def test_last_slice_files_name_nothing_of_the_jax_package(rel):
+    """Neither the modules nor the recipe copy nor the C++ copy name the
+    JAX package or its native library."""
+    text = (PORT_DIR / rel).read_text()
+    assert "thermal_semantic_segmentation_tpu" not in text
+    assert "native/libtss_io" not in text
+
+
+def test_native_io_and_doctor_load_nothing_of_the_jax_package(tmp_path):
+    """The native library the port loads is its own build (no file of the
+    JAX package, its ``native/libtss_io.so`` included, is mapped into the
+    process), and the doctor's host checks import no banned module."""
+    code = (
+        "import sys\n"
+        "from thermal_semantic_segmentation_torch.data import "
+        "native_loader as nl\n"
+        "from thermal_semantic_segmentation_torch.cli import doctor\n"
+        "nl.available()\n"
+        f"doctor.main(['--check_backend', 'false', '--freiburg_root', "
+        f"{str(tmp_path / 'none')!r}])\n"
+        "maps = open('/proc/self/maps').read()\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{BANNED!r})\n"
+        "bad += ['maps'] if 'thermal_semantic_segmentation_tpu' in maps "
+        "else []\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -175,102 +218,276 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             segmentation_evaluate.main(["-dataset", "freiburg_ir"])
 
 
-def _params(cases, ported):
-    """``cases`` as pytest params keeping the ids they had when every one
-    of them was refused (argv<i>), without the ``ported`` ones."""
-    return [pytest.param(argv, id=f"argv{i}")
-            for i, argv in enumerate(cases) if argv not in ported]
-
-
 DISTRIBUTED = ["--distributed", "true"]
 DATA_PARALLEL = ["--data_parallel", "true"]
 REMAT_FULL = ["--remat", "full"]
 
 
-@pytest.mark.parametrize("argv", _params([
-    DISTRIBUTED, DATA_PARALLEL,
-    ["--native_decode", "true"], ["--wire", "packed_bf16"],
-    ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"]],
-    [DISTRIBUTED, DATA_PARALLEL]))
-def test_eval_cli_refuses_flags_not_yet_ported(argv, capsys):
-    with pytest.raises(SystemExit) as exit_info:
-        segmentation_evaluate.main(argv + ["--device", "cpu"])
-    assert exit_info.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
-
-
 TRAIN_PORTED = [DISTRIBUTED, ["-bn_mode", "per_replica"], REMAT_FULL,
                 ["--remat", "dots"]]
+GAN_CLIS = [("main", main), ("main_gan", main_gan),
+            ("translator", translator),
+            ("distance_evaluate", distance_evaluate)]
 
 
-@pytest.mark.parametrize("argv", _params([
-    DISTRIBUTED, DATA_PARALLEL,
-    ["--native_decode", "true"], ["--wire", "packed_bf16"],
-    ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"],
-    ["-device_aug", "true"], ["-bn_mode", "per_replica"],
-    REMAT_FULL, ["--remat", "dots"]], TRAIN_PORTED + [DATA_PARALLEL]))
-def test_train_cli_refuses_flags_not_yet_ported(argv, capsys):
+@pytest.mark.parametrize("name,cli", [
+    (name, cli) for name, cli in GAN_CLIS if name != "translator"],
+    ids=["main", "main_gan", "distance_evaluate"])
+def test_gan_clis_refuse_data_parallel(name, cli, capsys):
+    """``--data_parallel`` stays refused where the JAX CLI reads it
+    nowhere (main, main_gan, distance_evaluate), with that reason."""
     with pytest.raises(SystemExit) as exit_info:
-        segmentation_train.main(argv + ["--device", "cpu"])
+        cli.main(DATA_PARALLEL + ["--device", "cpu"])
     assert exit_info.value.code != 0
     err = capsys.readouterr().err
-    assert f"error: {argv[0]} " in err and "is not yet ported" in err
+    assert ("error: --data_parallel " in err
+            and "is read nowhere by this entry point" in err)
+
+
+# -- the JAX package's host flags, each landing where the JAX CLI puts it:
+# the dataset's native_decode, the process's decode cache, the wire after
+# resolve_wire, the writer's native_encode and the step's device_augment.
+# A stub in place of each CLI's loop records what reached it; no loop runs.
+
+class _Reached(Exception):
+    """Raised by a stub in place of a CLI's loop."""
+
+
+def _stop_at(monkeypatch, module, name) -> dict:
+    """Replace ``module.name`` by a stub that records its arguments and
+    raises ``_Reached``; returns the record."""
+    seen = {}
+
+    def stub(*args, **kwargs):
+        seen.update(args=args, kwargs=kwargs)
+        raise _Reached
+    monkeypatch.setattr(module, name, stub)
+    return seen
+
+
+def _record(monkeypatch, module, name) -> dict:
+    """Wrap ``module.name`` so that its keyword arguments and result are
+    recorded; returns the record."""
+    seen, real = {}, getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        seen.update(kwargs)
+        seen["result"] = real(*args, **kwargs)
+        return seen["result"]
+    monkeypatch.setattr(module, name, wrapper)
+    return seen
+
+
+@pytest.fixture
+def fresh_decode_cache():
+    """The process's decode cache off before and after the test."""
+    from thermal_semantic_segmentation_torch.data.cache import (
+        set_decode_cache)
+    set_decode_cache(0, disk_dir=None)
+    yield
+    set_decode_cache(0, disk_dir=None)
+
+
+HOST_FLAGS = {
+    "native_decode": ["--native_decode", "true"],
+    "native_encode": ["--native_encode", "true"],
+    # with bf16 compute, where resolve_wire keeps packed_bf16
+    "wire": ["--wire", "packed_bf16", "--bf16", "true"],
+    "decode_cache_mb": ["--decode_cache_mb", "512"],
+    "decode_cache_dir": ["--decode_cache_dir"],     # + a directory
+    "device_aug": ["-device_aug", "true"],
+}
+SEG_FLAGS = ["native_decode", "wire", "decode_cache_mb", "decode_cache_dir"]
+WRITER_FLAGS = ["native_decode", "native_encode", "wire", "decode_cache_mb",
+                "decode_cache_dir"]
+
+
+def _flag_argv(flag, tmp_path) -> list:
+    argv = list(HOST_FLAGS[flag])
+    return argv + [str(tmp_path / "decoded")] if flag == \
+        "decode_cache_dir" else argv
+
+
+def _assert_landed(flag, tmp_path, *, datasets=(), reads_native_decode=False,
+                   wire="packed", bf16_wire=True, native_encode=None):
+    """``flag`` landed where the JAX CLI puts it, and no other flag moved:
+    the decode cache's bound and disk tier, each dataset's
+    ``native_decode`` (where the JAX CLI passes it), the wire the loop got
+    (packed_bf16 where the CLI computes in bf16) and the writer's
+    ``native_encode`` (where the CLI has one)."""
+    from thermal_semantic_segmentation_torch.data.cache import decode_cache
+    cache = decode_cache()
+    assert cache.max_bytes == (512 << 20 if flag == "decode_cache_mb"
+                               else 0)
+    assert cache.disk_dir == (str(tmp_path / "decoded")
+                              if flag == "decode_cache_dir" else None)
+    for ds in datasets:
+        assert getattr(ds, "native_decode", False) == (
+            reads_native_decode and flag == "native_decode"), ds
+    assert wire == ("packed_bf16" if flag == "wire" and bf16_wire
+                    else "packed")
+    if native_encode is not None:
+        assert native_encode == (flag == "native_encode")
+
+
+def _seg_argv(root, tree) -> list:
+    return ["-checkpoint_name", "s.pth", "--model_root_path", str(root),
+            "--freiburg_root", tree, "--device", "cpu"]
+
+
+@pytest.mark.parametrize("flag", SEG_FLAGS)
+def test_eval_cli_accepts_host_flags(flag, tiny_tree, tmp_path, monkeypatch,
+                                     fresh_decode_cache):
+    """The test split has no native path in the JAX CLI either."""
+    root, tree = tiny_tree
+    seen = _stop_at(monkeypatch, segmentation_evaluate, "seg_validate")
+    with pytest.raises(_Reached):
+        segmentation_evaluate.main(["-dataset", "freiburg_ir",
+                                    *_seg_argv(root, tree),
+                                    *_flag_argv(flag, tmp_path)])
+    _assert_landed(flag, tmp_path, datasets=[seen["args"][1].dataset],
+                   wire=seen["kwargs"]["wire"])
+
+
+@pytest.mark.parametrize("flag", SEG_FLAGS + ["device_aug"])
+def test_train_cli_accepts_host_flags(flag, tiny_tree, tmp_path, monkeypatch,
+                                      fresh_decode_cache):
+    """``-device_aug true``: the step augments on the device, the train
+    frames keep their size (``ToArray`` only) and the source val split
+    resizes (``val_transform``), as in the JAX CLI."""
+    root, tree = tiny_tree
+    monkeypatch.chdir(tmp_path)        # the CLI writes logs/<name>/
+    made = _record(monkeypatch, segmentation_train, "make_seg_train_step")
+    loaders = _record(monkeypatch, segmentation_train, "make_loaders")
+    seen = _stop_at(monkeypatch, segmentation_train, "device_prefetch")
+    with pytest.raises(_Reached):
+        segmentation_train.main(
+            ["-dataset", "freiburg_ir", "--freiburg_root", tree,
+             "-batch_size", "2", "--layers", "1,1,1,1",
+             "--model_root_path", str(tmp_path), "-new_checkpoint_name",
+             "n.pth", "--device", "cpu", *_flag_argv(flag, tmp_path)])
+    train, val, _ = loaders["result"]
+    assert seen["args"][0] is train
+    _assert_landed(flag, tmp_path, datasets=[train.dataset],
+                   reads_native_decode=True, wire=seen["kwargs"]["wire"])
+    assert made["device_augment"] == (flag == "device_aug")
+    train_tf = [type(t).__name__ for t in train.dataset.transforms.transforms]
+    val_tf = [type(t).__name__ for t in val.dataset.transforms.transforms]
+    if flag == "device_aug":
+        assert train_tf == ["ToArray"] and val_tf == ["Resize", "ToArray"]
+    else:
+        assert val.dataset is train.dataset
+        assert train_tf == ["RandomResizedCrop", "RandomHorizontalFlip",
+                            "ToArray"]
 
 
 @pytest.mark.parametrize("cli", [generate_pseudo_label, cal_prototype],
                          ids=["generate_pseudo_label", "cal_prototype"])
-@pytest.mark.parametrize("argv", _params([
-    DISTRIBUTED, DATA_PARALLEL,
-    ["--native_decode", "true"], ["--native_encode", "true"],
-    ["--wire", "packed_bf16"], ["--decode_cache_mb", "512"],
-    ["--decode_cache_dir", "cache"]], [DISTRIBUTED, DATA_PARALLEL]))
-def test_pseudo_and_prototype_clis_refuse_flags_not_yet_ported(cli, argv,
-                                                               capsys):
-    with pytest.raises(SystemExit) as exit_info:
-        cli.main(argv + ["--device", "cpu"])
-    assert exit_info.value.code != 0
-    err = capsys.readouterr().err
-    assert f"error: {argv[0]} " in err and "is not yet ported" in err
+@pytest.mark.parametrize("flag", WRITER_FLAGS)
+def test_pseudo_and_prototype_clis_accept_host_flags(cli, flag, tiny_tree,
+                                                     tmp_path, monkeypatch,
+                                                     fresh_decode_cache):
+    """The pseudo-label CLI's dataset takes ``--native_decode`` and its
+    writer ``--native_encode``; the JAX prototype CLI reads neither."""
+    root, tree = tiny_tree
+    pseudo = cli is generate_pseudo_label
+    seen = _stop_at(monkeypatch, cli, "generate_pseudo_labels" if pseudo
+                    else "calc_prototypes")
+    with pytest.raises(_Reached):
+        cli.main([*_seg_argv(root, tree), "-batch_size", "2",
+                  "--root" if pseudo else "-root", str(tmp_path),
+                  *_flag_argv(flag, tmp_path)])
+    kw = seen["kwargs"]
+    _assert_landed(flag, tmp_path, datasets=[seen["args"][1].dataset],
+                   reads_native_decode=pseudo, wire=kw["wire"],
+                   native_encode=kw["native_encode"] if pseudo else None)
+    assert pseudo or "native_encode" not in kw
 
 
-@pytest.mark.parametrize("argv", _params([
-    DISTRIBUTED, DATA_PARALLEL,
-    ["--native_decode", "true"], ["--wire", "packed_bf16"],
-    ["--decode_cache_mb", "512"], ["--decode_cache_dir", "cache"],
-    REMAT_FULL], [REMAT_FULL, DISTRIBUTED, DATA_PARALLEL]))
-def test_self_train_cli_refuses_flags_not_yet_ported(argv, capsys):
-    with pytest.raises(SystemExit) as exit_info:
-        self_train_main.main(argv + ["--device", "cpu"])
-    assert exit_info.value.code != 0
-    err = capsys.readouterr().err
-    assert f"error: {argv[0]} " in err and "is not yet ported" in err
+@pytest.fixture(scope="module")
+def tiny_prototypes(tiny_tree):
+    """The prototype file the self-training CLI reads for s.pth."""
+    from thermal_semantic_segmentation_torch.cli.cal_prototype import (
+        prototype_path)
+    from thermal_semantic_segmentation_torch.core.checkpoint import (
+        save_checkpoint)
+    root, _ = tiny_tree
+    save_checkpoint(prototype_path(str(root), "freiburg_ir", "s.pth"),
+                    {"objective_vectors": np.zeros((13, 256), np.float32),
+                     "counts": np.ones(13, np.float32)})
+    return root
 
 
-GAN_CLIS = [("main", main), ("main_gan", main_gan),
-            ("translator", translator),
-            ("distance_evaluate", distance_evaluate)]
-GAN_REFUSED = [
-    DISTRIBUTED, DATA_PARALLEL,
-    ["--native_decode", "true"], ["--native_encode", "true"],
-    ["--wire", "packed_bf16"], ["--decode_cache_mb", "512"],
-    ["--decode_cache_dir", "cache"], REMAT_FULL]
+@pytest.mark.parametrize("flag", SEG_FLAGS)
+def test_self_train_cli_accepts_host_flags(flag, tiny_tree, tiny_prototypes,
+                                           tmp_path, monkeypatch,
+                                           fresh_decode_cache):
+    """The self-training datasets have no native path, and the CLI keeps
+    the wire lossless (its soft labels weigh float32 prototypes) even
+    under ``--bf16 true``, as the JAX CLI does."""
+    root, tree = tiny_tree
+    monkeypatch.chdir(tmp_path)        # the CLI writes logs/self-training/
+    loaders = _record(monkeypatch, self_train_main, "make_loaders")
+    seen = _stop_at(monkeypatch, self_train_main, "device_prefetch")
+    with pytest.raises(_Reached):
+        self_train_main.main([*_seg_argv(root, tree), "--root", str(root),
+                              "-batch_size", "2",
+                              *_flag_argv(flag, tmp_path)])
+    _assert_landed(flag, tmp_path,
+                   datasets=[ld.dataset for ld in loaders["result"]],
+                   wire=seen["kwargs"]["wire"], bf16_wire=False)
 
 
-@pytest.mark.parametrize("argv,cli", [
-    pytest.param(argv, cli, id=f"argv{i}-{name}")
-    for i, argv in enumerate(GAN_REFUSED) for name, cli in GAN_CLIS
-    if argv != REMAT_FULL and argv != DISTRIBUTED
-    and not (argv == DATA_PARALLEL and name == "translator")])
-def test_gan_clis_refuse_flags_not_yet_ported(cli, argv, capsys):
-    """``--data_parallel`` stays refused where the JAX CLI reads it
-    nowhere (main, main_gan, distance_evaluate), with that reason."""
-    with pytest.raises(SystemExit) as exit_info:
-        cli.main(argv + ["--device", "cpu"])
-    assert exit_info.value.code != 0
-    err = capsys.readouterr().err
-    why = ("is read nowhere by this entry point" if argv == DATA_PARALLEL
-           else "is not yet ported")
-    assert f"error: {argv[0]} " in err and why in err
+@pytest.fixture(scope="module")
+def tiny_gan(tiny_tree):
+    """A GAN checkpoint of a tiny s2t U-Net beside the tree."""
+    from thermal_semantic_segmentation_torch.models import factory
+    root, _ = tiny_tree
+    g = factory.init_gan_net(factory.unet_32(ngf=4, output_nc=1), 0,
+                             device="cpu")
+    _common.save_gan_checkpoint(str(root / "g.pth"), {"s2t": g}, {}, epoch=0)
+    return root
+
+
+@pytest.mark.parametrize("name,cli", GAN_CLIS,
+                         ids=[name for name, _ in GAN_CLIS])
+@pytest.mark.parametrize("flag", WRITER_FLAGS)
+def test_gan_clis_accept_host_flags(name, cli, flag, tiny_tree, tiny_gan,
+                                    tmp_path, monkeypatch,
+                                    fresh_decode_cache):
+    """The GAN trainers' Freiburg datasets take ``--native_decode`` and
+    keep packed_bf16 under ``--bf16 true``; the translator's writer takes
+    ``--native_encode``; distance evaluation keeps the wire lossless (its
+    SSIM and L1 run in float32). The JAX CLIs read no other of these."""
+    root, tree = tiny_tree
+    extra = _flag_argv(flag, tmp_path)
+    if name in ("main", "main_gan"):
+        loaders = _record(monkeypatch, main, "make_loaders")
+        seen = _stop_at(monkeypatch, main, "device_prefetch")
+        argv = ["-source_dataset", "freiburg_rgb", "-target_dataset",
+                "freiburg_ir", "--freiburg_root", tree, "-batch_size", "2",
+                "-ngf", "8", "--gan_model_root_path", str(tmp_path)]
+    elif name == "translator":
+        seen = _stop_at(monkeypatch, translator, "translate_batches")
+        argv = ["-dataset", "freiburg_rgb", "--freiburg_root", tree,
+                "-checkpoint_name", "g.pth", "--gan_model_root_path",
+                str(tiny_gan)]
+    else:
+        seen = _stop_at(monkeypatch, distance_evaluate, "evaluate_distance")
+        argv = ["-checkpoint_name", "t.pth", "--freiburg_root", tree]
+    with pytest.raises(_Reached):
+        cli.main(argv + ["--device", "cpu"] + extra)
+    kw = seen["kwargs"]
+    if name in ("main", "main_gan"):
+        datasets = [ld.dataset for ld in loaders["result"]]
+    else:
+        datasets = [seen["args"][1 if name == "translator" else 0].dataset]
+    _assert_landed(
+        flag, tmp_path, datasets=datasets,
+        reads_native_decode=name in ("main", "main_gan"), wire=kw["wire"],
+        bf16_wire=name != "distance_evaluate",
+        native_encode=(kw["native_encode"] if name == "translator"
+                       else None))
 
 
 # -- the flags this port now runs, in place of their refusals -------------
@@ -560,10 +777,40 @@ def test_validation_dumps_load_no_pil(tmp_path):
         "0_groundtruth.png", "0_image.png", "0_prediction.png"]
 
 
-def test_train_step_refuses_modes_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_seg_train_step(ignore_index=12, base_lr=1e-4, device="cpu",
-                            device_augment=True)
+def test_train_step_runs_device_augment():
+    """``device_augment=True``: the step crops raw frames to ``label_hw``
+    with the draws of ``augment_generator`` (dropout_seed + 1, step) and
+    then takes the plain step, so it equals the plain step on the batch
+    ``random_resized_crop_flip`` gives from the same generator (loss and
+    weights within float32 noise, rtol 1e-6)."""
+    from thermal_semantic_segmentation_torch.ops.augment import (
+        random_resized_crop_flip)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        augment_generator)
+    rng = np.random.default_rng(0)
+    image = torch.from_numpy(rng.random((2, 40, 90, 1), dtype=np.float32))
+    label = torch.from_numpy(rng.integers(0, 13, (2, 40, 90)))
+    import copy
+    first = create_deeplab(0, device="cpu", layers=(1, 1, 1, 1))
+    first.layer5.head[0].p = 0.0
+    out = {}
+    for aug, model in ((True, first), (False, copy.deepcopy(first))):
+        state = create_seg_state(model, learning_rate=1e-4, device="cpu")
+        step = make_seg_train_step(ignore_index=12, label_hw=(32, 64),
+                                   base_lr=1e-4, dropout_seed=3,
+                                   device_augment=aug, device="cpu")
+        if aug:
+            out[aug] = step(state, image, label)
+        else:
+            img, lab = random_resized_crop_flip(
+                augment_generator(torch.device("cpu"), 3, 0), image,
+                labels=label, out_hw=(32, 64))
+            assert img.shape == (2, 32, 64, 1) and lab.shape == (2, 32, 64)
+            out[aug] = step(state, img, lab)
+        out[(aug, "w")] = model.conv1.weight.detach().clone()
+    torch.testing.assert_close(out[True], out[False], rtol=1e-6, atol=0)
+    torch.testing.assert_close(out[(True, "w")], out[(False, "w")],
+                               rtol=1e-6, atol=1e-9)
 
 
 @pytest.mark.parametrize("mode", ["per_replica", "mesh"])

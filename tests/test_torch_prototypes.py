@@ -143,6 +143,17 @@ def test_calc_prototypes_matches_jax(epochs, max_steps):
 
 @pytest.mark.parametrize("kw", [pytest.param({"wire": "packed_bf16"},
                                              id="kw1")])
-def test_calc_prototypes_refuses_modes_not_yet_ported(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        calc_prototypes(None, ImageLoader(), device="cpu", **kw)
+def test_calc_prototypes_takes_the_bf16_wire(kw):
+    """``wire='packed_bf16'`` folds the images' bfloat16 values, as JAX's
+    run with the same wire does: counts exact, prototypes within 5e-4 (the
+    forward's tolerance), and not the float32 images' prototypes."""
+    model, variables, twin = jax_deeplab_with_twin(12)
+    want_p, want_n = jax_calc_prototypes(model, variables, ImageLoader(),
+                                         num_classes=C, **kw)
+    got_p, got_n = calc_prototypes(twin, ImageLoader(), num_classes=C,
+                                   device="cpu", **kw)
+    np.testing.assert_array_equal(got_n, want_n)
+    np.testing.assert_allclose(got_p, want_p, rtol=0, atol=5e-4)
+    f32_p, _ = calc_prototypes(twin, ImageLoader(), num_classes=C,
+                               device="cpu")
+    assert not np.array_equal(got_p, f32_p)

@@ -184,11 +184,32 @@ def test_failed_writes_fail_the_run(tiny, tmp_path):
                                device="cpu")
 
 
+class Bf16RaggedLoader(RaggedLoader):
+    """RaggedLoader's images rounded to bfloat16 values (float32), as the
+    packed_bf16 wire delivers them."""
+
+    def __iter__(self):
+        for batch in super().__iter__():
+            image = torch.from_numpy(batch["image"]).bfloat16().float()
+            yield dict(batch, image=image.numpy())
+
+
 @pytest.mark.parametrize("kw", [
     pytest.param({"native_encode": True}, id="kw1"),
     pytest.param({"wire": "packed_bf16"}, id="kw2")])
-def test_modes_not_yet_ported_are_refused(tiny, tmp_path, kw):
-    _, _, twin = tiny
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        generate_pseudo_labels(twin, RaggedLoader(), save_path=str(tmp_path),
-                               device="cpu", **kw)
+def test_native_encode_and_bf16_wire_match_jax(tiny, tmp_path, kw):
+    """``native_encode`` (the C++ encoder's PNGs, or the Python writers
+    where it is unavailable) and ``wire='packed_bf16'`` (the images'
+    bfloat16 values) against the JAX package's run with the same mode:
+    the files of ``test_pseudo_labels_match_jax``, to its tolerances, the
+    near-ties taken from the images the model sees."""
+    model, variables, twin = tiny
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    assert jax_generate(model, variables, RaggedLoader(),
+                        save_path=str(jax_dir), pad_to_batch=4, **kw) == 5
+    assert generate_pseudo_labels(twin, RaggedLoader(),
+                                  save_path=str(port_dir), device="cpu",
+                                  **kw) == 5
+    seen = Bf16RaggedLoader() if "wire" in kw else RaggedLoader()
+    decided = decided_pixels(model, variables, seen, False)
+    assert_pseudo_dirs_match(port_dir, jax_dir, decided, False)

@@ -136,9 +136,14 @@ def test_freiburg_self_train_matches_jax(tree, threshold, proto_rectify):
         assert kept <= ({5, 11, IGNORE} if threshold else set(range(C)))
 
 
-def test_freiburg_refuses_modes_not_yet_ported(tree):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        freiburg.Freiburg(tree[0], "train", "IR", native_decode=True)
+def test_freiburg_self_train_mode_has_no_native_path(tree):
+    """``native_decode`` is taken, and self-training mode, like the JAX
+    package's, has no native batch path: ``get_batch`` gives None and the
+    loader reads sample by sample."""
+    ds = freiburg.Freiburg(tree[0], "train", "IR", native_decode=True,
+                           self_train=True)
+    assert ds.native_decode
+    assert ds.get_batch([0, 1], [np.random.default_rng(0)] * 2) is None
     # the translator's mode is ported (tests/test_torch_gan_cli.py)
     assert freiburg.Freiburg(tree[0], "train", "RGB",
                              translation_mode=True).translation_mode

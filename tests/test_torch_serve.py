@@ -320,14 +320,23 @@ def test_native_msgpack_checkpoint_is_refused(exported, tmp_path):
 @pytest.mark.parametrize("argv", [
     pytest.param(["--native_decode", "true"], id="argv0"),
     pytest.param(["--wire", "packed_bf16"], id="argv1")])
-def test_serve_main_refuses_what_is_not_yet_ported(argv, capsys):
-    """``--kind translator`` and ``--artifact``, which these cases tried
-    first, are ported (the tests below): the host flags that are not yet
-    are still refused."""
-    with pytest.raises(SystemExit) as exit_info:
-        serve.main(argv + ["--device", "cpu"])
-    assert exit_info.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_serve_main_takes_host_flags(exported, argv):
+    """The host flags parse, and serve reads neither, as the JAX serve CLI
+    does (its request wire follows ``--bf16`` or the artifact): the server
+    built is the one without them, the same batch, channels and answers."""
+    root, _, _ = exported
+    base = ["-checkpoint_name", "s.pth", "--model_root_path", str(root),
+            "--device", "cpu", "-batch_size", "2"]
+    args = serve.serve_parse().parse_args(base + argv)
+    assert str(getattr(args, argv[0].lstrip("-"))).lower() == argv[1]
+    srv, handler_kw = serve.build_server(args)
+    ref, ref_kw = serve.build_server(serve.serve_parse().parse_args(base))
+    assert handler_kw == ref_kw == {}
+    assert (srv.batch_size, srv.channels) == (ref.batch_size, ref.channels)
+    x = torch.from_numpy(np.random.default_rng(9).uniform(
+        0, 1, (2, 1, *HW)).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(srv.model(x)["out"], ref.model(x)["out"])
 
 
 def test_serve_accepts_data_parallel(exported, monkeypatch, capsys):

@@ -146,10 +146,27 @@ def test_train_datasets_match_jax(trees, dataset, grayscale):
                 np.testing.assert_array_equal(g[key], w[key], err_msg=key)
 
 
-def test_freiburg_modes_not_yet_ported_raise(trees):
+def test_freiburg_native_decode_batches(trees):
+    """``native_decode=True``: ``get_batch`` decodes the batch natively
+    (where the library builds) and gives the JAX package's samples; the
+    PIL path (``native_decode`` off) has no batch path."""
+    from thermal_semantic_segmentation_torch.data import native_loader
     from thermal_semantic_segmentation_torch.data.freiburg import Freiburg
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Freiburg(trees[0], "train", "IR", native_decode=True)
+    from thermal_semantic_segmentation_tpu.data.freiburg import (
+        Freiburg as JaxFreiburg)
+    got = Freiburg(trees[0], "train", "IR", native_decode=True,
+                   transforms=_common.val_transform()).get_batch(
+        [0, 1], [host_rng(0), host_rng(1)])
+    if native_loader.available():
+        want = JaxFreiburg(trees[0], "train", "IR", native_decode=True,
+                           transforms=jax_common.val_transform()).get_batch(
+            [0, 1], [jax_host_rng(0), jax_host_rng(1)])
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g["image"], w["image"])
+            np.testing.assert_array_equal(g["label"], w["label"])
+    else:
+        assert got is None
     # self-training mode is ported (tests/test_torch_self_train_data.py),
     # and the translator's mode (tests/test_torch_gan_cli.py)
     assert Freiburg(trees[0], "train", "RGB",

@@ -39,6 +39,26 @@ _NUMPY_SAFE = [(getattr(np, "_core", None) or np.core).multiarray._reconstruct,
     ("b1", "i1", "i2", "i4", "i8", "u1", "u2", "u4", "u8", "f2", "f4", "f8")]
 
 
+def resolve_wire(args, *, bf16_compute: bool | None = None) -> str | None:
+    """``--wire`` as a ``device_prefetch`` mode (None for 'none'), keeping
+    the lossy 'packed_bf16' to runs that compute in bfloat16: a float32 run
+    (``--bf16`` false, or ``bf16_compute=False``) gets 'packed' with a
+    warning instead, as the JAX CLIs do."""
+    wire = getattr(args, "wire", "packed")
+    if wire == "none":
+        return None
+    if wire == "packed_bf16":
+        bf16 = (bf16_compute if bf16_compute is not None
+                else getattr(args, "bf16", False))
+        if not bf16:
+            import logging
+            logging.getLogger(__name__).warning(
+                "--wire packed_bf16 requires bf16 compute to be lossless; "
+                "this run computes in float32 — using --wire packed instead")
+            return "packed"
+    return wire
+
+
 def train_transform():
     """The train augmentation (reference segmentation_train.py:89-94):
     RandomResizedCrop to 256x512 with scale (0.5, 1) and ratio (1.5, 8/3),
@@ -77,7 +97,8 @@ def build_seg_dataset(args, transform, *, for_eval: bool = False):
                                 grayscale=args.grayscale)
         return Freiburg(args.freiburg_root, "train", domain,
                         transforms=transform, with_label=True,
-                        grayscale=args.grayscale)
+                        grayscale=args.grayscale,
+                        native_decode=getattr(args, "native_decode", False))
     if name == "freiburg_translation":
         if for_eval:
             folder = "test_" + args.checkpoint_name.replace(

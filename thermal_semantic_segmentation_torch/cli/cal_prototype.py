@@ -31,7 +31,7 @@ from ..device import resolve_device
 from ..parallel.mesh import host_shard
 from ..train.prototypes import calc_prototypes
 from ._common import (apply_model_meta, build_deeplab, load_seg_checkpoint,
-                      maybe_data_parallel, primary_host)
+                      maybe_data_parallel, primary_host, resolve_wire)
 from .options import calc_proto_parse
 
 
@@ -66,6 +66,7 @@ def calc_prototype(args):
                                          epochs=args.epochs,
                                          max_steps=args.max_steps,
                                          device=device, bf16=args.bf16,
+                                         wire=resolve_wire(args),
                                          mesh=maybe_data_parallel(
                                              args, args.batch_size,
                                              "computing prototypes"))

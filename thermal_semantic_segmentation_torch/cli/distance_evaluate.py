@@ -24,6 +24,7 @@ from ..device import resolve_device
 from ..eval.distance import evaluate_distance
 from ..eval.metrics import FREIBURG_CLASS_NAMES
 from ..parallel.mesh import host_shard
+from ._common import resolve_wire
 from .options import str2bool, translation_parse
 
 
@@ -56,10 +57,12 @@ def main(argv=None):
                         shuffle=True, indices=val_idx, drop_last=True,
                         shard=shard, shard_lockstep=False)
     print("Model: " + name)
+    # SSIM and L1 run in float32 whatever --bf16 says: never bf16 the wire
+    wire = resolve_wire(args, bf16_compute=False)
     if args.per_class:
         avg_l1, avg_ssim, per_class = evaluate_distance(
             loader, num_classes=args.num_classes, device=device,
-            reduce_processes=shard is not None)
+            reduce_processes=shard is not None, wire=wire)
         # the eval protocol's class names without their "IoU " prefix;
         # index 12 is the ignore class
         names = [n.removeprefix("IoU ") for n in FREIBURG_CLASS_NAMES]
@@ -69,7 +72,8 @@ def main(argv=None):
                   f"{names[k] if k < len(names) else k}: {v}")
     else:
         avg_l1, avg_ssim = evaluate_distance(
-            loader, device=device, reduce_processes=shard is not None)
+            loader, device=device, reduce_processes=shard is not None,
+            wire=wire)
     print("L1 distance: " + str(avg_l1))
     print("SSIM score: " + str(avg_ssim))
     return avg_l1, avg_ssim

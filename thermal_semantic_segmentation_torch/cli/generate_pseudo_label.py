@@ -25,7 +25,8 @@ from ..device import resolve_device
 from ..parallel.mesh import host_shard
 from ..train.pseudo import generate_pseudo_labels
 from ._common import (apply_model_meta, build_deeplab, build_seg_dataset,
-                      load_seg_checkpoint, maybe_data_parallel, val_transform)
+                      load_seg_checkpoint, maybe_data_parallel, resolve_wire,
+                      val_transform)
 from .options import pseudo_generation_parse
 
 
@@ -50,7 +51,9 @@ def main(argv=None):
     n = generate_pseudo_labels(model, loader, save_path=save_path,
                                soft=args.soft, flip=args.flip,
                                max_steps=args.max_steps, device=device,
-                               bf16=args.bf16, mesh=maybe_data_parallel(
+                               bf16=args.bf16, wire=resolve_wire(args),
+                               native_encode=args.native_encode,
+                               mesh=maybe_data_parallel(
                                    args, args.batch_size, "labelling"))
     print(f"wrote pseudo labels for {n} images to {save_path}")
     return n

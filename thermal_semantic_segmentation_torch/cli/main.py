@@ -65,7 +65,7 @@ from ..train.gan import create_gan_state, make_gan_step, make_gan_steps
 from ..utils.meters import AverageMeter, ProgressMeter
 from ..utils.observability import VisdomPlotter
 from ._common import (load_gan_checkpoint, load_legacy_sem_state_dict,
-                      load_seg_checkpoint, save_gan_checkpoint)
+                      load_seg_checkpoint, resolve_wire, save_gan_checkpoint)
 from .options import train_parse
 
 POOL_SIZE = 50
@@ -97,7 +97,8 @@ def build_gan_datasets(args):
     elif args.source_dataset == "freiburg_rgb":
         source = Freiburg(args.freiburg_root, "train", "RGB",
                           transforms=src_tf, with_label=True,
-                          grayscale=args.grayscale)
+                          grayscale=args.grayscale,
+                          native_decode=args.native_decode)
     elif args.source_dataset == "kitti":
         source = Kitti(args.kitti_root, src_tf, grayscale=args.grayscale)
     else:
@@ -106,7 +107,8 @@ def build_gan_datasets(args):
         target = FlirTrain(args.flir_root, tgt_tf)
     elif args.target_dataset == "freiburg_ir":
         target = Freiburg(args.freiburg_root, "train", "IR",
-                          transforms=tgt_tf, with_label=False)
+                          transforms=tgt_tf, with_label=False,
+                          native_decode=args.native_decode)
     else:
         raise ValueError("target dataset does not exist.")
     return source, target
@@ -240,6 +242,7 @@ def gan_epochs(args, src_loader, tgt_loader, shutdown=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    wire = resolve_wire(args, bf16_compute=args.bf16)
     history = []
     print("--------START TRAINING--------")
     for epoch in range(restart_epoch, restart_epoch + args.num_epoch):
@@ -256,7 +259,7 @@ def gan_epochs(args, src_loader, tgt_loader, shutdown=None):
         start = time.perf_counter()
         for i, b in enumerate(device_prefetch(
                 merged_batches(src_loader, tgt_loader, args.sem_loss),
-                device)):
+                device, wire=wire)):
             if args.max_steps and i >= args.max_steps:
                 break
             if shutdown.requested:

@@ -2,30 +2,19 @@
 ``cli/options.py``).
 
 Flag names and defaults follow the JAX package, so a command line written for
-it keeps its meaning. Flags whose host-side mode the port does not have yet
-are refused at parse time, never silently ignored.
+it keeps its meaning.
 """
 
 from __future__ import annotations
 
 import argparse
 
-# host-side modes of the JAX package that the port has not ported yet: the
-# flag and a test of its value that is true when the mode is asked for
-NOT_YET_PORTED = {
-    "native_decode": bool,
-    "native_encode": bool,
-    "wire": lambda v: v == "packed_bf16",
-    "decode_cache_mb": bool,
-    "decode_cache_dir": bool,
-    "device_aug": bool,
-}
-
 
 class HostConfigParser(argparse.ArgumentParser):
-    """ArgumentParser that applies host-side settings at parse time: a flag
-    of ``NOT_YET_PORTED`` set to one of its refused values is an error, so
-    no command line runs a different configuration than it asked for.
+    """ArgumentParser that applies host-side settings at parse time, as the
+    JAX parser does: ``--decode_cache_mb`` and ``--decode_cache_dir`` set the
+    process's decode cache (``data/cache.py``); a command line with only
+    ``--decode_cache_mb`` keeps a disk tier set before it.
 
     ``--distributed true`` joins the job's process group here, before any
     device use, as the JAX parser calls ``jax.distributed.initialize``
@@ -41,23 +30,24 @@ class HostConfigParser(argparse.ArgumentParser):
 
     def parse_args(self, *a, **kw):  # type: ignore[override]
         args = super().parse_args(*a, **kw)
-        why = "is not yet ported to the PyTorch package (see ROADMAP.md)"
-        refused = {flag: (test, why) for flag, test in NOT_YET_PORTED.items()}
-        if not self.data_parallel:
-            refused["data_parallel"] = (
-                bool, "is read nowhere by this entry point, in the JAX "
-                      "package as here; --distributed true spreads its "
-                      "work over cards")
-        for flag, (test, reason) in refused.items():
-            value = getattr(args, flag, None)
-            if value is not None and test(value):
-                option = next(a.option_strings[0] for a in self._actions
-                              if a.dest == flag)
-                self.error(f"{option} {value} {reason}")
+        if not self.data_parallel and getattr(args, "data_parallel", False):
+            self.error("--data_parallel true is read nowhere by this entry "
+                       "point, in the JAX package as here; --distributed "
+                       "true spreads its work over cards")
         if getattr(args, "distributed", False):
             from ..parallel.mesh import init_distributed
             init_distributed(args.coordinator_address, args.num_processes,
                              args.process_id, device=args.device or None)
+        mb = getattr(args, "decode_cache_mb", 0.0)
+        disk = getattr(args, "decode_cache_dir", None)
+        if mb or disk:
+            from ..data.cache import set_decode_cache
+            if disk:
+                set_decode_cache(mb, disk_dir=disk)
+            else:
+                # no --decode_cache_dir here: keep a disk tier set earlier
+                # in this process (None would clear it)
+                set_decode_cache(mb)
         return args
 
 
@@ -89,19 +79,31 @@ def _add_roots(parser: argparse.ArgumentParser):
     parser.add_argument('--bf16', type=str2bool, default=False,
                         help='run the forward under bfloat16 autocast.')
     parser.add_argument('--native_decode', type=str2bool, default=False,
-                        help='not yet ported: refused when true.')
+                        help='decode Freiburg frames a batch at a time with '
+                             'the native C++ IO (data/native_loader.py; '
+                             'bilinear resize, PIL BICUBIC stays the parity '
+                             'default). Without the library: PIL.')
     parser.add_argument('--native_encode', type=str2bool, default=False,
-                        help='not yet ported: refused when true.')
+                        help='write translator frames and pseudo-label PNGs '
+                             'a batch at a time with the native C++ IO. '
+                             'Without the library: the Python writers.')
     parser.add_argument('--wire', type=str, default='packed',
                         choices=['none', 'packed', 'packed_bf16'],
                         help='host->device batch transfer: none and packed '
                              '(default) are both lossless and take the same '
                              'path here (pinned memory, non_blocking '
-                             'copies); packed_bf16 is not yet ported.')
+                             'copies); packed_bf16 ships float32 arrays as '
+                             'bfloat16 (round to nearest even) and restores '
+                             'float32 on the device: for --bf16 runs only, '
+                             'others fall back to packed with a warning.')
     parser.add_argument('--decode_cache_mb', type=float, default=0.0,
-                        help='not yet ported: refused when not 0.')
+                        help='in-RAM LRU of decoded frames (data/cache.py), '
+                             'in MiB: epoch 2 on decodes nothing. 0 = off.')
     parser.add_argument('--decode_cache_dir', type=str, default='',
-                        help='not yet ported: refused when set.')
+                        help='disk tier of the decode cache: decoded frames '
+                             'kept as .npy under this directory, so a fresh '
+                             'process decodes nothing either. Unbounded; '
+                             'delete the directory to drop it. Empty = off.')
     parser.add_argument('--remat', type=str, default='none',
                         choices=['none', 'dots', 'full'],
                         help='backbone rematerialization in the backward '
@@ -267,7 +269,9 @@ def seg_parse():
     parser.add_argument('-log_interval', type=int, default=10)
     parser.add_argument('-max_steps', type=int, default=0)
     parser.add_argument('-device_aug', type=str2bool, default=False,
-                        help='not yet ported: refused when true.')
+                        help='RandomResizedCrop + flip on the device inside '
+                             'the train step (ops/augment.py): the host only '
+                             'decodes full frames; validation resizes.')
     parser.add_argument('-lr_groups', type=str2bool, default=False,
                         help='1x backbone / 10x head LR split.')
     parser.add_argument('-bn_mode', type=str, default='sync',

@@ -28,7 +28,7 @@ from ..eval.validate import seg_validate
 from ..parallel.mesh import host_shard
 from ._common import (apply_model_meta, build_deeplab, build_seg_dataset,
                       load_seg_checkpoint, maybe_data_parallel, primary_host,
-                      val_transform)
+                      resolve_wire, val_transform)
 from .options import evaluation_parse
 
 
@@ -79,7 +79,7 @@ def seg_evaluation(args):
         model, loader, num_classes=args.num_classes,
         ignore_index=args.ignore_index, visualize=visualize,
         save_root=save_root, device=device, bf16=args.bf16,
-        reduce_processes=shard is not None,
+        reduce_processes=shard is not None, wire=resolve_wire(args),
         mesh=maybe_data_parallel(args, args.val_batch_size, "evaluating"))
     print("checkpoint name: " + args.checkpoint_name)
     print(f"mean iou score: [{mean_iu}]. val_loss: [{avg_loss}]")

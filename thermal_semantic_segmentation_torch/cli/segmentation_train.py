@@ -41,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.schedule import ReduceLROnPlateau
+from ..data import transforms as T
 from ..data.device_pipeline import device_prefetch
 from ..data.freiburg import FreiburgTest
 from ..data.loader import DataLoader, split_indices
@@ -55,24 +56,28 @@ from ..utils.meters import AverageMeter, ProgressMeter
 from ..utils.observability import MetricsLogger
 from ..utils.preempt import GracefulShutdown, NullShutdown, cross_process
 from ._common import (apply_model_meta, build_deeplab, build_seg_dataset,
-                      load_seg_checkpoint, primary_host, save_seg_checkpoint,
-                      train_transform, val_transform)
+                      load_seg_checkpoint, primary_host, resolve_wire,
+                      save_seg_checkpoint, train_transform, val_transform)
 from .options import seg_parse
 
 
-def make_loaders(args, source_dataset, target_val_dataset):
+def make_loaders(args, source_dataset, target_val_dataset,
+                 val_source=None):
     """(train, source val, target val) loaders: the seed-42 80/20 split;
     train shuffled with ``drop_last``, each process on its ``host_shard``
-    (in lockstep); source val through the train dataset, so through its
-    augmenting transform, as the reference does (segmentation_train.py:143);
-    the target test split in order. Every process validates the whole of
-    both splits, or with ``--data_parallel`` its shard of each."""
+    (in lockstep); source val through ``val_source``, by default the train
+    dataset, so through its augmenting transform, as the reference does
+    (segmentation_train.py:143); the target test split in order. Every
+    process validates the whole of both splits, or with ``--data_parallel``
+    its shard of each."""
     train_idx, val_idx = split_indices(len(source_dataset), 0.2, seed=42)
+    if val_source is None:
+        val_source = source_dataset
     train_loader = DataLoader(source_dataset, args.batch_size, shuffle=True,
                               indices=train_idx, drop_last=True,
                               seed=args.seed, shard=host_shard())
     val_shard = host_shard() if args.data_parallel else None
-    val_loader = DataLoader(source_dataset, args.val_batch_size,
+    val_loader = DataLoader(val_source, args.val_batch_size,
                             shuffle=True, indices=val_idx, drop_last=False,
                             seed=args.seed + 1, shard=val_shard,
                             shard_lockstep=False)
@@ -143,6 +148,7 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader,
 
     os.makedirs(args.model_root_path, exist_ok=True)
     metrics_log = MetricsLogger(os.path.join(args.logdir, "metrics.jsonl"))
+    wire = resolve_wire(args)
     history = []
     for epoch in range(restart_epoch, restart_epoch + args.epochs):
         print(f"--------START TRAINING [EPOCH: {epoch}]--------")
@@ -153,7 +159,8 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader,
                                  prefix=f"Epoch: [{epoch}]")
         start = last = time.perf_counter()
         n_images, losses = 0, []
-        for i, batch in enumerate(device_prefetch(train_loader, device)):
+        for i, batch in enumerate(device_prefetch(train_loader, device,
+                                                  wire=wire)):
             if args.max_steps and i >= args.max_steps:
                 break
             if shutdown.requested:
@@ -200,7 +207,8 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader,
         mean_iu, val_loss, class_iou = seg_validate(
             state.model, val_loader, num_classes=args.num_classes,
             ignore_index=args.ignore_index, eval_step=eval_step,
-            device=device, mesh=val_mesh, reduce_processes=reduce_val)
+            device=device, mesh=val_mesh, reduce_processes=reduce_val,
+            wire=wire)
         state.lr_scale = scheduler.step(val_loss)
         record.update(val_loss=val_loss, lr_scale=state.lr_scale,
                       scheduler_steps=scheduler.num_steps,
@@ -229,7 +237,8 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader,
             mean_iu, _, class_iou = seg_validate(
                 state.model, target_val_loader, num_classes=13,
                 ignore_index=args.ignore_index, eval_step=eval_step,
-                device=device, mesh=val_mesh, reduce_processes=reduce_val)
+                device=device, mesh=val_mesh, reduce_processes=reduce_val,
+                wire=wire)
             line = "target test dataset mean iou score: " + str(mean_iu)
             logger.info(line); print(line)
             for k, v in class_iou.items():
@@ -245,7 +254,16 @@ def train_epochs(args, logger, train_loader, val_loader, target_val_loader,
 
 
 def seg_main(args, logger, shutdown=None):
-    source_dataset = build_seg_dataset(args, train_transform())
+    """Build the datasets and run ``train_epochs``. With ``-device_aug
+    true`` the train frames keep their full size (``ToArray`` only: the
+    step crops them on the device) and the source val split resizes
+    (``val_transform``), as the JAX CLI does."""
+    if args.device_aug:
+        source_dataset = build_seg_dataset(args, T.Compose([T.ToArray()]))
+        val_source = build_seg_dataset(args, val_transform())
+    else:
+        source_dataset = build_seg_dataset(args, train_transform())
+        val_source = None
     target_val_dataset = FreiburgTest(args.freiburg_root, "test", "IR",
                                       transforms=val_transform(),
                                       with_label=True)
@@ -254,7 +272,7 @@ def seg_main(args, logger, shutdown=None):
                 args.translation_name)
     return train_epochs(args, logger,
                         *make_loaders(args, source_dataset,
-                                      target_val_dataset),
+                                      target_val_dataset, val_source),
                         shutdown=shutdown)
 
 

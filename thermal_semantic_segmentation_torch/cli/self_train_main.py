@@ -56,8 +56,8 @@ from ..utils.logging import get_logger
 from ..utils.meters import AverageMeter, ProgressMeter
 from ..utils.preempt import GracefulShutdown, NullShutdown, cross_process
 from ._common import (apply_model_meta, build_deeplab, load_seg_checkpoint,
-                      maybe_data_parallel, primary_host, save_seg_checkpoint,
-                      train_transform, val_transform)
+                      maybe_data_parallel, primary_host, resolve_wire,
+                      save_seg_checkpoint, train_transform, val_transform)
 from .cal_prototype import prototype_path
 from .options import self_train_parse
 
@@ -187,6 +187,9 @@ def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    # the soft pseudo-labels feed float32 prototype weights: never bf16 on
+    # the wire, as in the JAX CLI
+    wire = resolve_wire(args, bf16_compute=False)
     history, stale_vals = [], 0
     for epoch in range(restart_epoch, restart_epoch + args.epochs):
         pseudo_loss = AverageMeter("pseudo_loss", ":3.4f")
@@ -201,7 +204,7 @@ def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader,
         losses = []
         start = time.perf_counter()
         for i, b in enumerate(device_prefetch(
-                merged_batches(tgt_loader, src_loader), device)):
+                merged_batches(tgt_loader, src_loader), device, wire=wire)):
             if args.max_steps and i >= args.max_steps:
                 break
             if shutdown.requested:
@@ -229,7 +232,7 @@ def self_train_epochs(args, logger, src_loader, tgt_loader, val_loader,
                         args.root, "predictions",
                         args.new_checkpoint_name.replace(".pth", "")),
                     iter_counter=args.iter_counter, device=device,
-                    mesh=val_mesh, reduce_processes=reduce_val)
+                    mesh=val_mesh, reduce_processes=reduce_val, wire=wire)
                 if distributed and not reduce_val:
                     mean_iu, val_loss = agreed_scores(mean_iu, val_loss)
                 msg = "target test dataset mean iou score: " + str(mean_iu)

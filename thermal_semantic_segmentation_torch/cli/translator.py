@@ -5,7 +5,9 @@ Loads a generator from a GAN checkpoint (the port's ``.pth``, a reference
 one or the JAX package's msgpack), translates every frame of the dataset
 at 256x512 (``Resize((512, 256))``), de-normalises with ``-denormalize``,
 resizes to ``-save_image_size`` (H W) as PIL's BICUBIC does and writes each
-frame to its destination, the frame's path under the translation folder:
+frame to its destination, the frame's path under the translation folder
+(``--native_encode true``: each batch's frames in one call to the native
+C++ encoder, ``data/native_loader.py``, where it is available):
 
     python -m thermal_semantic_segmentation_torch.cli.translator \\
         -dataset freiburg_rgb -checkpoint_name g.pth [--device cpu]
@@ -43,7 +45,8 @@ from ..data.loader import DataLoader
 from ..device import resolve_device
 from ..ops.resize import resize_bicubic_8bit
 from ..parallel import mesh as pmesh
-from ._common import build_generator_from_gan_checkpoint, maybe_data_parallel
+from ._common import (build_generator_from_gan_checkpoint,
+                      maybe_data_parallel, resolve_wire)
 from .options import translation_parse
 
 MAX_PENDING_WRITES = 4
@@ -84,17 +87,25 @@ def write_frame(path: str, pixels: np.ndarray) -> None:
 def translate_batches(model, loader, *, denormalize, save_hw, suffix: str,
                       device, bf16: bool = False,
                       mark: Optional[Callable[[str], None]] = None,
-                      mesh=None):
+                      mesh=None, wire: Optional[str] = "packed",
+                      native_encode: bool = False):
     """Translate every batch of ``loader`` (dicts with an NHWC 'image' and
     the destinations 'img_path') and write the frames; the forward under
     bfloat16 autocast with ``bf16``. ``mark``, when given, is called with
     'batch' before each batch's device work is queued, then with 'forward'
     and 'resize' as its stages are. ``mesh`` (``parallel/mesh.LocalMesh``)
     splits each batch's rows over copies of the generator, one per device,
-    and gathers the frames in row order. Returns {'images', 'seconds',
-    'encode_s'}: the frames written, the loop's seconds (every write
-    finished) and the writer threads' seconds of encoding and writing."""
+    and gathers the frames in row order. ``wire``: the batches' transfer
+    (``device_prefetch``). ``native_encode``: each batch's frames, already
+    at ``save_hw``, go to the native C++ encoder in one call (PNG or JPEG
+    by suffix), where the library is available. Returns {'images',
+    'seconds', 'encode_s'}: the frames written, the loop's seconds (every
+    write finished) and the writer threads' seconds of encoding and
+    writing."""
     mark = mark or (lambda stage: None)
+    if native_encode:
+        from ..data import native_loader as nl
+        native_encode = nl.available()
     device = resolve_device(device)
     mesh = pmesh.LocalMesh.of(mesh, device)
     replicas = pmesh.replicate(mesh, model)
@@ -117,14 +128,17 @@ def translate_batches(model, loader, *, denormalize, save_hw, suffix: str,
 
     def write_batch(pixels, paths):
         start = time.perf_counter()
-        for frame, path in zip(pixels, paths):
-            write_frame(path, frame)
+        if native_encode:
+            nl.encode_batch(paths, pixels)
+        else:
+            for frame, path in zip(pixels, paths):
+                write_frame(path, frame)
         encode_s.append(time.perf_counter() - start)
 
     images, start = 0, time.perf_counter()
     futures = []
     with cf.ThreadPoolExecutor(max_workers=2) as pool:
-        for batch in device_prefetch(loader, device, mesh=mesh):
+        for batch in device_prefetch(loader, device, mesh=mesh, wire=wire):
             mark("batch")
             host = pmesh.map_shares(frames, replicas, "cpu",
                                     batch["image"]).numpy()
@@ -156,6 +170,7 @@ def translate(args):
         model, loader, denormalize=args.denormalize,
         save_hw=tuple(args.save_image_size),
         suffix=args.translation_name_suffix, device=device, bf16=args.bf16,
+        wire=resolve_wire(args), native_encode=args.native_encode,
         mesh=maybe_data_parallel(args, args.batch_size, "translating"))
     print("translation complete.")
     return summary

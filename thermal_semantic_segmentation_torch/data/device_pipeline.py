@@ -3,11 +3,19 @@
 
 Each batch's arrays are staged in pinned host memory and copied to the card
 with ``non_blocking`` copies on a side stream, ``size`` batches ahead, so the
-next batch's copy runs under the current batch's compute. The JAX package's
-packed wire format (``data/wire.py``) exists for a slow host link; the port
-has no wire format: a pinned copy is already one lossless DMA per array.
-With a ``LocalMesh`` (``--data_parallel``) each replica's rows go to its
-own device, on that device's side stream.
+next batch's copy runs under the current batch's compute. With a
+``LocalMesh`` (``--data_parallel``) each replica's rows go to its own
+device, on that device's side stream.
+
+``wire`` (``--wire``, JAX ``data/wire.py``): 'packed' (the default) and
+'none' or None are one path here, a lossless pinned copy per array; the
+JAX package's packed buffer exists for a slow host link. 'packed_bf16'
+casts each float32 array to bfloat16 on the host (round to nearest even),
+copies the half-size pinned buffer and restores float32 on the device, so
+a float comes back float32 with a bfloat16 value, as JAX's
+``unpack_batch(pack_batch(..., float_wire='bfloat16'))`` gives it. Other
+arrays travel unchanged. Meant for runs that compute in bfloat16
+(``cli/_common.resolve_wire``).
 """
 
 from __future__ import annotations
@@ -18,8 +26,12 @@ import numpy as np
 import torch
 
 
+WIRES = (None, "none", "packed", "packed_bf16")
+
+
 def device_prefetch(batches: Iterable[dict], device, *, size: int = 2,
-                    mesh=None) -> Iterator[dict]:
+                    mesh=None, wire: str | None = "packed"
+                    ) -> Iterator[dict]:
     """Yield ``batches`` with their numpy arrays as tensors on ``device``
     (nested dicts of arrays too, such as self-training's ``weak_params``;
     other values pass through), ``size`` copies in flight. On a CUDA
@@ -27,19 +39,27 @@ def device_prefetch(batches: Iterable[dict], device, *, size: int = 2,
 
     With ``mesh`` (``parallel/mesh.LocalMesh``) each array becomes a list
     of its replicas' shares (``split_rows``), each on its replica's
-    device, and ``device`` is not used."""
+    device, and ``device`` is not used. ``wire`` as the module docstring
+    says."""
     from ..parallel.mesh import LocalMesh, split_rows
 
+    if wire not in WIRES:
+        raise ValueError(f"unknown wire mode {wire!r}")
+    bf16_wire = wire == "packed_bf16"
     shares = LocalMesh.of(mesh, device)
     streams = {d: torch.cuda.Stream(d) for d in set(shares.devices)
                if d.type == "cuda"}
 
     def one(x: np.ndarray, dev):
         t = torch.from_numpy(np.ascontiguousarray(x))
+        narrow = bf16_wire and t.dtype == torch.float32
+        if narrow:
+            t = t.to(torch.bfloat16)
         if dev.type != "cuda":
-            return t
+            return t.float() if narrow else t
         with torch.cuda.stream(streams[dev]):
-            return t.pin_memory().to(dev, non_blocking=True)
+            t = t.pin_memory().to(dev, non_blocking=True)
+            return t.float() if narrow else t
 
     def to_device(v):
         if isinstance(v, dict):

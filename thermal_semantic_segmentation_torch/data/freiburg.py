@@ -5,8 +5,10 @@ IR radiometric normalisation: resize the 16-bit frame to RAW_SIZE BICUBIC,
 crop columns COL_CROP, clamp to [IR_MIN, IR_MAX] and scale to [0, 1]. RGB
 frames and labels get the same resize (labels NEAREST) and crop. PIL is
 imported where it is used, so the package imports on a host without it.
-The JAX package's decode cache (``data/cache.py``, off by default) is not
-ported.
+Decoded frames and labels go through the process's decode cache
+(``data/cache.py``, off unless ``--decode_cache_mb`` or
+``--decode_cache_dir`` is given) under the JAX package's keys: ('ir', path),
+('rgb', path, grayscale), ('label', path) and ('translated', path).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from .cache import decode_cache
 from .list_files import freiburg_lists, parse_list_file
 
 IR_MIN, IR_MAX = 21800.0, 25000.0
@@ -36,33 +39,50 @@ def _pil_image():
 
 def load_ir_image(path_or_file):
     """16-bit IR PNG (path or file object) -> float [0, 1] PIL 'F' image,
-    windowed and column-cropped."""
+    windowed and column-cropped. A file object is decoded every time (it
+    has no stable cache key)."""
     Image = _pil_image()
-    image = np.array(Image.open(path_or_file).resize(RAW_SIZE, Image.BICUBIC),
-                     dtype=np.float32)
-    image = image[:, COL_CROP[0]:COL_CROP[1]]
-    image = np.clip(image, IR_MIN, IR_MAX)
-    return Image.fromarray((image - IR_MIN) / (IR_MAX - IR_MIN))
+
+    def decode():
+        image = np.array(Image.open(path_or_file).resize(
+            RAW_SIZE, Image.BICUBIC), dtype=np.float32)
+        image = np.clip(image[:, COL_CROP[0]:COL_CROP[1]], IR_MIN, IR_MAX)
+        return (image - IR_MIN) / (IR_MAX - IR_MIN)
+
+    if not isinstance(path_or_file, str):
+        return Image.fromarray(decode())
+    return Image.fromarray(decode_cache().get_or_decode(
+        ("ir", path_or_file), decode))
 
 
 def load_rgb_image(path: str, grayscale: bool = False):
     """RGB frame -> uint8 PIL image (grayscale 'L' with ``grayscale``),
     resized and column-cropped."""
     Image = _pil_image()
-    img = Image.open(path).convert("RGB")
-    if grayscale:
-        from PIL import ImageOps
-        img = ImageOps.grayscale(img)
-    arr = np.array(img.resize(RAW_SIZE, Image.BICUBIC), dtype=np.float32)
-    return Image.fromarray(np.uint8(arr[:, COL_CROP[0]:COL_CROP[1]]))
+
+    def decode():
+        img = Image.open(path).convert("RGB")
+        if grayscale:
+            from PIL import ImageOps
+            img = ImageOps.grayscale(img)
+        arr = np.array(img.resize(RAW_SIZE, Image.BICUBIC), dtype=np.float32)
+        return np.uint8(arr[:, COL_CROP[0]:COL_CROP[1]])
+
+    return Image.fromarray(decode_cache().get_or_decode(
+        ("rgb", path, grayscale), decode))
 
 
 def load_label(path: str):
     """Label PNG -> 'L' PIL image, resized NEAREST and column-cropped."""
     Image = _pil_image()
-    label = np.array(Image.open(path).resize(RAW_SIZE, Image.NEAREST),
-                     dtype=np.uint8)
-    return Image.fromarray(label[:, COL_CROP[0]:COL_CROP[1]], mode="L")
+
+    def decode():
+        label = np.array(Image.open(path).resize(RAW_SIZE, Image.NEAREST),
+                         dtype=np.uint8)
+        return label[:, COL_CROP[0]:COL_CROP[1]]
+
+    return Image.fromarray(decode_cache().get_or_decode(("label", path),
+                                                        decode), mode="L")
 
 
 class Freiburg:
@@ -72,8 +92,9 @@ class Freiburg:
     RGB labels), in the offline translator's mode (``translation_mode``:
     the frame and its destination ``img_path``, the frame's path with the
     split segment swapped for ``translation_name``) and in self-training
-    mode (``self_train=True``, below). The native batch decoder
-    (``native_decode``) is not yet ported and raises.
+    mode (``self_train=True``, below). With ``native_decode``, plain IR
+    and RGB frames are decoded a batch at a time by the native C++ IO
+    (``get_batch``).
 
     Self-training mode (reference :107-134) reads the IR frame and its
     label, the hard pseudo-label PNG under ``path_lp`` and, with
@@ -99,11 +120,6 @@ class Freiburg:
                  ignore_index: int = 12, proto_rectify: bool = True,
                  hard_keep_classes: Sequence[int] = (5, 11),
                  native_decode: bool = False):
-        if native_decode:
-            raise NotImplementedError(
-                "Freiburg(native_decode=True) belongs to the native loader "
-                "and is not yet ported to the PyTorch package (see "
-                "ROADMAP.md)")
         if split not in ("train", "test"):
             raise ValueError(f"invalid split {split!r}")
         data_file = os.path.join(root, "image_list",
@@ -131,6 +147,7 @@ class Freiburg:
         self.ignore_index = ignore_index
         self.proto_rectify = proto_rectify
         self.hard_keep_classes = tuple(hard_keep_classes)
+        self.native_decode = native_decode
 
     def __len__(self) -> int:
         return len(self.data_list)
@@ -149,8 +166,10 @@ class Freiburg:
             return load_ir_image(image_name)
         if self.segmentation_mode:
             Image = _pil_image()
-            return Image.fromarray(np.asarray(Image.open(
-                self._swap_split(image_name))))
+            translated = self._swap_split(image_name)
+            return Image.fromarray(decode_cache().get_or_decode(
+                ("translated", translated),
+                lambda: np.asarray(Image.open(translated))))
         if self.domain == "IR":
             return load_ir_image(image_name)
         if self.domain == "RGB":
@@ -158,14 +177,37 @@ class Freiburg:
         raise ValueError("Not a valid domain.")
 
     def get_batch(self, indices: Sequence[int], rngs):
-        """No batch decode path (the native decoder is not yet ported): the
-        loader reads sample by sample."""
-        return None
+        """The batch path of ``native_decode``: one native call decodes the
+        batch's frames on a C++ thread pool (16-bit decode, bilinear resize,
+        column crop and IR window), then each sample's transforms run on its
+        frame. None where this mode has no native path (translation,
+        self-training, grayscale) or the library is unavailable: the loader
+        then reads sample by sample. The native resize is bilinear, the PIL
+        path's BICUBIC, so the two agree in distribution, not bit for bit;
+        PIL stays the parity path."""
+        from . import native_loader as nl
 
-    def get(self, index: int, rng: np.random.Generator) -> dict:
+        plain = not (self.segmentation_mode or self.self_train
+                     or self.grayscale)
+        if not (self.native_decode and plain and nl.available()):
+            return None
+        Image = _pil_image()
+        paths = [self.data_list[i] for i in indices]
+        if self.domain == "IR":
+            images = [Image.fromarray(a[..., 0])
+                      for a in nl.decode_ir_batch(paths)]
+        else:
+            images = [Image.fromarray(a) for a in nl.decode_rgb_batch(paths)]
+        return [self.get(i, rng, image=img)
+                for i, rng, img in zip(indices, rngs, images)]
+
+    def get(self, index: int, rng: np.random.Generator, image=None) -> dict:
+        """Sample ``index``; ``image``, when given, is its decoded frame
+        (``get_batch``)."""
         image_name = self.data_list[index]
         out = {"img_path": os.path.basename(image_name)}
-        image = self._load_image(image_name)
+        if image is None:
+            image = self._load_image(image_name)
         if self.translation_mode:
             out["image"], _ = self.transforms(rng, image, None)
             out["img_path"] = self._swap_split(image_name)

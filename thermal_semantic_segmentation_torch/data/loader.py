@@ -6,7 +6,9 @@ numpy collation, optional subset sampling (the reference's 80/20 split), and
 batches decoded ahead so host decode overlaps device compute. The same
 streams and shuffle order as the JAX package, so a split scores the same
 images in the same order. ``shard`` gives each process its slice of every
-epoch (``parallel/mesh.host_shard``).
+epoch (``parallel/mesh.host_shard``). A dataset that asks for batch
+decoding (``native_decode``) is read a batch at a time through its
+``get_batch``, whose None or failure falls back to sample by sample.
 """
 
 from __future__ import annotations
@@ -119,6 +121,25 @@ class DataLoader:
                         "failed to load sample %d (attempt %d); substituting",
                         use, attempt + 1, exc_info=True)
 
+        def fetch_batch(batch_idx):
+            """The dataset's whole-batch path (the native decoder); None or
+            an error falls back to ``fetch``, which substitutes unreadable
+            samples."""
+            try:
+                rngs = [host_rng(self.seed, epoch, i) for i in batch_idx]
+                samples = self.dataset.get_batch(batch_idx, rngs)
+            except Exception:
+                logging.getLogger(__name__).warning(
+                    "get_batch failed; falling back to per-sample loads",
+                    exc_info=True)
+                samples = None
+            return (samples if samples is not None
+                    else [fetch(i) for i in batch_idx])
+
+        # only where the dataset asks for it: the fallback above reads its
+        # samples in turn, so PIL loads keep the pool's parallelism
+        use_batch = (hasattr(self.dataset, "get_batch")
+                     and getattr(self.dataset, "native_decode", False))
         with cf.ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             pending = []
             batch_iter = self._batches()
@@ -127,13 +148,17 @@ class DataLoader:
                 batch_idx = next(batch_iter, None)
                 if batch_idx is None:
                     return False
-                pending.append([pool.submit(fetch, i) for i in batch_idx])
+                pending.append(pool.submit(fetch_batch, batch_idx)
+                               if use_batch else
+                               [pool.submit(fetch, i) for i in batch_idx])
                 return True
 
             for _ in range(self.prefetch + 1):
                 if not submit_next():
                     break
             while pending:
-                samples = [f.result() for f in pending.pop(0)]
+                item = pending.pop(0)
+                samples = (item.result() if use_batch
+                           else [f.result() for f in item])
                 submit_next()
                 yield self.collate(samples)

@@ -51,7 +51,8 @@ def per_class_l1_sums(ori: torch.Tensor, trans: torch.Tensor,
 
 
 def evaluate_distance(loader, *, num_classes: Optional[int] = None,
-                      device=None, reduce_processes: bool = False):
+                      device=None, reduce_processes: bool = False,
+                      wire: Optional[str] = "packed"):
     """Returns (avg_l1, avg_ssim), or (avg_l1, avg_ssim, per_class_l1) when
     ``num_classes`` is given: per_class_l1[k] (float64 numpy) is the mean
     of the channel-mean |ori - trans| over the pixels labelled k, nan for a
@@ -69,14 +70,15 @@ def evaluate_distance(loader, *, num_classes: Optional[int] = None,
     (``DataLoader(shard=host_shard(), shard_lockstep=False)``): the L1
     sums and counts, SSIM sums and batch counts and the per-class sums
     and counts are summed across the processes after the loop, and every
-    process returns the global scores; an empty shard adds nothing."""
+    process returns the global scores; an empty shard adds nothing.
+    ``wire``: the batches' transfer (``device_prefetch``)."""
     device = resolve_device(device)
     distances = AverageMeter("distance", ":3.4f")
     ssim_sum, ssim_n = 0.0, 0
     k = num_classes or 0
     cls_sums = torch.zeros(k, dtype=torch.float64, device=device)
     cls_counts = torch.zeros(k, dtype=torch.int64, device=device)
-    for batch in device_prefetch(iter(loader), device):
+    for batch in device_prefetch(iter(loader), device, wire=wire):
         ori, trans = batch["original"], batch["translated"]
         l1, s = pair_metrics(ori, trans)
         distances.update(l1.double(), ori.shape[0])

@@ -36,7 +36,8 @@ def seg_validate(model, loader, *, num_classes: int = 13,
                  ignore_index: int = 12, visualize: Optional[str] = None,
                  save_root: Optional[str] = None, iter_counter: int = 0,
                  eval_step=None, device=None, bf16: bool = False, mesh=None,
-                 reduce_processes: bool = False):
+                 reduce_processes: bool = False,
+                 wire: Optional[str] = "packed"):
     """Returns (mean_iu, val_loss, cls_iu) like the reference seg_validate.
 
     ``model`` lives on ``device`` (default: the CUDA device; raises without
@@ -58,7 +59,8 @@ def seg_validate(model, loader, *, num_classes: int = 13,
     split over the copies, and their confusion matrices add up on
     ``device``; a batch's loss is the copies' CEs weighted by their valid
     pixel counts, the CE of the whole batch. The predictions written with
-    ``visualize`` come back in row order.
+    ``visualize`` come back in row order. ``wire``: the batches' transfer
+    (``data/device_pipeline.device_prefetch``).
     """
     device = resolve_device(device)
     mesh = pmesh.LocalMesh.of(mesh, device)
@@ -73,7 +75,8 @@ def seg_validate(model, loader, *, num_classes: int = 13,
     n_seen = 0
     palette = freiburg_palette()
 
-    for i, batch in enumerate(device_prefetch(loader, device, mesh=mesh)):
+    for i, batch in enumerate(device_prefetch(loader, device, mesh=mesh,
+                                              wire=wire)):
         bhist, loss, pred = _split_eval(eval_step, replicas, batch["image"],
                                         batch["label"], device, num_classes,
                                         ignore_index)

@@ -67,13 +67,9 @@ def calc_prototypes(model, loader, *, num_classes: int = 13,
     partials merge after the loop (``merge_process_prototypes``); every
     process returns the merged arrays. ``mesh``
     (``parallel/mesh.LocalMesh``, ``--data_parallel``) splits each batch
-    over copies of the model (``make_prototype_step``).
-    ``wire='packed_bf16'`` is not yet ported.
+    over copies of the model (``make_prototype_step``). ``wire``: the
+    batches' transfer (``device_prefetch``).
     """
-    if wire == "packed_bf16":
-        raise NotImplementedError(
-            "wire='packed_bf16' is not yet ported to the PyTorch package "
-            "(see ROADMAP.md)")
     device = resolve_device(device)
     mesh = pmesh.LocalMesh.of(mesh, device)
     step = make_prototype_step(model, num_classes=num_classes, bf16=bf16,
@@ -84,7 +80,7 @@ def calc_prototypes(model, loader, *, num_classes: int = 13,
     for epoch in range(epochs):
         images = ({"image": b["image"]} for b in loader)
         for i, batch in enumerate(device_prefetch(images, device,
-                                                  mesh=mesh)):
+                                                  mesh=mesh, wire=wire)):
             if max_steps and i >= max_steps:
                 break
             prototypes, counts = step(prototypes, counts, batch["image"])

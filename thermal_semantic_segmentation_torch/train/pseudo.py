@@ -87,6 +87,22 @@ def write_hard(save_path: str, name: str, pseudo: np.ndarray,
             conf.astype(np.float16))
 
 
+def write_hard_native(pool, save_path: str, names, pseudo: np.ndarray,
+                      conf: np.ndarray, palette) -> list:
+    """``write_hard``'s files for a batch, the PNGs by the native C++
+    encoder (one call for the ids, one for the coloured maps) on ``pool``.
+    Returns the futures."""
+    from ..data import native_loader as nl
+    base = [os.path.join(save_path, n) for n in names]
+    ids = pseudo.astype(np.uint8)
+    pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+    return [pool.submit(nl.encode_batch, base, ids),
+            pool.submit(nl.encode_pal8_batch,
+                        [b[:-4] + "_color.png" for b in base], ids, pal)] + [
+        pool.submit(np.save, b.replace(".png", "_conf.npy"),
+                    conf[k].astype(np.float16)) for k, b in enumerate(base)]
+
+
 def generate_pseudo_labels(model, loader, *, save_path: str,
                            soft: bool = False, flip: bool = False,
                            max_steps: int = 0, writer_threads: int = 8,
@@ -104,14 +120,14 @@ def generate_pseudo_labels(model, loader, *, save_path: str,
     (``parallel/mesh.LocalMesh``, ``--data_parallel``): the model is
     copied once onto each of its devices, each batch's rows are split over
     the copies and the writers get their results in row order.
-    ``native_encode`` and ``wire='packed_bf16'`` are not yet ported.
+    ``native_encode``: each batch's two PNGs a file go through the native
+    C++ encoder in two calls (``data/native_loader.py``), where the library
+    is available; else the Python writers. ``wire``: the batches' transfer
+    (``device_prefetch``).
     """
-    for flag, name in ((native_encode, "native_encode"),
-                       (wire == "packed_bf16", "wire='packed_bf16'")):
-        if flag:
-            raise NotImplementedError(
-                f"{name} is not yet ported to the PyTorch package (see "
-                f"ROADMAP.md)")
+    if native_encode:
+        from ..data import native_loader as nl
+        native_encode = nl.available()
     device = resolve_device(device)
     os.makedirs(save_path, exist_ok=True)
     mesh = pmesh.LocalMesh.of(mesh, device)
@@ -134,7 +150,7 @@ def generate_pseudo_labels(model, loader, *, save_path: str,
     with cf.ThreadPoolExecutor(max_workers=writer_threads) as pool:
         futures = []
         for i, batch in enumerate(device_prefetch(batches, device,
-                                                  mesh=mesh)):
+                                                  mesh=mesh, wire=wire)):
             if max_steps and i >= max_steps:
                 break
             images = batch["image"]
@@ -143,6 +159,10 @@ def generate_pseudo_labels(model, loader, *, save_path: str,
                 probs = run(0, images)
                 futures += [pool.submit(write_soft, save_path, name, probs[k])
                             for k, name in enumerate(names)]
+            elif native_encode:
+                conf, pseudo = run(2 if flip else 1, images)
+                futures += write_hard_native(pool, save_path, names, pseudo,
+                                             conf, palette)
             else:
                 conf, pseudo = run(2 if flip else 1, images)
                 futures += [pool.submit(write_hard, save_path, name,

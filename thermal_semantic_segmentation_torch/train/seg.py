@@ -43,6 +43,7 @@ from ..models.deeplab import backbone_and_head_params
 from ..nn.aspp import Dropout2d
 from ..nn.resnet import BatchNorm2d, synchronised
 from ..parallel import mesh as pmesh
+from ..ops.augment import random_resized_crop_flip
 from ..ops.confmat import confusion_matrix
 from ..ops.resize import upsample_logits
 
@@ -127,13 +128,15 @@ def make_seg_train_step(*, ignore_index: int,
     microbatches are those of the global batch, as the JAX step scans
     them: microbatch ``i`` is global rows ``[i*mb, (i+1)*mb)``, so a rank
     adds the rows of its own batch that fall there, maybe none. Under
-    'per_replica' each rank splits its own batch. ``device_augment`` is
-    not yet ported.
+    'per_replica' each rank splits its own batch.
+
+    ``device_augment``: the step takes raw full-size batches and crops,
+    resizes to ``label_hw`` and flips them on the device before the forward
+    (``ops/augment.random_resized_crop_flip``), as the JAX step does, with
+    a generator of its own on the device seeded from (``dropout_seed`` + 1,
+    step) and, under a mesh of several ranks, the rank
+    (``augment_generator``).
     """
-    if device_augment:
-        raise NotImplementedError(
-            "device_augment (ops/augment.py) is not yet ported to the "
-            "PyTorch package (see ROADMAP.md)")
     if bn_mode not in ("sync", "per_replica"):
         raise ValueError(f"unknown bn_mode {bn_mode!r}")
     device = resolve_device(device)
@@ -180,6 +183,11 @@ def make_seg_train_step(*, ignore_index: int,
     def train_step(state: SegTrainState, image: torch.Tensor,
                    label: torch.Tensor) -> torch.Tensor:
         model = state.model
+        if device_augment:
+            image, label = random_resized_crop_flip(
+                augment_generator(image.device, dropout_seed, state.step,
+                                  *((rank,) if world > 1 else ())),
+                image, labels=label, out_hw=label_hw)
         rows_of = microbatches(image.shape[0])
         model.train()
         for group in state.optimizer.param_groups:
@@ -213,6 +221,19 @@ def make_seg_train_step(*, ignore_index: int,
         return pmesh.all_reduce(loss, "sum" if sync else "avg")
 
     return train_step
+
+
+def augment_generator(device, dropout_seed: int, step: int,
+                      *key: int) -> torch.Generator:
+    """The device augmentation's generator of one step: on ``device``,
+    seeded from (``dropout_seed`` + 1, ``step``, *key), apart from the
+    dropout stream (``seed_dropout``) as JAX's ``key(dropout_seed + 1)``
+    is."""
+    seed = int(np.random.SeedSequence([dropout_seed + 1, step, *key])
+               .generate_state(1, np.uint64)[0])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 def average_running_stats(model: torch.nn.Module) -> None:
