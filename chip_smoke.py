@@ -104,6 +104,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the joined batch, 'per_replica''s state equal on both ranks, and the
      two-rank ``seg_validate``, ``evaluate_distance`` and prototype merge
      against their one-rank results;
+ 15b. spatial: the seg train step on a (data, spatial) mesh: two gloo
+     ranks on the card (``python3 chip_smoke.py --spatial-worker <rank>
+     <port> <dir>``) split the width of the full-width batch-8 step at
+     data 1 x spatial 2 (halo exchanges, GroupNorm and SE over the full
+     width, the sharded upsample); loss and gradients held to the plain
+     step on the joined batch, the ranks' state bit-equal; each rank's
+     peak memory, step time and exchange traffic beside the plain step's;
+     the same step in float64, each gradient tensor held to the plain
+     float64 step's; then the 2-D mesh at spatial 1 on one NCCL rank
+     against the plain step, in both; and the cost of the synchronised
+     BatchNorm's normalisation. It launches no kernel;
  16. export: ``cli/export_stablehlo`` writes the full-width model as a
      ``torch.export`` ids artifact with a symbolic batch (the kernel runs
      inside it as the op ``tss::upsample_argmax``) and self-checks it; the
@@ -284,6 +295,19 @@ SERVE_TURNS = ("live", "artifact", "artifact", "live", "live", "artifact")
 # grey levels: a translated pixel whose float64 value lies this close to an
 # integer may truncate either side between two batch compositions
 TRANSLATE_SERVE_SLACK = 1e-3
+# the spatial phase: the full-width model's step at batch 8, 256x512, on a
+# data 1 x spatial 2 mesh of two gloo ranks on the one card (each rank 8
+# rows x 256 columns), held to the plain step on the joined batch. In
+# float32 (which gives the memory and the times): the loss rtol 1e-5 (the
+# CPU test's) and the gradients against a float64 plain step, in units of
+# its largest gradient, at most twice the float32 plain step's own error
+# plus 5e-4 (at full width the float32 plain step is itself some 4e-2 of
+# the largest gradient from float64). In float64: every gradient tensor
+# within 5e-4 of its own largest value of the float64 plain step's. The
+# timed steps after the checked one
+SPATIAL_WORLD, SPATIAL_SEED, SPATIAL_TIMED_STEPS = 2, 31, 3
+SPATIAL_GRAD_ATOL = 5e-4
+SPATIAL_TIMEOUT = 600
 
 
 def fail(msg: str) -> None:
@@ -1869,12 +1893,30 @@ def self_train_float64_check(state, b) -> None:
 
     new_student = dict(state.model.named_parameters())
     new_teacher = dict(state.teacher.named_parameters())
-    ema_ulps = 0.0
+    # the error in float32 ulps of the result, the bound; beside it, for
+    # the record (ROADMAP section 3: one run read 8.1 ulps), the error in
+    # ulps of the largest of the two terms and the result, and the worst
+    # element's terms, which show whether they cancel
+    ema_ulps = term_ulps = 0.0
+    worst = None
     for k in names:
-        want = 0.999 * old[k] + 0.001 * new_student[k].detach().double().cpu()
+        kept = 0.999 * old[k]
+        added = 0.001 * new_student[k].detach().double().cpu()
+        want = kept + added
         got = new_teacher[k].detach().double().cpu()
-        ulp = torch.from_numpy(np.spacing(want.float().abs().numpy())).double()
-        ema_ulps = max(ema_ulps, float(((got - want).abs() / ulp).max()))
+
+        def ulps(of):
+            return (got - want).abs() / torch.from_numpy(np.spacing(
+                of.float().abs().numpy())).double()
+
+        result = ulps(want)
+        i = int(result.argmax())
+        if float(result.flatten()[i]) >= ema_ulps:
+            ema_ulps = float(result.flatten()[i])
+            worst = (k, i, *(float(t.flatten()[i])
+                             for t in (kept, added, want, got)))
+        term_ulps = max(term_ulps, float(ulps(torch.maximum(torch.maximum(
+            kept.abs(), added.abs()), want.abs())).max()))
     buffers_equal = all(torch.equal(a, b_) for a, b_ in zip(
         state.teacher.buffers(), state.model.buffers()))
 
@@ -1902,12 +1944,16 @@ def self_train_float64_check(state, b) -> None:
     counts_equal = np.array_equal(state.proto_counts.cpu().numpy(), counts)
     print(f"self_train float64 check: teacher logits "
           f"{tuple(logits.shape)} -> ({fh}, {fw}); EMA teacher vs float64 "
-          f"{ema_ulps:.3f} float32 ulps over {names}, buffers "
+          f"{ema_ulps:.3f} float32 ulps over {names} ({term_ulps:.3f} ulps "
+          f"of the largest term; worst element {worst[0]}[{worst[1]}]: kept "
+          f"{worst[2]!r}, added {worst[3]!r}, want {worst[4]!r}, got "
+          f"{worst[5]!r}), buffers "
           f"{'equal' if buffers_equal else 'DIFFER'}; kernel classes vs "
           f"plain outside {int((~decided).sum())} near-ties: {wrong} pixels; "
           f"prototypes rel err {rel_err:.3g}, counts "
           f"{state.proto_counts.cpu().numpy().astype(int).tolist()} "
           f"({'equal' if counts_equal else counts.tolist()})", flush=True)
+    note("self_train", ema_ulps=ema_ulps, ema_term_ulps=term_ulps)
     if tuple(logits.shape) != TEACHER_SHAPE or (fh, fw) != TEACHER_OUT:
         fail(f"the teacher's logits {tuple(logits.shape)} -> ({fh}, {fw}) "
              f"are not the kernels phase's {TEACHER_SHAPE} -> {TEACHER_OUT}")
@@ -4897,12 +4943,356 @@ def phase_doctor(card: str) -> None:
     note("doctor", backend="PASS")
 
 
+def spatial_step(mesh, image, label, steps: int, dtype=None):
+    """The full-width model (seed 0, dropout off; in ``dtype``, default
+    float32, as is ``image``) and the seg step on ``mesh`` (None: the
+    plain step): (first loss, first gradients and state, ms a step over
+    ``steps`` more after the first, the first step's peak GiB above what
+    was allocated before, the calls and bytes of ``parallel/spatial``'s
+    collectives in the first step, counted by wrapping its
+    ``all_reduce_``)."""
+    import collections
+
+    import torch
+
+    dtype = dtype or torch.float32
+
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.parallel import spatial
+    from thermal_semantic_segmentation_torch.train.seg import (
+        create_seg_state, make_seg_train_step)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    model = create_deeplab(0).to(dtype)
+    model.layer5.head[0].p = 0.0
+    image = image.to(dtype)
+    state = create_seg_state(model, learning_rate=TRAIN_LR)
+    step = make_seg_train_step(ignore_index=IGNORE, label_hw=SERVE_OUT,
+                               base_lr=TRAIN_LR, mesh=mesh)
+    traffic = collections.Counter()
+    real = spatial.all_reduce_
+
+    def counted(buf, group):
+        # an exchange's buffer is 4-D, a sum's has fewer dimensions
+        kind = "exchange" if buf.dim() == 4 else "sum"
+        traffic[f"{kind}_calls"] += 1
+        traffic[f"{kind}_bytes"] += buf.numel() * buf.element_size()
+        real(buf, group)
+
+    spatial.all_reduce_ = counted
+    try:
+        loss = float(step(state, image, label))
+    finally:
+        spatial.all_reduce_ = real
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ms = step_ms(lambda: step(state, image, label), steps) if steps else 0.0
+    return loss, grads, sd, ms, peak, traffic
+
+
+def spatial_worker(rank: int, port: int, root: str) -> int:
+    """One of the spatial phase's two gloo ranks on ``cuda:0``: its step
+    on its block of the joined batch in float32, then in float64; the
+    loss, times, peak, traffic and digests to ``<root>/spatial<rank>.pt``,
+    rank 0's gradients of both too."""
+    import gc
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        image_sharding, init_distributed, label_sharding, make_mesh_2d)
+
+    init_distributed(f"localhost:{port}", SPATIAL_WORLD, rank,
+                     backend="gloo", device="cuda:0")
+    mesh = make_mesh_2d(spatial=SPATIAL_WORLD)
+    data = SeededImages(TRAIN_BATCH, SERVE_OUT, seed=SPATIAL_SEED)
+    image = image_sharding(mesh, torch.from_numpy(
+        data.images)).contiguous().cuda()
+    label = label_sharding(mesh, torch.from_numpy(
+        data.labels)).contiguous().cuda()
+    loss, grads, sd, ms, peak, traffic = spatial_step(
+        mesh, image, label, SPATIAL_TIMED_STEPS)
+    out = {"loss": loss, "ms": ms, "peak": peak, "traffic": traffic,
+           "block": (tuple(image.shape), tuple(label.shape)), "digests": {}}
+    for what, kind in ((grads, "grad"), (sd, "state")):
+        out["digests"].update({f"{kind}/{k}": hashlib.sha256(
+            v.cpu().numpy().tobytes()).hexdigest() for k, v in what.items()})
+    if rank == 0:
+        out["grads"] = {n: g.cpu() for n, g in grads.items()}
+    del grads, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss64, grads64, _, _, _, _ = spatial_step(mesh, image, label, 0,
+                                               torch.float64)
+    out["loss64"] = loss64
+    out["digests"].update({f"grad64/{k}": hashlib.sha256(
+        v.cpu().numpy().tobytes()).hexdigest() for k, v in grads64.items()})
+    if rank == 0:
+        out["grads64"] = {n: g.cpu() for n, g in grads64.items()}
+    torch.save(out, f"{root}/spatial{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """max|got - want| of each tensor, in units of the largest ``want``."""
+    largest = max(float(g.abs().max()) for g in want.values())
+    return {n: float((got[n].to(g.device, g.dtype) - g).abs().max())
+            / largest for n, g in want.items()}
+
+
+def own_errors(got: dict, want: dict) -> dict:
+    """max|got - want| of each tensor, in units of its own largest
+    ``want`` (of 1 where ``want`` is all 0)."""
+    out = {}
+    for n, g in want.items():
+        scale = float(g.abs().max()) or 1.0
+        out[n] = float((got[n].to(g.device, g.dtype) - g).abs().max()) / scale
+    return out
+
+
+def anchored(got: dict, plain: dict, f64: dict) -> tuple:
+    """(largest error of ``got`` from ``f64``, the plain step's, the
+    tensors where ``got`` is past twice the plain step's error plus
+    ``SPATIAL_GRAD_ATOL``), in units of the largest float64 gradient."""
+    errs, plain_errs = grad_errors(got, f64), grad_errors(plain, f64)
+    worse = [n for n in f64
+             if errs[n] > 2 * plain_errs[n] + SPATIAL_GRAD_ATOL]
+    return max(errs.values()), max(plain_errs.values()), worse
+
+
+def subtract_first(xf, mean, var, eps, weight, bias):
+    """The synchronised BatchNorm's normalisation in the form the port
+    used before ``nn/resnet._normalise``: ``(x - mean) * rsqrt(var + eps)
+    * weight + bias`` in autograd ops, which keep two full-size tensors
+    for the backward."""
+    import torch
+    shape = (1, -1, 1, 1)
+    y = (xf - mean.view(shape)) * torch.rsqrt(var + eps).view(shape)
+    return y * weight.view(shape) + bias.view(shape)
+
+
+def sync_bn_normalise_cost(card: str) -> None:
+    """What the synchronised BatchNorm's normalisation costs a multi-rank
+    step: its forward and backward on the input of every BatchNorm of the
+    full-width model at 4 rows of 256x512 (a rank's rows in a two-rank
+    'sync' step of batch 8), timed by CUDA events, and the memory it
+    keeps for the backward: the port's ``nn/resnet._normalise``, the
+    subtract-first form before it, and that form under a checkpoint. The
+    statistics and their all-reduce before it are the same in all three
+    and left out; the mean and variance take gradients, as there."""
+    import collections
+
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.nn.resnet import (
+        BN_EPS, BatchNorm2d, _normalise)
+
+    model = create_deeplab(0)
+    shapes = collections.Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: shapes.update([tuple(args[0].shape)]))
+        for m in model.modules() if isinstance(m, BatchNorm2d)]
+    with torch.no_grad():
+        model.eval()(torch.rand(4, *SERVE_OUT, 1, device="cuda").permute(
+            0, 3, 1, 2))
+    for h in hooks:
+        h.remove()
+    del model
+    forms = {"port": _normalise, "subtract_first": subtract_first,
+             "subtract_first_checkpoint": lambda *a: checkpoint(
+                 subtract_first, *a, use_reentrant=False,
+                 preserve_rng_state=False)}
+    totals = {name: [0.0, 0] for name in forms}
+    for (n, c, h, w), count in shapes.items():
+        x = torch.randn(n, h, w, c, device="cuda").permute(
+            0, 3, 1, 2).requires_grad_()
+        mean = torch.randn(c, device="cuda", requires_grad=True)
+        var = torch.rand(c, device="cuda", requires_grad=True)
+        weight = torch.rand(c, device="cuda", requires_grad=True)
+        bias = torch.randn(c, device="cuda", requires_grad=True)
+        grad = torch.randn_like(x)
+        args = (x, mean, var, BN_EPS, weight, bias)
+        for name, form in forms.items():
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            y = form(*args)
+            kept = torch.cuda.memory_allocated() - before - y.numel() * 4
+            del y
+            totals[name][0] += count * time_ms(
+                lambda: form(*args).backward(grad), reps=10)
+            totals[name][1] += count * kept
+    layers = sum(shapes.values())
+    print(f"sync BatchNorm normalisation, forward and backward of its "
+          f"{layers} layers at 4 rows of 256x512 float32 (CUDA events), and "
+          f"what it keeps for the backward (each layer alone): " + "; ".join(
+              f"{name} {ms:.3f} ms, {kept / 2**30:.3f} GiB"
+              for name, (ms, kept) in totals.items()) + f" on {card}",
+          flush=True)
+    note("spatial", **{f"sync_bn_{name}_ms": ms
+                       for name, (ms, _) in totals.items()},
+         **{f"sync_bn_{name}_kept_gib": kept / 2**30
+            for name, (_, kept) in totals.items()})
+
+
+def phase_spatial(card: str) -> None:
+    """The seg train step on a (data, spatial) mesh: two gloo ranks on the
+    one card (``python3 chip_smoke.py --spatial-worker <rank> <port>
+    <dir>``) split the width of the full-width model's batch-8 step at
+    data 1 x spatial 2, held to the plain step on the joined batch (loss,
+    gradients, the two ranks' state bit-equal); each rank's peak memory
+    and step time beside the plain step's; then the 2-D mesh at spatial 1
+    on one NCCL rank against the plain step; the same two steps in
+    float64, each gradient tensor held to the plain float64 step's; the
+    cost of the synchronised BatchNorm's normalisation
+    (``sync_bn_normalise_cost``). Launches no kernel."""
+    import gc
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        init_distributed, make_mesh_2d)
+
+    with tempfile_dir() as root:
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--spatial-worker",
+             str(r), str(port), root], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for r in range(SPATIAL_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SPATIAL_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"spatial rank {r} failed:\n{log[-4000:]}")
+        ranks = [torch.load(f"{root}/spatial{r}.pt", weights_only=False)
+                 for r in range(SPATIAL_WORLD)]
+
+    data = SeededImages(TRAIN_BATCH, SERVE_OUT, seed=SPATIAL_SEED)
+    image = torch.from_numpy(data.images).cuda()
+    label = torch.from_numpy(data.labels).cuda()
+    want, want_grads, _, plain_ms, plain_peak, _ = spatial_step(
+        None, image, label, SPATIAL_TIMED_STEPS)
+    want64, f64, _, _, _, _ = spatial_step(None, image, label, 0,
+                                           torch.float64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    r0 = ranks[0]
+    loss_err = abs(r0["loss"] - want) / abs(want)
+    grad_err, plain_err, worse = anchored(r0["grads"], want_grads, f64)
+    vs_plain = max(grad_errors(r0["grads"], want_grads).values())
+    own = own_errors(r0["grads64"], f64)
+    own_worst = max(own, key=own.get)
+    past = [n for n, e in own.items() if e > SPATIAL_GRAD_ATOL]
+    smallest = min(float(g.abs().max()) for g in f64.values()) / max(
+        float(g.abs().max()) for g in f64.values())
+    loss64_err = abs(r0["loss64"] - want64) / abs(want64)
+    differ = [k for k in r0["digests"]
+              if any(r["digests"][k] != r0["digests"][k] for r in ranks)]
+    traffic = r0["traffic"]
+    print(f"spatial: data 1 x spatial {SPATIAL_WORLD} over gloo on one card "
+          f"(blocks {r0['block']}): float32 loss {r0['loss']} vs the plain "
+          f"step's {want} (rel err {loss_err:.3g}); gradients' largest error "
+          f"from float64 {grad_err:.3g} of the largest (the plain float32 "
+          f"step's {plain_err:.3g}; {len(worse)} tensors past twice its "
+          f"error plus {SPATIAL_GRAD_ATOL}: {worse[:4]}), from the plain "
+          f"step {vs_plain:.3g}; {len(differ)} tensors differ between the "
+          f"ranks", flush=True)
+    print(f"spatial float64: loss {r0['loss64']} vs the plain step's "
+          f"{want64} (rel err {loss64_err:.3g}); each gradient tensor against "
+          f"the plain float64 step's in units of its own largest value: "
+          f"worst {own[own_worst]:.3g} ({own_worst}), {len(past)} tensors "
+          f"past {SPATIAL_GRAD_ATOL}: {past[:4]} (the smallest tensor's "
+          f"largest value is {smallest:.3g} of the largest)", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"spatial rank {r}: step {res['ms']:.2f} ms, peak device "
+              f"memory {res['peak']:.3f} GiB (batch {TRAIN_BATCH} at "
+              f"256x512, float32, its half of the width) on {card}",
+              flush=True)
+    print(f"spatial plain step: {plain_ms:.2f} ms, peak device memory "
+          f"{plain_peak:.3f} GiB (batch {TRAIN_BATCH} at 256x512, float32, "
+          f"one process) on {card}", flush=True)
+    print(f"spatial traffic of one step on rank 0: "
+          f"{traffic.get('exchange_calls', 0)} exchanges, "
+          f"{traffic.get('exchange_bytes', 0) / 2**20:.1f} MiB; "
+          f"{traffic.get('sum_calls', 0)} sums, "
+          f"{traffic.get('sum_bytes', 0) / 2**20:.3f} MiB (gloo stages "
+          f"every buffer through the host)", flush=True)
+    note("spatial", loss_rel_err=loss_err, grad_err_f64=grad_err,
+         plain_grad_err_f64=plain_err, grad_err_vs_plain=vs_plain,
+         f64_own_grad_err=own[own_worst], f64_loss_rel_err=loss64_err,
+         plain_ms=plain_ms, plain_peak_gib=plain_peak,
+         **{f"rank{r}_ms": res["ms"] for r, res in enumerate(ranks)},
+         **{f"rank{r}_peak_gib": res["peak"] for r, res in enumerate(ranks)},
+         exchange_calls=traffic.get("exchange_calls", 0),
+         exchange_mib=traffic.get("exchange_bytes", 0) / 2**20)
+    failures = []
+    if not (loss_err <= LOSS_RTOL and not worse and not differ):
+        failures.append("the spatial mesh's float32 step is not the plain "
+                        "step on the joined batch")
+    if past:
+        failures.append("the spatial mesh's float64 gradients are not the "
+                        "plain float64 step's")
+    del r0, ranks
+
+    init_distributed(f"localhost:{free_port()}", 1, 0)
+    if dist.get_backend() != "nccl":
+        fail(f"the one-rank group is {dist.get_backend()}, not NCCL")
+    mesh = make_mesh_2d(spatial=1)
+    loss, grads, _, _, _, _ = spatial_step(mesh, image, label, 0)
+    _, grads64, _, _, _, _ = spatial_step(mesh, image, label, 0,
+                                          torch.float64)
+    dist.destroy_process_group()
+    loss_err1 = abs(loss - want) / abs(want)
+    grad_err1, _, worse1 = anchored(grads, want_grads, f64)
+    own1 = max(own_errors(grads64, f64).values())
+    print(f"spatial 1 over one NCCL rank: float32 loss {loss} vs {want} (rel "
+          f"err {loss_err1:.3g}), gradients' largest error from float64 "
+          f"{grad_err1:.3g} of the largest ({len(worse1)} tensors past the "
+          f"bound), from the plain step "
+          f"{max(grad_errors(grads, want_grads).values()):.3g}; float64 "
+          f"gradients' worst error {own1:.3g} of each tensor's largest",
+          flush=True)
+    note("spatial", nccl_spatial1_loss_rel_err=loss_err1,
+         nccl_spatial1_grad_err_f64=grad_err1,
+         nccl_spatial1_f64_own_grad_err=own1)
+    if not (loss_err1 <= LOSS_RTOL and not worse1
+            and own1 <= SPATIAL_GRAD_ATOL):
+        failures.append("the 2-D mesh at spatial 1 is not the plain step")
+    if failures:
+        fail("; ".join(failures))
+    del grads, grads64, want_grads, f64
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync_bn_normalise_cost(card)
+
+
 # every phase in the order a full run takes them, and the phases each one
 # needs to have run first (their files under the run's root); "gloo" is
 # the two gloo ranks' run that the multi-process phases check
 PHASES = ("serve", "eval", "train", "pseudo", "prototypes", "self_train",
           "self_train_dist", "gan", "gan_dist", "gan_legacy", "translate",
-          "distance", "data_parallel", "dist", "export", "serve_translator",
+          "distance", "data_parallel", "dist", "spatial", "export",
+          "serve_translator",
           "serve_artifact", "profile", "device_aug", "host_data", "doctor")
 NEEDS = {"gan_dist": ("gan",), "translate": ("gan",),
          "distance": ("translate",), "data_parallel": ("gan",),
@@ -4977,6 +5367,7 @@ def main(argv) -> int:
             "distance": lambda: phase_distance(card, root),
             "data_parallel": lambda: phase_data_parallel(card, root),
             "dist": lambda: phase_dist(card, gloo),
+            "spatial": lambda: phase_spatial(card),
             "export": lambda: phase_export(card, root),
             "serve_translator": lambda: phase_serve_translator(card, root),
             "serve_artifact": lambda: phase_serve_artifact(card, root),
@@ -5025,4 +5416,7 @@ def main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--spatial-worker"]:
+        sys.exit(spatial_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
     sys.exit(main(sys.argv[1:]))

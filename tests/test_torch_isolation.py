@@ -86,7 +86,8 @@ def test_importing_every_module_loads_no_banned_package():
                 "core.export", "cli.export_stablehlo", "cli.export_torch",
                 "cli.serve", "serving.codec", "cli.profile_step",
                 "cli.doctor", "ops.augment", "data.cache",
-                "data.native_loader", "data.triple_transforms"):
+                "data.native_loader", "data.triple_transforms",
+                "parallel.spatial", "nn.spatial"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"

@@ -38,7 +38,8 @@ def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor, *,
     num_classes = logits.shape[-1]
     labels = labels.long()
     valid = (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     picked = torch.where(valid, labels, 0).unsqueeze(-1)
     nll = -logp.gather(-1, picked).squeeze(-1)
     nll = torch.where(valid, nll, 0.0)

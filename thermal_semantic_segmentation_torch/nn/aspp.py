@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .spatial import Conv2d, GroupNorm, WidthSharded, spatial_mean
+
 GN_EPS = 1e-5
 GN_GROUPS = 32
 BRANCH_WIDTH = 256
@@ -37,10 +39,15 @@ LEGACY_STD = 0.01
 MAX_BRANCH_PIXELS = 8 * 33 * 65
 
 
-def split_branches(branches, x: torch.Tensor) -> torch.Tensor:
+def split_branches(branches, x: torch.Tensor, layout=None) -> torch.Tensor:
     """``branches(x)``, in parts of the batch of at most
-    ``MAX_BRANCH_PIXELS`` map pixels each when ``x`` is larger."""
-    per_call = max(1, MAX_BRANCH_PIXELS // (x.shape[2] * x.shape[3]))
+    ``MAX_BRANCH_PIXELS`` map pixels each when ``x`` is larger. On a
+    width-sharded map (``layout``) the pixels are those of the widest
+    shard, so that every rank of the spatial group takes as many parts
+    (each part runs the branches' exchanges)."""
+    width = x.shape[3] if layout is None else -(-layout.width_of(x)
+                                                 // layout.size)
+    per_call = max(1, MAX_BRANCH_PIXELS // (x.shape[2] * width))
     if x.shape[0] > per_call:
         return torch.cat([branches(part) for part in x.split(per_call)])
     return branches(x)
@@ -72,8 +79,9 @@ class Dropout2d(nn.Module):
         return torch.where(mask[:, :, None, None], x / keep, 0.0)
 
 
-class SEBlock(nn.Module):
-    """Squeeze-and-excitation channel gate."""
+class SEBlock(WidthSharded, nn.Module):
+    """Squeeze-and-excitation channel gate (its mean over the full width
+    of a width-sharded map)."""
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
@@ -82,11 +90,11 @@ class SEBlock(nn.Module):
             nn.Linear(channels // reduction, channels), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.se(x.mean(dim=(2, 3)))
+        s = self.se(spatial_mean(x, self.spatial))
         return x * s[:, :, None, None]
 
 
-class ASPPModule2(nn.Module):
+class ASPPModule2(WidthSharded, nn.Module):
 
     def __init__(self, in_channels: int, num_classes: int):
         super().__init__()
@@ -94,9 +102,9 @@ class ASPPModule2(nn.Module):
         def branch(kernel: int, d: int) -> nn.Sequential:
             pad = d if kernel == 3 else 0
             return nn.Sequential(
-                nn.Conv2d(in_channels, BRANCH_WIDTH, kernel, padding=pad,
-                          dilation=d, bias=True),
-                nn.GroupNorm(GN_GROUPS, BRANCH_WIDTH, eps=GN_EPS),
+                Conv2d(in_channels, BRANCH_WIDTH, kernel, padding=pad,
+                       dilation=d, bias=True),
+                GroupNorm(GN_GROUPS, BRANCH_WIDTH, eps=GN_EPS),
                 nn.ReLU(inplace=True))
 
         self.conv2d_list = nn.ModuleList(
@@ -104,11 +112,11 @@ class ASPPModule2(nn.Module):
         concat = BRANCH_WIDTH * (len(DILATIONS) + 1)
         self.bottleneck = nn.Sequential(
             SEBlock(concat),
-            nn.Conv2d(concat, BRANCH_WIDTH, 3, padding=1, bias=True),
-            nn.GroupNorm(GN_GROUPS, BRANCH_WIDTH, eps=GN_EPS))
+            Conv2d(concat, BRANCH_WIDTH, 3, padding=1, bias=True),
+            GroupNorm(GN_GROUPS, BRANCH_WIDTH, eps=GN_EPS))
         self.head = nn.Sequential(
             Dropout2d(DROPRATE),
-            nn.Conv2d(BRANCH_WIDTH, num_classes, 1, bias=False))
+            Conv2d(BRANCH_WIDTH, num_classes, 1, bias=False))
 
     def init_weights_(self, generator: torch.Generator) -> None:
         """Kaiming-normal branch/bottleneck convs, N(0, 0.001) classifier."""
@@ -132,8 +140,8 @@ class ASPPModule2(nn.Module):
         return torch.cat([b(x) for b in self.conv2d_list], dim=1)
 
     def forward(self, x: torch.Tensor) -> dict:
-        feat = self.head[0](self.bottleneck(split_branches(self.branches,
-                                                           x)))
+        feat = self.head[0](self.bottleneck(split_branches(
+            self.branches, x, self.spatial)))
         return {"feat": feat, "out": self.head[1](feat)}
 
 
@@ -145,8 +153,8 @@ class ASPPLegacy(nn.Module):
     def __init__(self, in_channels: int, num_classes: int):
         super().__init__()
         self.conv2d_list = nn.ModuleList(
-            nn.Conv2d(in_channels, num_classes, 3, padding=d, dilation=d,
-                      bias=True) for d in DILATIONS)
+            Conv2d(in_channels, num_classes, 3, padding=d, dilation=d,
+                   bias=True) for d in DILATIONS)
 
     def init_weights_(self, generator: torch.Generator) -> None:
         """N(0, 0.01) kernels and zero biases, as the JAX head."""

@@ -30,6 +30,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.pool import ceil_max_pool
+from ..parallel.spatial import group_sum
+from .spatial import Conv2d
 
 BN_EPS = 1e-5
 CONV_STD = 0.01
@@ -73,25 +75,6 @@ def _remat_contexts(remat: str):
     return first, _recompute(again)
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """The sum of ``x`` over ``group``'s ranks; its gradient is the sum of
-    the ranks' gradients (every rank's loss depends on every rank's
-    ``x``)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose running variance follows flax's
     ``nn.BatchNorm``: a train-mode forward folds the BIASED batch variance
@@ -111,8 +94,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     normalised as one in train mode: the per-channel sums, sums of squares
     and counts are all-reduced (differentiably), and the biased global
     variance ``E[x^2] - E[x]^2`` is used, and folded where the layer tracks
-    its statistics, as flax computes it over the global batch. With one
-    rank it changes nothing.
+    its statistics, as flax computes it over the global batch. The
+    normalisation is ``x * scale + shift`` with per-channel ``scale`` and
+    ``shift`` (``_normalise``), whose backward keeps no full-size tensor
+    but ``x``, which the sum of squares keeps already (cuDNN's BatchNorm
+    keeps none). With one rank it changes nothing.
     """
 
     sync_group = None
@@ -141,17 +127,14 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def _synchronised(self, x: torch.Tensor, group) -> torch.Tensor:
         c = x.shape[1]
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
                            xf.new_full((1,), x.numel() // c)])
-        total = _AllReduceSum.apply(local, group)
+        total = group_sum(local, group)
         n = total[-1]
         mean = total[:c] / n
         var = (total[c:2 * c] / n - mean * mean).clamp_min(0.0)
-        shape = (1, c, 1, 1)
-        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
-        if self.weight is not None:
-            y = y * self.weight.view(shape) + self.bias.view(shape)
+        y = _normalise(xf, mean, var, self.eps, self.weight, self.bias)
         if self.track_running_stats and not _recomputing:
             m = self.momentum
             with torch.no_grad():
@@ -159,6 +142,20 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
                 self.running_var.mul_(1.0 - m).add_(m * var.detach())
         return y.to(x.dtype)
+
+
+def _normalise(xf, mean, var, eps, weight, bias):
+    """``(xf - mean) * rsqrt(var + eps) * weight + bias`` per channel, as
+    ``xf * scale + shift``: its backward keeps ``xf`` and per-channel
+    vectors, and no full-size intermediate."""
+    scale = torch.rsqrt(var + eps)
+    if weight is not None:
+        scale = scale * weight
+    shift = -mean * scale
+    if bias is not None:
+        shift = shift + bias
+    shape = (1, -1, 1, 1)
+    return torch.addcmul(shift.view(shape), xf, scale.view(shape))
 
 
 @contextlib.contextmanager
@@ -187,16 +184,16 @@ class Bottleneck(nn.Module):
                  dilation: int = 1, downsample: bool = False):
         super().__init__()
         d = dilation
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, stride=stride, bias=False)
         self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=d, dilation=d,
-                               bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, padding=d, dilation=d,
+                            bias=False)
         self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = BatchNorm2d(planes * 4, eps=BN_EPS)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
-            nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+            Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
             BatchNorm2d(planes * 4, eps=BN_EPS)) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -217,8 +214,8 @@ class ResNetBackbone(nn.Module):
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}")
         self.remat = remat
-        self.conv1 = nn.Conv2d(num_channels, 64, 7, stride=2, padding=3,
-                               bias=False)
+        self.conv1 = Conv2d(num_channels, 64, 7, stride=2, padding=3,
+                            bias=False)
         self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = ceil_max_pool(3, 2, 1)

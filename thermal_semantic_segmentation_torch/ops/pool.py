@@ -3,17 +3,19 @@
 from __future__ import annotations
 
 import torch
-from torch import nn
+
+from ..nn.spatial import MaxPool2d
 
 
 def ceil_max_pool(window: int = 3, stride: int = 2,
-                  padding: int = 1) -> nn.MaxPool2d:
-    """MaxPool2d with ceil mode, as the DeepLab stem uses it (NCHW).
+                  padding: int = 1) -> MaxPool2d:
+    """MaxPool2d with ceil mode, as the DeepLab stem uses it (NCHW); it
+    also runs on width-sharded maps (``nn/spatial.py``).
 
     Ceil mode changes the output grid (128 -> 65 rows), which the checkpoint
     layout depends on.
     """
-    return nn.MaxPool2d(window, stride, padding, ceil_mode=True)
+    return MaxPool2d(window, stride, padding, ceil_mode=True)
 
 
 def max_pool_ceil(x_nhwc: torch.Tensor, window: int = 3, stride: int = 2,

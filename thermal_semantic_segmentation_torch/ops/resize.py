@@ -20,6 +20,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import column_range, gather_columns
+
+
+def _source_coords(in_size: int, out_size: int) -> np.ndarray:
+    """The float64 source coordinate of each output index of an
+    align-corners resize."""
+    i = np.arange(out_size, dtype=np.float64)
+    if in_size == out_size:
+        return i
+    scale = (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+    return i * scale
+
 
 @functools.lru_cache(maxsize=128)
 def interp_taps_np(in_size: int, out_size: int):
@@ -31,12 +43,7 @@ def interp_taps_np(in_size: int, out_size: int):
     weights are bit-identical to the reference's. lo/hi are int32, w_hi is
     float32; the arrays are read-only because the cache shares them.
     """
-    i = np.arange(out_size, dtype=np.float64)
-    if in_size == out_size:
-        src = i
-    else:
-        scale = (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
-        src = i * scale
+    src = _source_coords(in_size, out_size)
     lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
     hi = np.minimum(lo + 1, in_size - 1)
     w_hi = (src - lo).astype(np.float32)
@@ -48,17 +55,47 @@ def interp_taps_np(in_size: int, out_size: int):
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int, *,
                     align_corners: bool = True) -> torch.Tensor:
-    """Bilinearly resize NHWC ``x`` to (out_h, out_w), computed in float32
-    and returned in ``x``'s dtype."""
-    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(out_h, out_w),
+    """Bilinearly resize NHWC ``x`` to (out_h, out_w), computed in at least
+    float32 and returned in ``x``'s dtype."""
+    y = x.permute(0, 3, 1, 2)
+    y = F.interpolate(y.to(torch.promote_types(y.dtype, torch.float32)),
+                      size=(out_h, out_w),
                       mode="bilinear", align_corners=align_corners)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def upsample_logits(logits_nhwc: torch.Tensor, out_h: int,
-                    out_w: int) -> torch.Tensor:
-    """The canonical logits upsample: bilinear, align_corners=True."""
-    return resize_bilinear(logits_nhwc, out_h, out_w, align_corners=True)
+def upsample_logits(logits_nhwc: torch.Tensor, out_h: int, out_w: int,
+                    layout=None) -> torch.Tensor:
+    """The canonical logits upsample: bilinear, align_corners=True.
+
+    With ``layout`` (``parallel/spatial.SpatialLayout``) the logits are
+    this rank's shard of a width-sharded map and the result is this
+    rank's columns of the global (out_h, out_w) upsample, in at least
+    float32: the taps come from the global sizes (65 -> 512 columns), and
+    the source columns of this rank's output columns come through the
+    exchange. The arithmetic is ``resize_bilinear_taps``'s (the JAX
+    package's), rows first; in float64 the weights are float64 too."""
+    if layout is None:
+        return resize_bilinear(logits_nhwc, out_h, out_w, align_corners=True)
+    x = logits_nhwc.permute(0, 3, 1, 2)
+    width = layout.width_of(x)
+    lo, hi, _ = interp_taps_np(width, out_w)
+    ranges = []
+    for q in range(layout.size):
+        c0, c1 = column_range(out_w, layout.size, q)
+        ranges.append((int(lo[c0]), int(hi[c1 - 1]) + 1) if c1 > c0
+                      else (0, 0))
+    a = ranges[layout.index][0]
+    y = gather_columns(x, layout, width, ranges).permute(0, 2, 3, 1)
+    y = y.to(torch.promote_types(y.dtype, torch.float32))
+    lo_d, hi_d, w_d = _device_taps(y.shape[1], out_h, y.device, y.dtype)
+    w = w_d.reshape(1, -1, 1, 1)
+    y = y.index_select(1, lo_d) * (1.0 - w) + y.index_select(1, hi_d) * w
+    c0, c1 = layout.columns(out_w)
+    lo_d, hi_d, w_d = _device_taps(width, out_w, y.device, y.dtype)
+    w = w_d[c0:c1].reshape(1, 1, -1, 1)
+    return (y.index_select(2, lo_d[c0:c1] - a) * (1.0 - w)
+            + y.index_select(2, hi_d[c0:c1] - a) * w)
 
 
 def resize_bilinear_taps(x: torch.Tensor, out_h: int,
@@ -80,11 +117,15 @@ def resize_bilinear_taps(x: torch.Tensor, out_h: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _device_taps(in_size: int, out_size: int, device: torch.device):
+def _device_taps(in_size: int, out_size: int, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
     """``interp_taps_np`` as (lo, hi int64, w_hi float32) tensors on
     ``device``, uploaded once per size (an upload waits for the host), as
-    ordinary tensors even when first asked for under inference mode."""
+    ordinary tensors even when first asked for under inference mode. With
+    ``dtype`` float64, w_hi is the float64 value that float32 rounds."""
     lo, hi, w = interp_taps_np(in_size, out_size)
+    if dtype == torch.float64:
+        w = _source_coords(in_size, out_size) - lo
     with torch.inference_mode(False):
         return (torch.tensor(lo, dtype=torch.int64, device=device),
                 torch.tensor(hi, dtype=torch.int64, device=device),

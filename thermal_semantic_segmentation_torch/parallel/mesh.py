@@ -28,6 +28,12 @@ training:
   asynchronous, so one thread issuing each replica's rows to its own card
   overlaps the cards. A device may repeat (``[cpu, cpu]``, ``[cuda:0,
   cuda:0]``): its entries share one copy and, on a card, one stream.
+- A (data, spatial) mesh over the process group (JAX ``make_mesh_2d``):
+  ``make_mesh_2d`` gives a ``SpatialMesh`` whose ranks each hold one
+  block of the global batch, rows by their data index and image columns
+  by their spatial index (``image_sharding``, ``label_sharding``). The seg
+  train step runs on it (``train/seg.py``); the width split and its halo
+  exchange are ``parallel/spatial.py``.
 
 The collectives here put their tensors on the process group's device
 (NCCL takes only CUDA tensors) and hand the result back on the caller's.
@@ -45,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from .spatial import SpatialLayout, column_range
 
 
 def init_distributed(coordinator_address: str = "",
@@ -159,19 +166,106 @@ def make_mesh(device=None, *, batch_size: Optional[int] = None,
     return DataMesh(group=group or dist.group.WORLD, device=dev)
 
 
-_host_group = []
+@dataclass(frozen=True)
+class SpatialMesh:
+    """The ranks of a process group as a (data, spatial) grid, the port's
+    counterpart of the JAX 2-D mesh (axes ``'data'``, ``'spatial'``):
+    rank ``r`` is at data index ``r // spatial`` and spatial index
+    ``r % spatial``, as JAX reshapes its devices. ``spatial_group`` holds
+    the ranks of this rank's data index, which split the width of its
+    rows; ``group`` the whole grid."""
+
+    group: object
+    device: torch.device
+    spatial: int
+    spatial_group: object
+
+    @property
+    def size(self) -> int:
+        return dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
+    @property
+    def data(self) -> int:
+        return self.size // self.spatial
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
+    def layout(self) -> SpatialLayout:
+        """A fresh ``SpatialLayout`` of this rank's spatial group."""
+        return SpatialLayout(self.spatial_group, self.spatial,
+                             self.spatial_index)
+
+
+def make_mesh_2d(device=None, *, spatial: int = 2) -> SpatialMesh:
+    """The (data, spatial) mesh of the job's process group: ``spatial``
+    ranks split each image's width, the world size over ``spatial`` data
+    indices split the batch. Use it where a rank's batch would drop below
+    one image or its activations outgrow the card at full resolution
+    (JAX ``make_mesh_2d``). Every rank makes every spatial group, so
+    every rank must call this at the same point. ``device`` and the NCCL
+    check as ``make_mesh``."""
+    base = make_mesh(device)
+    world = base.size
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"spatial {spatial} does not divide the "
+                         f"{world} ranks")
+    mine = base.group
+    if spatial < world:
+        for d in range(world // spatial):
+            sub = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+            if base.rank // spatial == d:
+                mine = sub
+    return SpatialMesh(group=base.group, device=base.device,
+                       spatial=spatial, spatial_group=mine)
+
+
+def image_sharding(mesh: SpatialMesh, image: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a global NHWC ``image`` batch: its data
+    index's rows and its spatial index's columns (JAX
+    ``image_sharding(mesh, spatial=True)``, which names the layout where
+    this cuts it)."""
+    n = image.shape[0]
+    if n % mesh.data:
+        raise ValueError(f"global batch {n} does not divide over the "
+                         f"{mesh.data} data indices")
+    rows = n // mesh.data
+    lo, hi = column_range(image.shape[2], mesh.spatial, mesh.spatial_index)
+    return image[mesh.data_index * rows:(mesh.data_index + 1) * rows, :,
+                 lo:hi]
+
+
+# a global (N, H, W) label batch is cut as the images are (JAX
+# ``label_sharding(mesh, spatial=True)``)
+label_sharding = image_sharding
+
+
+# the job's group and the gloo group made over it by ``host_group``
+_host_group = {}
 
 
 def host_group():
-    """A gloo group over the whole job, for flags the host decides on
-    (preemption): its collectives never wait for the card. The job's own
-    group when that is gloo already. Made at the first call, which every
-    rank must reach at the same point."""
+    """A gloo group over the whole job, for flags and sizes the host
+    decides on (preemption, the spatial step's block sizes): its
+    collectives never wait for the card. The job's own group when that is
+    gloo already. Made at the first call under each process group (a
+    process that destroys its group and joins another gets a new one),
+    which every rank must reach at the same point."""
     if dist.get_backend() == "gloo":
         return dist.group.WORLD
-    if not _host_group:
-        _host_group.append(dist.new_group(backend="gloo"))
-    return _host_group[0]
+    if _host_group.get("job") is not dist.group.WORLD:
+        _host_group["group"] = dist.new_group(backend="gloo")
+        _host_group["job"] = dist.group.WORLD
+    return _host_group["group"]
 
 
 def _group_device(group=None) -> Optional[torch.device]:

@@ -24,6 +24,31 @@ BatchNorm modes:
   own batch, the gradients and the loss are averaged, and the running
   statistics are averaged across ranks after the step (DDP's
   ``broadcast_buffers`` is off: it would copy rank 0's over the others).
+
+With a ``parallel/mesh.SpatialMesh`` (``make_mesh_2d``: data x spatial
+ranks) each rank holds one block of the global batch, its data index's
+rows and its spatial index's columns of the image and the label
+(``image_sharding``, ``label_sharding``), and the step is the JAX step fed
+width-sharded inputs. The model's layers run on the width shards
+(``nn/spatial.py``: halo exchanges, GroupNorm and the SE mean over the full
+width), the logits are upsampled to the rank's label columns, and:
+- 'sync': BatchNorm normalises over the whole grid and the CE is each
+  rank's NLL sum over the grid's count of valid pixels: the JAX step on
+  the global batch;
+- 'per_replica': each data index is one replica, as JAX's ``shard_map``
+  over the 'data' axis of a 2-D mesh runs it (its spatial ranks compute
+  the replica's full width between them): BatchNorm and the count over
+  the spatial group, the gradients, loss and running statistics averaged
+  over the data indices.
+There is no DDP: the exchanges' transposes run collectives on the spatial
+groups in the middle of the backward, which DDP's bucketed all-reduces
+over the grid could meet in another order on another rank. The gradients
+are summed over the grid after the backward (``all_reduce_grads``). Each
+step first gathers every rank's block sizes on the host, which gives the
+image's global width and checks the blocks. With ``device_augment`` the
+blocks are of the raw frames: every spatial rank of a data index gathers
+their whole rows (a crop takes any columns), crops them with the same
+draws and keeps its columns of the result.
 """
 
 from __future__ import annotations
@@ -42,7 +67,9 @@ from ..losses import cross_entropy, cross_entropy_terms
 from ..models.deeplab import backbone_and_head_params
 from ..nn.aspp import Dropout2d
 from ..nn.resnet import BatchNorm2d, synchronised
+from ..nn.spatial import width_sharded
 from ..parallel import mesh as pmesh
+from ..parallel.spatial import column_range, gather_columns
 from ..ops.augment import random_resized_crop_flip
 from ..ops.confmat import confusion_matrix
 from ..ops.resize import upsample_logits
@@ -128,30 +155,45 @@ def make_seg_train_step(*, ignore_index: int,
     microbatches are those of the global batch, as the JAX step scans
     them: microbatch ``i`` is global rows ``[i*mb, (i+1)*mb)``, so a rank
     adds the rows of its own batch that fall there, maybe none. Under
-    'per_replica' each rank splits its own batch.
+    'per_replica' each rank splits its own batch. A ``SpatialMesh``
+    (``make_mesh_2d``) gives each rank its block of the global batch's
+    rows and columns, as the module docstring says; its replicas are the
+    data indices.
 
     ``device_augment``: the step takes raw full-size batches and crops,
     resizes to ``label_hw`` and flips them on the device before the forward
     (``ops/augment.random_resized_crop_flip``), as the JAX step does, with
     a generator of its own on the device seeded from (``dropout_seed`` + 1,
-    step) and, under a mesh of several ranks, the rank
-    (``augment_generator``).
+    step) and, with several replicas, the replica: the rank, or the data
+    index on a ``SpatialMesh`` (``augment_generator``).
     """
     if bn_mode not in ("sync", "per_replica"):
         raise ValueError(f"unknown bn_mode {bn_mode!r}")
     device = resolve_device(device)
 
+    grid = isinstance(mesh, pmesh.SpatialMesh)
     world, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+    # the replicas of the global batch: one a data index on a grid
+    replicas, replica = ((mesh.data, mesh.data_index) if grid
+                         else (world, rank))
     sync = bn_mode == "sync"
+    # the group over which BatchNorm and the CE's count reduce
+    norm_group = (None if mesh is None else mesh.group if sync
+                  else mesh.spatial_group if grid else None)
     wrapped = {}
 
-    def terms_of(model, image, label):
+    def terms_of(model, image, label, layout=None, width=None):
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
-            out = model(image.permute(0, 3, 1, 2))["out"]
+            x = image.permute(0, 3, 1, 2)
+            if layout is not None:
+                layout.start(x, width)
+            out = model(x)["out"]
         # channels_last NCHW logits viewed as NHWC: no copy
-        logits = out.float().permute(0, 2, 3, 1)
-        return cross_entropy_terms(upsample_logits(logits, *label_hw), label,
-                                   ignore_index=ignore_index)
+        logits = out.to(torch.promote_types(out.dtype, torch.float32))
+        logits = logits.permute(0, 2, 3, 1)
+        return cross_entropy_terms(
+            upsample_logits(logits, *label_hw, layout=layout), label,
+            ignore_index=ignore_index)
 
     def ddp_of(model):
         ddp = wrapped.get("ddp")
@@ -175,52 +217,113 @@ def make_seg_train_step(*, ignore_index: int,
         if not sync:
             mb = b // grad_accum
             return [slice(i * mb, (i + 1) * mb) for i in range(grad_accum)]
-        mb = world * b // grad_accum
-        return [slice(min(max(i * mb - rank * b, 0), b),
-                      min(max((i + 1) * mb - rank * b, 0), b))
+        mb = replicas * b // grad_accum
+        return [slice(min(max(i * mb - replica * b, 0), b),
+                      min(max((i + 1) * mb - replica * b, 0), b))
                 for i in range(grad_accum)]
 
     def train_step(state: SegTrainState, image: torch.Tensor,
                    label: torch.Tensor) -> torch.Tensor:
         model = state.model
+        layout = width = None
+        if grid:
+            width = grid_image_width(mesh, image, label,
+                                     None if device_augment else label_hw)
+            layout = mesh.layout()
         if device_augment:
+            if grid:
+                # the crop takes any columns: every spatial rank of the data
+                # index crops its whole rows with the same draws
+                image, label = whole_rows(layout, width, image, label)
             image, label = random_resized_crop_flip(
                 augment_generator(image.device, dropout_seed, state.step,
-                                  *((rank,) if world > 1 else ())),
+                                  *((replica,) if replicas > 1 else ())),
                 image, labels=label, out_hw=label_hw)
+            if grid:
+                width = label_hw[1]
+                lo, hi = layout.columns(width)
+                image, label = image[:, :, lo:hi], label[:, :, lo:hi]
         rows_of = microbatches(image.shape[0])
         model.train()
         for group in state.optimizer.param_groups:
             group["lr"] = base_lr * state.lr_scale * group["lr_mult"]
         state.optimizer.zero_grad(set_to_none=True)
-        net = model if mesh is None else ddp_of(model)
-        loss = torch.zeros((), device=image.device)
-        with synchronised([model], mesh.group if mesh is not None and sync
-                          else None):
+        net = model if mesh is None or grid else ddp_of(model)
+        loss = torch.zeros((), device=image.device, dtype=torch.promote_types(
+            image.dtype, torch.float32))
+        with synchronised([model], norm_group), width_sharded([model],
+                                                              layout):
             for i, rows in enumerate(rows_of):
                 key = (((i,) if grad_accum > 1 else ())
-                       + ((rank,) if world > 1 else ()))
+                       + ((replica,) if replicas > 1 else ()))
                 seed_dropout(model, dropout_seed, state.step, *key)
-                last = mesh is None or i == grad_accum - 1
+                last = mesh is None or grid or i == grad_accum - 1
                 with contextlib.nullcontext() if last else net.no_sync():
-                    nll_sum, count = terms_of(net, image[rows], label[rows])
-                    if mesh is not None and sync:
-                        # this rank's share of the global microbatch's CE:
-                        # its NLL sum over the global count
-                        count = pmesh.all_reduce(count)
+                    nll_sum, count = terms_of(net, image[rows], label[rows],
+                                              layout, width)
+                    if norm_group is not None:
+                        # this rank's share of the microbatch's CE: its
+                        # NLL sum over the count of the ranks it spans
+                        count = pmesh.all_reduce(count, group=norm_group)
                     part = nll_sum / count.clamp_min(1) / grad_accum
                     # DDP averages over the ranks; 'sync' wants their sum
-                    (part * world if sync else part).backward()
+                    (part * world if sync and not grid else part).backward()
                 loss += part.detach()
+        if grid:
+            pmesh.all_reduce_grads(model.parameters(), mesh.group)
+            if not sync:
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(replicas)
         state.optimizer.step()
         state.step += 1
         if mesh is None:
             return loss
         if not sync:
             average_running_stats(model)
-        return pmesh.all_reduce(loss, "sum" if sync else "avg")
+        loss = pmesh.all_reduce(loss, "sum" if sync or grid else "avg")
+        return loss if sync or not grid else loss / replicas
 
     return train_step
+
+
+def grid_image_width(mesh, image: torch.Tensor, label: torch.Tensor,
+                     label_hw=None) -> int:
+    """The global width of the image whose block this rank holds on the
+    ``SpatialMesh`` ``mesh``, from every rank's block sizes gathered on
+    the host (no device wait). Raises, on every rank alike, unless every
+    rank holds as many rows and the columns of the even split of the
+    image's and ``label_hw``'s widths that ``image_sharding`` and
+    ``label_sharding`` cut (``label_hw`` None: the labels are at the
+    image's size, as raw frames are before the device augmentation)."""
+    sizes = pmesh.all_gather(torch.tensor(
+        [image.shape[0], image.shape[1], image.shape[2], label.shape[0],
+         label.shape[1], label.shape[2]]), pmesh.host_group()).tolist()
+    width = sum(s[2] for s in sizes[:mesh.spatial])
+    label_h, label_w = label_hw or (sizes[0][1], width)
+    for r, (n, h, w, ln, lh, lw) in enumerate(sizes):
+        q = r % mesh.spatial
+        lo, hi = column_range(width, mesh.spatial, q)
+        llo, lhi = column_range(label_w, mesh.spatial, q)
+        if (n, h) != tuple(sizes[0][:2]) or (ln, lh) != (n, label_h) \
+                or (w, lw) != (hi - lo, lhi - llo):
+            raise ValueError(
+                f"rank {r}'s block ({n}, {h}, {w}) image, ({ln}, {lh}, "
+                f"{lw}) label is not spatial shard {q} of {mesh.spatial} "
+                f"of a {width}-wide image and a {(label_h, label_w)} "
+                f"label with every rank's rows (blocks: {sizes})")
+    return width
+
+
+def whole_rows(layout, width: int, image: torch.Tensor,
+               label: torch.Tensor):
+    """The whole rows of this rank's (N, H, w, C) ``image`` and (N, H, w)
+    ``label`` blocks of a ``width``-wide batch, from the ranks of its
+    spatial group (every rank calls this together)."""
+    every = [(0, width)] * layout.size
+    image = gather_columns(image.permute(0, 3, 1, 2), layout, width, every)
+    label = gather_columns(label[:, None], layout, width, every)
+    return image.permute(0, 2, 3, 1), label[:, 0]
 
 
 def augment_generator(device, dropout_seed: int, step: int,
