@@ -112,9 +112,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      step on the joined batch, the ranks' state bit-equal; each rank's
      peak memory, step time and exchange traffic beside the plain step's;
      the same step in float64, each gradient tensor held to the plain
-     float64 step's; then the 2-D mesh at spatial 1 on one NCCL rank
-     against the plain step, in both; and the cost of the synchronised
-     BatchNorm's normalisation. It launches no kernel;
+     float64 step's; then the seg eval step on the same grid (the kernel
+     on the gathered whole rows, each rank keeping its columns): pred
+     outside near-ties and the hist at the decided pixels equal to the
+     plain eval step's on the joined batch, the loss within 1e-5, and
+     each rank's launches (path ``spatial``); then the 2-D mesh at
+     spatial 1 on one NCCL rank against the plain step, in both; and the
+     cost of the synchronised BatchNorm's normalisation;
+ 15c. checkpoint: the full-width train state (parameters and Adam's
+     moments) written by ``save_checkpoint`` and by ``AsyncCheckpointer``
+     (the snapshot's and the background write's times, train steps with
+     the write in flight against steps without one, the file read back
+     bit-equal), then ``save_sharded``/``load_sharded`` with the moments
+     ``Shard(0)`` on one NCCL rank and on two gloo ranks on the card
+     (``python3 chip_smoke.py --checkpoint-worker <rank> <port> <dir>``):
+     seconds and bytes a rank, every leaf back bit-equal in its own
+     placements and resharded to ``Replicate()``. It launches no kernel;
  16. export: ``cli/export_stablehlo`` writes the full-width model as a
      ``torch.export`` ids artifact with a symbolic batch (the kernel runs
      inside it as the op ``tss::upsample_argmax``) and self-checks it; the
@@ -219,6 +232,10 @@ ST_BATCH, ST_STEPS, ST_IMAGES, ST_VAL_IMAGES = 4, 8, 36, 8
 ST_FULL_HW = (320, 700)
 ST_LR = 1e-6
 ST_CHECK_MOMENTUM = 0.5      # the float64 check's step: a visible fold
+# the EMA teacher against float64, in float32 ulps of the largest of its
+# two terms and the result: where the terms cancel (a parameter near 0)
+# the result's ulp is far below either term's rounding, in the JAX
+# package's arithmetic too (tests/test_torch_ema.py)
 EMA_ULPS = 2.0
 # the GAN: -batch_size 4, 8 steps an epoch (36 source and target images),
 # the CLI's default lr; the translator: batch 8 to 320x700 (5 batches and
@@ -308,6 +325,12 @@ TRANSLATE_SERVE_SLACK = 1e-3
 SPATIAL_WORLD, SPATIAL_SEED, SPATIAL_TIMED_STEPS = 2, 31, 3
 SPATIAL_GRAD_ATOL = 5e-4
 SPATIAL_TIMEOUT = 600
+# the checkpoint phase: the full-width model's train state after one
+# batch-8 step (seed-32 images); steps timed (median, after two warm-ups)
+# without a write, and at most CKPT_MAX_STEPS while one is in flight; the
+# sharded checkpoint over two gloo ranks on the card
+CKPT_SEED, CKPT_STEPS, CKPT_MAX_STEPS = 32, 3, 20
+CKPT_WORLD, CKPT_TIMEOUT = 2, 600
 
 
 def fail(msg: str) -> None:
@@ -1858,7 +1881,8 @@ def run_step(step, state, b, **kw):
 def self_train_float64_check(state, b) -> None:
     """One more self-training step of the full-width model (its fold at
     momentum ``ST_CHECK_MOMENTUM``): the EMA teacher's parameters against
-    ``0.999 old + 0.001 new`` in float64 within ``EMA_ULPS`` float32 ulps,
+    ``0.999 old + 0.001 new`` in float64 within ``EMA_ULPS`` float32 ulps of
+    the largest of the two terms and the result,
     its buffers equal to the student's; the prototypes against float64
     masked means and a sequential moving-average fold from the teacher's
     own features and the kernel's classes (rel err ``PROTO_RTOL``), the
@@ -1893,10 +1917,10 @@ def self_train_float64_check(state, b) -> None:
 
     new_student = dict(state.model.named_parameters())
     new_teacher = dict(state.teacher.named_parameters())
-    # the error in float32 ulps of the result, the bound; beside it, for
-    # the record (ROADMAP section 3: one run read 8.1 ulps), the error in
-    # ulps of the largest of the two terms and the result, and the worst
-    # element's terms, which show whether they cancel
+    # the error in float32 ulps of the largest of the two terms and the
+    # result, the bound; beside it, for the record, the error in ulps of
+    # the result (past the bound where the terms cancel: one run read 8.1)
+    # and that reading's worst element's terms
     ema_ulps = term_ulps = 0.0
     worst = None
     for k in names:
@@ -1944,8 +1968,8 @@ def self_train_float64_check(state, b) -> None:
     counts_equal = np.array_equal(state.proto_counts.cpu().numpy(), counts)
     print(f"self_train float64 check: teacher logits "
           f"{tuple(logits.shape)} -> ({fh}, {fw}); EMA teacher vs float64 "
-          f"{ema_ulps:.3f} float32 ulps over {names} ({term_ulps:.3f} ulps "
-          f"of the largest term; worst element {worst[0]}[{worst[1]}]: kept "
+          f"{term_ulps:.3f} float32 ulps of the largest term over {names} "
+          f"({ema_ulps:.3f} ulps of the result; its worst element {worst[0]}[{worst[1]}]: kept "
           f"{worst[2]!r}, added {worst[3]!r}, want {worst[4]!r}, got "
           f"{worst[5]!r}), buffers "
           f"{'equal' if buffers_equal else 'DIFFER'}; kernel classes vs "
@@ -1957,8 +1981,9 @@ def self_train_float64_check(state, b) -> None:
     if tuple(logits.shape) != TEACHER_SHAPE or (fh, fw) != TEACHER_OUT:
         fail(f"the teacher's logits {tuple(logits.shape)} -> ({fh}, {fw}) "
              f"are not the kernels phase's {TEACHER_SHAPE} -> {TEACHER_OUT}")
-    if ema_ulps > EMA_ULPS or not buffers_equal:
-        fail(f"EMA teacher: {ema_ulps} ulps, buffers equal {buffers_equal}")
+    if term_ulps > EMA_ULPS or not buffers_equal:
+        fail(f"EMA teacher: {term_ulps} ulps of the largest term, buffers "
+             f"equal {buffers_equal}")
     if wrong:
         fail(f"the teacher's kernel classes disagree at {wrong} pixels")
     if not (rel_err <= PROTO_RTOL and counts_equal and counts.sum() > 0):
@@ -4994,11 +5019,38 @@ def spatial_step(mesh, image, label, steps: int, dtype=None):
     return loss, grads, sd, ms, peak, traffic
 
 
+def spatial_eval(mesh, image, label) -> dict:
+    """The seg eval step of the full-width model (seed 0) on ``mesh``
+    (None: the plain step) on ``image`` and ``label``: its hist, loss and
+    pred on the host, the kernel's launches in that call, and the ms of a
+    step over ``SPATIAL_TIMED_STEPS`` more."""
+    import torch
+
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        build_seg_eval_step)
+
+    model = create_deeplab(0)
+    step = build_seg_eval_step(num_classes=NUM_CLASSES, ignore_index=IGNORE,
+                               mesh=mesh)
+    upsample_argmax.launches = 0      # counts from the main path only
+    hist, loss, pred = step(model, image, label)
+    torch.cuda.synchronize()
+    launches = upsample_argmax.launches
+    ms = step_ms(lambda: step(model, image, label), SPATIAL_TIMED_STEPS)
+    return {"hist": hist.cpu(), "loss": float(loss), "pred": pred.cpu(),
+            "launches": launches, "ms": ms}
+
+
 def spatial_worker(rank: int, port: int, root: str) -> int:
     """One of the spatial phase's two gloo ranks on ``cuda:0``: its step
-    on its block of the joined batch in float32, then in float64; the
-    loss, times, peak, traffic and digests to ``<root>/spatial<rank>.pt``,
-    rank 0's gradients of both too."""
+    on its block of the joined batch in float32, then in float64, then
+    the eval step on its block; the loss, times, peak, traffic and digests
+    to ``<root>/spatial<rank>.pt``, rank 0's gradients of both steps too,
+    and the eval step's results and launches."""
     import gc
     import hashlib
 
@@ -5035,6 +5087,10 @@ def spatial_worker(rank: int, port: int, root: str) -> int:
         v.cpu().numpy().tobytes()).hexdigest() for k, v in grads64.items()})
     if rank == 0:
         out["grads64"] = {n: g.cpu() for n, g in grads64.items()}
+    del grads64
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["eval"] = spatial_eval(mesh, image, label)
     torch.save(out, f"{root}/spatial{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -5155,7 +5211,9 @@ def phase_spatial(card: str) -> None:
     on one NCCL rank against the plain step; the same two steps in
     float64, each gradient tensor held to the plain float64 step's; the
     cost of the synchronised BatchNorm's normalisation
-    (``sync_bn_normalise_cost``). Launches no kernel."""
+    (``sync_bn_normalise_cost``). The ranks' eval step on the grid is
+    held to the plain eval step (``spatial_eval_check``); returns the
+    kernels' launch counts of the ranks' eval steps."""
     import gc
     import os
 
@@ -5252,6 +5310,10 @@ def phase_spatial(card: str) -> None:
     if past:
         failures.append("the spatial mesh's float64 gradients are not the "
                         "plain float64 step's")
+    launches, problem = spatial_eval_check(card, [r["eval"] for r in ranks],
+                                           image, label)
+    if problem:
+        failures.append(problem)
     del r0, ranks
 
     init_distributed(f"localhost:{free_port()}", 1, 0)
@@ -5284,6 +5346,382 @@ def phase_spatial(card: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     sync_bn_normalise_cost(card)
+    return launches
+
+
+def spatial_eval_check(card: str, ranks: list, image, label) -> tuple:
+    """The grid eval step's results (one dict a rank, from
+    ``spatial_eval``) against the plain eval step on the joined batch:
+    the ranks' hist and loss the same, the joined pred equal outside logit
+    near-ties (top-2 gap ``TIE_GAP`` of the plain forward's upsampled
+    logits), the hist equal at the decided pixels, the loss within
+    ``LOSS_RTOL``. Returns ({kernel: launches of the ranks}, the failure
+    or "")."""
+    import torch
+
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.ops.confmat import (
+        confusion_matrix)
+    from thermal_semantic_segmentation_torch.ops.resize import (
+        upsample_logits)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        forward_nhwc, frozen_inference)
+
+    plain = spatial_eval(None, image, label)
+    model = create_deeplab(0)
+    with frozen_inference(model):
+        logits = forward_nhwc(model, image)["out"]
+        top2 = upsample_logits(logits, *label.shape[1:]).topk(
+            2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1]) > TIE_GAP).cpu()
+    del model, logits, top2
+    pred = torch.cat([r["pred"] for r in ranks], dim=2)
+    wrong = int(((pred != plain["pred"]) & decided).sum())
+    # the hist of the decided pixels: minus that of the others
+    others = label.cpu().masked_fill(decided, -1)
+    hist_decided = [h - confusion_matrix(p, others, NUM_CLASSES) for h, p in
+                    ((ranks[0]["hist"], pred),
+                     (plain["hist"], plain["pred"]))]
+    hist_equal = torch.equal(*hist_decided)
+    ranks_agree = all(torch.equal(r["hist"], ranks[0]["hist"])
+                      and r["loss"] == ranks[0]["loss"] for r in ranks)
+    loss_err = abs(ranks[0]["loss"] - plain["loss"]) / abs(plain["loss"])
+    launches = [r["launches"] for r in ranks]
+    print(f"spatial eval: data 1 x spatial {len(ranks)} over gloo, batch "
+          f"{image.shape[0]} at {tuple(label.shape[1:])}: pred vs the plain "
+          f"eval step outside {int((~decided).sum())} near-ties: {wrong} "
+          f"pixels; hist at the decided pixels "
+          f"{'equal' if hist_equal else 'DIFFERS'}; loss {ranks[0]['loss']} "
+          f"vs {plain['loss']} (rel err {loss_err:.3g}); ranks "
+          f"{'agree' if ranks_agree else 'DISAGREE'}; launches {launches}; "
+          f"{[round(r['ms'], 2) for r in ranks]} ms a step on the ranks, "
+          f"the plain step {plain['ms']:.2f} ms, on {card}", flush=True)
+    note("spatial", eval_loss_rel_err=loss_err, eval_wrong_pixels=wrong,
+         eval_plain_ms=plain["ms"],
+         **{f"eval_rank{r}_ms": x["ms"] for r, x in enumerate(ranks)})
+    ok = (not wrong and hist_equal and ranks_agree and loss_err <= LOSS_RTOL
+          and all(n >= 1 for n in launches))
+    return ({"upsample_argmax": sum(launches)},
+            "" if ok else "the spatial mesh's eval step is not the plain "
+            "eval step on the joined batch")
+
+
+def train_payload(state) -> dict:
+    """The seg train state as a checkpoint payload: the step, every
+    parameter and Adam's two moments and step count, by parameter name."""
+    import torch
+    names = {p: n for n, p in state.model.named_parameters()}
+    payload = {"step": torch.tensor(state.step),
+               "params": {n: p.detach() for n, p in
+                          state.model.named_parameters()},
+               "exp_avg": {}, "exp_avg_sq": {}, "adam_step": {}}
+    for p, st in state.optimizer.state.items():
+        for k, key in (("exp_avg", "exp_avg"), ("exp_avg_sq", "exp_avg_sq"),
+                       ("adam_step", "step")):
+            v = st[key]
+            payload[k][names[p]] = v if isinstance(v, torch.Tensor) else \
+                torch.tensor(v)
+    return payload
+
+
+def flat_leaves(tree, prefix=""):
+    """{"group/name": leaf} of every leaf of a nested dict (a tensor, or
+    an array as ``load_checkpoint`` gives it back)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def sharded_state(flat: dict, mesh, world: int, rank: int) -> dict:
+    """The train state ``flat`` ({path: tensor on the card}) as DTensors on
+    ``mesh``: the parameters replicated, the Adam moments ``Shard(0)``
+    (``torch.chunk``'s rows, uneven where the rows do not divide), the
+    step counts plain tensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tree = {}
+    for path, t in flat.items():
+        t = t.contiguous()
+        group, name = (path.split("/", 1) if "/" in path else (path, None))
+        if name is None:
+            tree[group] = t
+            continue
+        if group in ("exp_avg", "exp_avg_sq"):
+            local = t.chunk(world, 0)[rank].clone() if t.shape[0] >= world \
+                else None
+            leaf = DTensor.from_local(
+                local, mesh, [Shard(0)], run_check=False, shape=t.shape,
+                stride=t.stride()) if local is not None else \
+                DTensor.from_local(t, mesh, [Replicate()], run_check=False)
+        elif group == "params":
+            leaf = DTensor.from_local(t, mesh, [Replicate()],
+                                      run_check=False)
+        else:
+            leaf = t
+        tree.setdefault(group, {})[name] = leaf
+    return tree
+
+
+def sharded_roundtrip(flat: dict, mesh, world: int, rank: int,
+                      path: str) -> dict:
+    """``save_sharded`` of ``flat`` as ``sharded_state`` lays it out on
+    ``mesh``, then ``load_sharded`` into its own placements and into
+    ``Replicate()``: the write and load seconds, this rank's file bytes,
+    and whether every leaf came back bit-equal (its own shard; the whole
+    tensor replicated)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from thermal_semantic_segmentation_torch.core.checkpoint import (
+        abstract_like, load_sharded, save_sharded)
+
+    tree = sharded_state(flat, mesh, world, rank)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    save_sharded(path, tree)
+    dist.barrier()
+    write_s = time.perf_counter() - t0
+    out = {"write_s": write_s, "bytes": os.path.getsize(
+        os.path.join(path, f"__{rank}_0.distcp")),
+        "files": sorted(os.listdir(path))}
+    for name, target in (("own", abstract_like(tree)),
+                         ("replicated", abstract_like(
+                             tree, sharding=(mesh, [Replicate()])))):
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = load_sharded(path, target)
+        torch.cuda.synchronize()
+        dist.barrier()
+        out[f"load_{name}_s"] = time.perf_counter() - t0
+        differ = []
+        mine = flat_leaves(tree)
+        for p, t in flat_leaves(got).items():
+            want = mine[p]
+            if name == "replicated":
+                ok = (t.placements == (Replicate(),) and torch.equal(
+                    t.to_local().cpu(), flat[p].cpu()))
+            elif isinstance(t, DTensor):
+                ok = (t.placements == want.placements and torch.equal(
+                    t.to_local(), want.to_local()))
+            else:
+                ok = torch.equal(t.cpu(), want.cpu())
+            if not ok:
+                differ.append(p)
+        out[f"{name}_differ"] = differ
+    return out
+
+
+def checkpoint_worker(rank: int, port: int, root: str) -> int:
+    """One of the checkpoint phase's two gloo ranks on ``cuda:0``: the train
+    state from ``<root>/sync.ckpt`` through ``sharded_roundtrip`` over a
+    ``DeviceMesh`` of both, its results to ``<root>/ckpt<rank>.json``."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from thermal_semantic_segmentation_torch.core.checkpoint import (
+        load_checkpoint)
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        init_distributed)
+
+    init_distributed(f"localhost:{port}", CKPT_WORLD, rank, backend="gloo",
+                     device="cuda:0")
+    mesh = DeviceMesh("cuda", list(range(CKPT_WORLD)))
+    flat = {p: torch.as_tensor(v).cuda() for p, v in flat_leaves(
+        load_checkpoint(f"{root}/sync.ckpt")).items()}
+    out = sharded_roundtrip(flat, mesh, CKPT_WORLD, rank, f"{root}/gloo")
+    with open(f"{root}/ckpt{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_checkpoint(card: str) -> None:
+    """Checkpoints of the full-width model's train state (parameters and
+    Adam's moments after one batch-8 step) on the card: the synchronous
+    ``save_checkpoint``; two ``AsyncCheckpointer.save`` calls (the first
+    allocates the page-locked buffers the second reuses; each one's
+    return and background write), with train steps run while the second
+    write is in flight against steps without one; the file read back
+    bit-equal to the state at the second save. Then ``save_sharded`` and
+    ``load_sharded`` of the same state, the moments ``Shard(0)``, on one
+    NCCL rank and on two gloo ranks on the card (``python3 chip_smoke.py
+    --checkpoint-worker <rank> <port> <dir>``): write and load seconds,
+    each rank's bytes, every leaf back bit-equal in its own placements
+    and resharded to ``Replicate()``. Launches no kernel."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from thermal_semantic_segmentation_torch.core import checkpoint as ck
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+    from thermal_semantic_segmentation_torch.parallel.mesh import (
+        init_distributed)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        create_seg_state, make_seg_train_step)
+
+    data = SeededImages(TRAIN_BATCH, SERVE_OUT, seed=CKPT_SEED)
+    image = torch.from_numpy(data.images).cuda()
+    label = torch.from_numpy(data.labels).cuda()
+    state = create_seg_state(create_deeplab(0), learning_rate=TRAIN_LR)
+    step = make_seg_train_step(ignore_index=IGNORE, label_hw=SERVE_OUT,
+                               base_lr=TRAIN_LR)
+
+    def train():
+        step(state, image, label)
+
+    train()
+    torch.cuda.synchronize()
+    failures = []
+    with tempfile_dir() as root:
+        payload = train_payload(state)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in flat_leaves(payload).values())
+        t0 = time.perf_counter()
+        ck.save_checkpoint(f"{root}/sync.ckpt", payload)
+        sync_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(f"{root}/sync.ckpt")
+        plain_ms = step_ms(train, CKPT_STEPS)
+
+        # the background write's start and end, by wrapping the function
+        # its thread calls
+        writes = []
+        real = ck.save_checkpoint
+
+        def timed(path, tree):
+            start = time.perf_counter()
+            real(path, tree)
+            writes.append((start, time.perf_counter()))
+
+        ck.save_checkpoint = timed
+        try:
+            # the first save allocates the page-locked buffers that the
+            # second reuses; train steps run while the second writes
+            saver = ck.AsyncCheckpointer()
+            returned, in_flight = [], []
+            for i in range(2):
+                payload = train_payload(state)
+                if i:
+                    at_save = {p: t.cpu().numpy().copy()
+                               for p, t in flat_leaves(payload).items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                saver.save(f"{root}/async.ckpt", payload)
+                returned.append(time.perf_counter() - t0)
+                while i and len(writes) < 2 and \
+                        len(in_flight) < CKPT_MAX_STEPS:
+                    s0 = time.perf_counter()
+                    train()
+                    torch.cuda.synchronize()
+                    in_flight.append((time.perf_counter() - s0) * 1e3)
+                saver.wait()
+        finally:
+            ck.save_checkpoint = real
+        snapshot_s = returned[1]
+        write_s = writes[1][1] - writes[1][0]
+        after_ms = step_ms(train, CKPT_STEPS)
+        loaded = flat_leaves(ck.load_checkpoint(f"{root}/async.ckpt"))
+        differ = [p for p, a in at_save.items()
+                  if p not in loaded or not np.array_equal(loaded[p], a)]
+        differ += sorted(set(loaded) - set(at_save))
+        print(f"checkpoint: train state of {len(at_save)} tensors, "
+              f"{nbytes / 2**20:.1f} MiB ({file_bytes / 2**20:.1f} MiB "
+              f"file): save_checkpoint {sync_s:.3f} s; AsyncCheckpointer."
+              f"save returned in {returned[0] * 1e3:.1f} ms the first time "
+              f"(page-locked buffers allocated), its write "
+              f"{writes[0][1] - writes[0][0]:.3f} s; the second time in "
+              f"{snapshot_s * 1e3:.1f} ms (the snapshot's copies queued), "
+              f"its background write took {write_s:.3f} s; a "
+              f"train step {plain_ms:.2f} ms without a write ({after_ms:.2f} "
+              f"after), with the write in flight "
+              f"{[round(x, 2) for x in in_flight]} ms; read back: "
+              f"{len(differ)} tensors differ from the state at the save "
+              f"(bit for bit), on {card}", flush=True)
+        in_flight_ms = statistics.median(in_flight) if in_flight else 0.0
+        note("checkpoint", state_mib=nbytes / 2**20, sync_save_s=sync_s,
+             async_first_return_ms=returned[0] * 1e3,
+             async_first_write_s=writes[0][1] - writes[0][0],
+             async_snapshot_ms=snapshot_s * 1e3, async_write_s=write_s,
+             step_ms=plain_ms, step_in_flight_ms=in_flight_ms,
+             steps_in_flight=len(in_flight))
+        if differ or len(writes) != 2 or not in_flight:
+            failures.append(f"the async checkpoint is not the state at the "
+                            f"save: {differ[:4]}, {len(in_flight)} steps in "
+                            f"flight")
+        del loaded, at_save, payload
+
+        flat = flat_leaves(train_payload(state))
+        init_distributed(f"localhost:{free_port()}", 1, 0)
+        if dist.get_backend() != "nccl":
+            fail(f"the one-rank group is {dist.get_backend()}, not NCCL")
+        nccl = sharded_roundtrip(flat, DeviceMesh("cuda", [0]), 1, 0,
+                                 f"{root}/nccl")
+        dist.destroy_process_group()
+        del flat, state
+        torch.cuda.empty_cache()
+
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--checkpoint-worker", str(r), str(port), root],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(CKPT_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=CKPT_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"checkpoint rank {r} failed:\n{log[-4000:]}")
+        ranks = []
+        for r in range(CKPT_WORLD):
+            with open(f"{root}/ckpt{r}.json") as f:
+                ranks.append(json.load(f))
+    for name, res in (("nccl rank 0", nccl), *(
+            (f"gloo rank {r}", res) for r, res in enumerate(ranks))):
+        print(f"checkpoint sharded, {name}: save_sharded {res['write_s']:.3f}"
+              f" s, its file {res['bytes'] / 2**20:.1f} MiB; load_sharded "
+              f"{res['load_own_s']:.3f} s into its own placements, "
+              f"{res['load_replicated_s']:.3f} s resharded to Replicate(); "
+              f"{len(res['own_differ'])} and {len(res['replicated_differ'])} "
+              f"tensors differ; files {res['files']} on {card}", flush=True)
+        if res["own_differ"] or res["replicated_differ"]:
+            failures.append(f"the sharded checkpoint on {name} came back "
+                            f"different: {res['own_differ'][:3]} "
+                            f"{res['replicated_differ'][:3]}")
+    if ranks[0]["bytes"] + ranks[1]["bytes"] > 1.05 * nbytes or \
+            max(r["bytes"] for r in ranks) > 0.8 * nbytes:
+        failures.append(f"the gloo ranks' files {[r['bytes'] for r in ranks]}"
+                        f" do not split a {nbytes}-byte state")
+    note("checkpoint", nccl_write_s=nccl["write_s"],
+         nccl_load_s=nccl["load_own_s"],
+         **{f"gloo{r}_{k}": res[k] for r, res in enumerate(ranks)
+            for k in ("write_s", "load_own_s", "load_replicated_s")},
+         **{f"gloo{r}_mib": res["bytes"] / 2**20
+            for r, res in enumerate(ranks)})
+    if failures:
+        fail("; ".join(failures))
 
 
 # every phase in the order a full run takes them, and the phases each one
@@ -5291,7 +5729,8 @@ def phase_spatial(card: str) -> None:
 # the two gloo ranks' run that the multi-process phases check
 PHASES = ("serve", "eval", "train", "pseudo", "prototypes", "self_train",
           "self_train_dist", "gan", "gan_dist", "gan_legacy", "translate",
-          "distance", "data_parallel", "dist", "spatial", "export",
+          "distance", "data_parallel", "dist", "spatial", "checkpoint",
+          "export",
           "serve_translator",
           "serve_artifact", "profile", "device_aug", "host_data", "doctor")
 NEEDS = {"gan_dist": ("gan",), "translate": ("gan",),
@@ -5368,6 +5807,7 @@ def main(argv) -> int:
             "data_parallel": lambda: phase_data_parallel(card, root),
             "dist": lambda: phase_dist(card, gloo),
             "spatial": lambda: phase_spatial(card),
+            "checkpoint": lambda: phase_checkpoint(card),
             "export": lambda: phase_export(card, root),
             "serve_translator": lambda: phase_serve_translator(card, root),
             "serve_artifact": lambda: phase_serve_artifact(card, root),
@@ -5419,4 +5859,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--spatial-worker"]:
         sys.exit(spatial_worker(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4]))
+    if sys.argv[1:2] == ["--checkpoint-worker"]:
+        sys.exit(checkpoint_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                   sys.argv[4]))
     sys.exit(main(sys.argv[1:]))

@@ -1,6 +1,7 @@
-"""The port's flax-format checkpoints (core/checkpoint.py) and its loading
-of the JAX package's msgpack seg checkpoints (cli/_common.py) against flax
-and the JAX package.
+"""The port's flax-format checkpoints (core/checkpoint.py: written at once
+or in the background by ``AsyncCheckpointer``) and its loading of the JAX
+package's msgpack seg checkpoints (cli/_common.py) against flax and the
+JAX package.
 
 The port writes the bytes ``flax.serialization.msgpack_serialize`` writes
 for the tree the JAX ``save_checkpoint`` makes, reads flax's files into the
@@ -82,6 +83,84 @@ def test_port_writes_the_bytes_flax_writes(tmp_path):
     restored = serialization.msgpack_restore((tmp_path / "sub" / "p"
                                               ).read_bytes())
     _assert_trees_equal(restored, jax.tree.map(np.asarray, payload))
+
+
+@pytest.mark.parametrize("kind", ["arrays", "tensors"])
+def test_async_checkpointer_keeps_the_last_save(tmp_path, kind):
+    """JAX tests/test_checkpoint.py's case: three saves in a row, then
+    ``wait``; the file holds the last, byte for byte what JAX's
+    ``AsyncCheckpointer`` writes for the same saves (numpy leaves, or
+    tensors on the port's side)."""
+    ours, theirs = checkpoint.AsyncCheckpointer(), \
+        jax_checkpoint.AsyncCheckpointer()
+    for i in range(3):
+        v = np.full(8, float(i))
+        ours.save(str(tmp_path / "a"), {"step": i, "v": torch.from_numpy(v)
+                                        if kind == "tensors" else v})
+        theirs.save(str(tmp_path / "j"), {"step": i, "v": v})
+    ours.wait()
+    theirs.wait()
+    back = checkpoint.load_checkpoint(str(tmp_path / "a"))
+    assert back["step"] == 2
+    np.testing.assert_array_equal(back["v"], np.full(8, 2.0))
+    assert (tmp_path / "a").read_bytes() == (tmp_path / "j").read_bytes()
+
+
+def test_async_file_is_the_jax_save_checkpoint_file(tmp_path):
+    """Every kind of leaf of the flax-format tests: the background write is
+    the file JAX's synchronous ``save_checkpoint`` writes."""
+    payload = _payload(np.random.default_rng(3))
+    ck = checkpoint.AsyncCheckpointer()
+    ck.save(str(tmp_path / "a"), payload)
+    jax_checkpoint.save_checkpoint(str(tmp_path / "j"), payload)
+    ck.wait()
+    assert (tmp_path / "a").read_bytes() == (tmp_path / "j").read_bytes()
+
+
+def test_async_save_snapshots_before_it_returns(tmp_path, monkeypatch):
+    """A CPU tensor and a numpy array changed in place as soon as ``save``
+    returns (the writer held back until then) read back as they were at
+    the save: ``save`` copies them, where ``detach().cpu()`` and
+    ``np.asarray`` would not."""
+    import threading
+    go = threading.Event()
+    real = checkpoint.save_checkpoint
+
+    def held(path, payload):
+        assert go.wait(30)
+        real(path, payload)
+
+    monkeypatch.setattr(checkpoint, "save_checkpoint", held)
+    t = torch.arange(6, dtype=torch.float32)
+    a = np.arange(4, dtype=np.int64)
+    ck = checkpoint.AsyncCheckpointer()
+    ck.save(str(tmp_path / "a"), {"t": t, "nested": {"a": a}})
+    t.add_(100.0)
+    a *= -1
+    go.set()
+    ck.wait()
+    back = checkpoint.load_checkpoint(str(tmp_path / "a"))
+    np.testing.assert_array_equal(back["t"], np.arange(6, dtype=np.float32))
+    np.testing.assert_array_equal(back["nested"]["a"], np.arange(4))
+
+
+@pytest.mark.parametrize("then", ["wait", "save"])
+def test_async_write_error_is_raised(tmp_path, then):
+    """A write that fails in the background (its directory cannot be made:
+    a file is in the way) raises from ``wait``, or from the next ``save``,
+    once; JAX's daemon thread loses it."""
+    (tmp_path / "file").write_bytes(b"")
+    ck = checkpoint.AsyncCheckpointer()
+    ck.save(str(tmp_path / "file" / "ck"), {"v": np.ones(2)})
+    with pytest.raises(OSError):
+        if then == "wait":
+            ck.wait()
+        else:
+            ck.save(str(tmp_path / "ok"), {"v": np.ones(2)})
+    ck.save(str(tmp_path / "ok"), {"v": np.zeros(2)})
+    ck.wait()
+    np.testing.assert_array_equal(
+        checkpoint.load_checkpoint(str(tmp_path / "ok"))["v"], np.zeros(2))
 
 
 def test_port_reads_jax_checkpoints(tmp_path):

@@ -41,6 +41,8 @@ from thermal_semantic_segmentation_torch.train.self_train import (  # noqa: E402
     create_self_train_state, make_self_train_step)
 from thermal_semantic_segmentation_torch.train.gan import (  # noqa: E402
     create_gan_state)
+from thermal_semantic_segmentation_torch.utils.observability import (  # noqa: E402,E501
+    profiler_trace)
 
 BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack",
           "thermal_semantic_segmentation_tpu")
@@ -150,7 +152,8 @@ def test_native_io_and_doctor_load_nothing_of_the_jax_package(tmp_path):
     "make_self_train_step", "create_self_train_state", "self_train_main",
     "init_gan_net", "create_gan_state", "build_generator_from_gan_checkpoint",
     "main", "main_gan", "translator", "evaluate_distance",
-    "distance_evaluate", "deeplabv2_resnet101", "init_distributed"])
+    "distance_evaluate", "deeplabv2_resnet101", "init_distributed",
+    "profiler_trace"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -161,6 +164,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
                                            layers=(1, 1, 1, 1)))
         elif entry == "build_seg_eval_step":
             build_seg_eval_step(num_classes=13, ignore_index=12)
+        elif entry == "profiler_trace":
+            with profiler_trace("unused"):
+                pass
         elif entry == "seg_validate":
             seg_validate(create_deeplab(0, device="cpu", layers=(1, 1, 1, 1)),
                          [])

@@ -21,6 +21,11 @@ counts far fewer valid pixels than the others. The step with device
 augmentation takes raw 80x176 frames (the last 44 label columns half
 ignored) and crops them to 64x128 on the grid.
 
+The eval step runs on the grid at both layouts, on a batch whose labels
+are 48x100 (the logits upsample to the label's own size, its width split
+50/50 and 25 x 4), against JAX's eval step on the joined batch and on
+inputs ``device_put`` under its width shardings.
+
 The 2 x 2 'sync' step also runs with dropout on, against the port's
 one-process step whose masks are those that each data index's key
 (dropout seed, step, data index) draws for its rows, on every spatial
@@ -35,7 +40,9 @@ the loss rtol 1e-5 and the gradients 5e-4 in units of the largest (with
 device augmentation, on the batch that each data index's draws crop
 from its rows, as JAX's crops cannot be drawn by torch); every rank's
 state bit-equal (sha256); in float64, the loss and each gradient tensor
-within 1e-10 of its own largest value. The exchange alone: its output exact
+within 1e-10 of its own largest value; the eval step's pred and hist
+exact outside logit near-ties (top-2 gap ``TIE_GAP``, the eval tests'
+rule) and its loss rtol 1e-5. The exchange alone: its output exact
 (it moves values), its gradient within 1e-5; the layers alone: outputs
 and gradients within 1e-5 of the largest value of each (float32 sums in
 another order).
@@ -71,6 +78,9 @@ RAW_HW, AUG_SEED = (80, 176), 3
 EXTRA_STEPS = [("2x2-dropout", "float32", True),
                ("2x2-f64", "float64", False)]
 DROPOUT_SEED = 9
+# the eval step's labels: their own size, which the logits upsample to
+EVAL_LABEL_HW = (48, 100)
+TIE_GAP = 1e-5
 RUN_TIMEOUT, TEST_TIMEOUT = 420, 300
 LOSS_RTOL, JAX_LOSS_RTOL, GRAD_ATOL, STATS_ATOL = 1e-5, 2e-4, 5e-4, 5e-4
 LAYER_ATOL = 1e-5
@@ -189,6 +199,17 @@ def raw_batch():
     return image, label
 
 
+def eval_batch():
+    """The eval step's global batch: images at HW, labels at
+    EVAL_LABEL_HW with some ignored (255, and 12 that the loss ignores but
+    the confusion matrix counts)."""
+    rng = np.random.default_rng(76)
+    image = rng.uniform(0, 1, (BATCH, *HW, 1)).astype(np.float32)
+    label = rng.integers(0, 13, (BATCH, *EVAL_LABEL_HW))
+    label[rng.random(label.shape) < 0.05] = 255
+    return image, label
+
+
 def worker(rank: int, world: int, port: str, out: str) -> None:
     import torch
     import torch.distributed as dist
@@ -199,7 +220,7 @@ def worker(rank: int, world: int, port: str, out: str) -> None:
     from thermal_semantic_segmentation_torch.parallel.spatial import (
         column_range, gather_columns)
     from thermal_semantic_segmentation_torch.train.seg import (
-        create_seg_state, make_seg_train_step)
+        build_seg_eval_step, create_seg_state, make_seg_train_step)
 
     torch.set_num_threads(1)
     pmesh.init_distributed(f"localhost:{port}", world, rank, device="cpu")
@@ -316,6 +337,22 @@ def worker(rank: int, world: int, port: str, out: str) -> None:
                     pmesh.label_sharding(mesh, torch.from_numpy(label)))
         record(name, model, loss)
 
+    # -- the eval step on the grid -------------------------------------------
+    eval_image, eval_label = eval_batch()
+    for s, mesh in meshes.items():
+        model = DeepLabV2(num_channels=1, num_classes=13, layers=(1, 1, 1, 1))
+        model.load_state_dict(start, strict=True)
+        model = model.to(memory_format=torch.channels_last).train()
+        step = build_seg_eval_step(num_classes=13, ignore_index=IGNORE,
+                                   mesh=mesh, device="cpu")
+        hist, loss, pred = step(
+            model, pmesh.image_sharding(mesh, torch.from_numpy(eval_image)),
+            pmesh.label_sharding(mesh, torch.from_numpy(eval_label)))
+        meta[f"eval/{s}/loss"] = float(loss)
+        meta[f"eval/{s}/training"] = model.training
+        arrays[f"eval/{s}/hist"] = hist.numpy()
+        arrays[f"eval/{s}/pred"] = pred.numpy()
+
     # -- a block that is not its shard ---------------------------------------
     mesh = meshes[2]
     model = DeepLabV2(num_channels=1, num_classes=13, layers=(1, 1, 1, 1))
@@ -401,6 +438,33 @@ def _jax_step(model, variables, *, ga=1, mode="sync", mesh=None):
         state, loss = step(state, image, label)
     state = jax.device_get(state)
     return float(loss), as_state_dict(state.params, state.batch_stats)
+
+
+def _jax_eval(model, variables, mesh=None):
+    """JAX's eval step on ``eval_batch()``: (hist, loss, pred) as numpy.
+    ``mesh``: a ``make_mesh_2d`` whose width shardings the inputs are
+    ``device_put`` under (tests/test_parallel.py's way)."""
+    from jax.sharding import NamedSharding, PartitionSpec
+    step = jax_seg.build_seg_eval_step(model, num_classes=13,
+                                       ignore_index=IGNORE)
+    image, label = (jnp.asarray(a) for a in eval_batch())
+    if mesh is not None:
+        variables = jax.device_put(variables, NamedSharding(
+            mesh, PartitionSpec()))
+        image = jax.device_put(image, jax_image_sharding(mesh, spatial=True))
+        label = jax.device_put(label, jax_label_sharding(mesh, spatial=True))
+    return tuple(np.asarray(a) for a in step(variables, image, label))
+
+
+def _eval_decided(model, variables):
+    """The pixels of ``eval_batch()`` whose JAX upsampled logits' top-2 gap
+    is at least TIE_GAP."""
+    from thermal_semantic_segmentation_tpu.ops.resize import (
+        upsample_logits as jax_upsample_logits)
+    out = model.apply(variables, jnp.asarray(eval_batch()[0]), train=False)
+    up = np.asarray(jax_upsample_logits(out["out"], *EVAL_LABEL_HW))
+    top2 = np.sort(up, axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) >= TIE_GAP
 
 
 def augmented_batch(data):
@@ -505,6 +569,10 @@ def runs(tmp_path_factory):
                for name, s in AUG_STEPS},
             "2x2-dropout": _port_step(twin, 1, dropout_data=WORLD // 2),
             "2x2-f64": _port_step(twin, 1, dtype=torch.float64),
+            "jax_eval": _jax_eval(model, variables),
+            **{f"jax_eval/{s}": _jax_eval(model, variables, jax_make_mesh_2d(
+                jax.devices()[:WORLD], spatial=s)) for s in LAYOUTS},
+            "eval_decided": _eval_decided(model, variables),
             "params": [n for n, _ in twin.named_parameters()]}
         for p in procs:
             logs.append(p.communicate(timeout=RUN_TIMEOUT)[0])
@@ -775,6 +843,58 @@ def test_a_block_that_is_not_its_shard_is_refused_on_every_rank(runs):
     for _, meta in runs[0]:
         assert "rank 3's block" in meta["refused/block"], meta[
             "refused/block"]
+
+
+def _joined_eval(results, s):
+    """The grid eval step at spatial ``s``: (hist and loss of rank 0, the
+    pred blocks joined into the global batch), after checking that every
+    rank returned the same hist and loss and left the model in train
+    mode."""
+    data = WORLD // s
+    blocks = [[results[_rank_of(d, q, s)][0][f"eval/{s}/pred"]
+               for q in range(s)] for d in range(data)]
+    pred = np.concatenate([np.concatenate(row, axis=2) for row in blocks])
+    hist = results[0][0][f"eval/{s}/hist"]
+    for arrays, meta in results:
+        np.testing.assert_array_equal(arrays[f"eval/{s}/hist"], hist)
+        assert meta[f"eval/{s}/loss"] == results[0][1][f"eval/{s}/loss"]
+        assert meta[f"eval/{s}/training"] is True
+    return hist, results[0][1][f"eval/{s}/loss"], pred
+
+
+def _confusion(pred, label):
+    from thermal_semantic_segmentation_torch.ops.confmat import (
+        confusion_matrix)
+    return confusion_matrix(torch.from_numpy(pred),
+                            torch.from_numpy(label), 13).numpy()
+
+
+@pytest.mark.parametrize("oracle", ["joined", "sharded"])
+@pytest.mark.parametrize("s", LAYOUTS)
+def test_grid_eval_step_matches_jax(runs, s, oracle):
+    """The eval step on the grid (each rank its block of the batch, the
+    labels at their own 48x100): its pred blocks joined, every rank's
+    hist and loss, against JAX's eval step on the joined batch and on
+    inputs ``device_put`` under ``image_sharding``/``label_sharding(mesh,
+    spatial=True)`` of a data x spatial ``make_mesh_2d``: pred and hist
+    exact outside near-ties, the loss rtol 1e-5; the hist is the joined
+    pred's confusion matrix."""
+    results, oracles = runs
+    hist, loss, pred = _joined_eval(results, s)
+    want_hist, want_loss, want_pred = oracles[
+        "jax_eval" if oracle == "joined" else f"jax_eval/{s}"]
+    decided = oracles["eval_decided"]
+    label = eval_batch()[1]
+    assert pred.shape == label.shape and pred.dtype == np.int32
+    print(f"{(~decided).sum()} near-ties of {decided.size} pixels")
+    np.testing.assert_array_equal(pred[decided], want_pred[decided])
+    np.testing.assert_array_equal(hist, _confusion(pred, label))
+    masked = np.where(decided, label, -1)
+    np.testing.assert_array_equal(_confusion(pred, masked),
+                                  _confusion(want_pred.astype(np.int32),
+                                             masked))
+    assert int(hist.sum()) == int(want_hist.sum())
+    np.testing.assert_allclose(loss, float(want_loss), rtol=LOSS_RTOL)
 
 
 @pytest.fixture

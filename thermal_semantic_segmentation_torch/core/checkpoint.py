@@ -19,6 +19,11 @@ An array of more than ``MAX_CHUNK_SIZE`` bytes held in a dict is stored as
 This module implements the msgpack subset that flax emits (maps, arrays,
 str, bin, int, float, bool, nil and ext), so a file written here is the file
 flax writes for the same tree, and flax's files read here.
+
+``AsyncCheckpointer`` writes those files from a background thread. The
+sharded checkpoints of a process group (``save_sharded``, ``load_sharded``)
+are ``torch.distributed.checkpoint`` directories, where the JAX package
+writes orbax ones: each rank writes only its own shards.
 """
 
 from __future__ import annotations
@@ -26,8 +31,9 @@ from __future__ import annotations
 import os
 import struct
 import tempfile
+import threading
 from collections.abc import Mapping
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -125,13 +131,22 @@ def _pack_int(out: list, x: int) -> None:
     raise OverflowError(f"integer {x} does not fit in 64 bits")
 
 
-def _pack_ext(out: list, code: int, data: bytes) -> None:
-    if len(data) in _FIXEXT:
-        out.append(bytes((_FIXEXT[len(data)], code)))
+def _pack_ext(out: list, code: int, pieces: list) -> None:
+    """An ext object whose data is the concatenation of ``pieces``
+    (appended as they are, not joined)."""
+    n = sum(len(p) for p in pieces)
+    if n in _FIXEXT:
+        out.append(bytes((_FIXEXT[n], code)))
     else:
-        _pack_len(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+        _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
         out.append(bytes((code,)))
-    out.append(data)
+    out.extend(pieces)
+
+
+def _buffer(a: np.ndarray) -> memoryview:
+    """The row-major bytes of ``a`` (``a.tobytes("C")``) as a view of its
+    memory, copied only where ``a`` is not C-contiguous."""
+    return memoryview(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
 
 
 def _pack(out: list, x) -> None:
@@ -144,8 +159,8 @@ def _pack(out: list, x) -> None:
     elif isinstance(x, _Leaf):
         inner: list = []
         _pack(inner, [list(x.array.shape), x.dtype_name,
-                      x.array.tobytes("C")])
-        _pack_ext(out, _EXT_NDARRAY, b"".join(inner))
+                      _buffer(x.array)])
+        _pack_ext(out, _EXT_NDARRAY, inner)
     elif isinstance(x, int):
         _pack_int(out, x)
     elif isinstance(x, float):
@@ -154,9 +169,9 @@ def _pack(out: list, x) -> None:
         data = x.encode("utf-8")
         _pack_len(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
         out.append(data)
-    elif isinstance(x, (bytes, bytearray)):
+    elif isinstance(x, (bytes, bytearray, memoryview)):
         _pack_len(out, len(x), None, 0, (0xC4, 0xC5, 0xC6))
-        out.append(bytes(x))
+        out.append(x)
     elif isinstance(x, dict):
         _pack_len(out, len(x), 0x80, 16, (None, 0xDE, 0xDF))
         for k, v in x.items():
@@ -170,25 +185,34 @@ def _pack(out: list, x) -> None:
         raise TypeError(f"cannot pack {type(x).__name__}")
 
 
+def _pieces(payload: Dict[str, Any]) -> list:
+    """The msgpack bytes of ``payload``'s checkpoint tree as a list of
+    bytes objects and views of the arrays' memory, in order."""
+    out: list = []
+    _pack(out, _prepare(payload))
+    return out
+
+
 def checkpoint_bytes(payload: Dict[str, Any]) -> bytes:
     """The bytes ``flax.serialization.msgpack_serialize`` gives for the tree
     the JAX package's ``save_checkpoint`` makes of ``payload``."""
-    out: list = []
-    _pack(out, _prepare(payload))
-    return b"".join(out)
+    return b"".join(_pieces(payload))
 
 
 def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
     """Atomically write a dict of trees and scalars to ``path``: into a
     temporary file beside it, then ``os.replace``. Leaves may be numpy
-    arrays, numpy or Python scalars, or tensors (copied to the host)."""
-    data = checkpoint_bytes(payload)
+    arrays, numpy or Python scalars, or tensors (copied to the host). The
+    file is ``checkpoint_bytes(payload)``, written piece by piece from the
+    arrays' own memory (no joined copy; the interpreter's lock is free
+    while the file takes them)."""
+    pieces = _pieces(payload)
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(data)
+            f.writelines(pieces)
         os.replace(tmp, path)
     except BaseException:
         os.unlink(tmp)
@@ -314,3 +338,208 @@ def checkpoint_from_bytes(data) -> Any:
 def load_checkpoint(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         return checkpoint_from_bytes(f.read())
+
+
+class _Snapshot:
+    """Copies of a payload's leaves on the host, made by ``take``: CUDA
+    tensors by ``non_blocking`` copies into page-locked buffers (one a
+    dtype, kept for the next snapshot of the same sizes), each device's
+    copies followed by an event that ``ready`` waits for; CPU tensors,
+    numpy arrays and bytearrays copied at once; other leaves kept (they
+    are immutable). The buffers are reused by the next ``take``, so a
+    snapshot is read (``ready``, then the tree) before the next one is
+    taken."""
+
+    def __init__(self):
+        self.pinned = {}            # dtype -> flat page-locked buffer
+        self.offsets = {}           # dtype -> next free element of it
+        self.devices = set()        # the devices copied from
+        self.events = []
+
+    def take(self, payload):
+        need = {}
+        for t in self._leaves(payload):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                need[t.dtype] = need.get(t.dtype, 0) + t.numel()
+        for dtype, n in need.items():
+            buf = self.pinned.get(dtype)
+            if buf is None or buf.numel() < n:
+                self.pinned[dtype] = torch.empty(n, dtype=dtype,
+                                                 pin_memory=True)
+        self.offsets = dict.fromkeys(need, 0)
+        self.devices = set()
+        tree = self._copy(payload)
+        self.events = []
+        for dev in self.devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            self.events.append(event)
+        return tree
+
+    def ready(self) -> None:
+        """Wait for the device-to-host copies of the last ``take``."""
+        for event in self.events:
+            event.synchronize()
+
+    def _leaves(self, tree):
+        if isinstance(tree, Mapping):
+            for v in tree.values():
+                yield from self._leaves(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                yield from self._leaves(v)
+        else:
+            yield tree
+
+    def _copy(self, tree):
+        if isinstance(tree, Mapping):
+            return {k: self._copy(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [self._copy(v) for v in tree]
+        if isinstance(tree, torch.Tensor):
+            t = tree.detach()
+            if not t.is_cuda:
+                return t.clone()
+            at = self.offsets[t.dtype]
+            self.offsets[t.dtype] = at + t.numel()
+            host = self.pinned[t.dtype][at:at + t.numel()].view(t.shape)
+            host.copy_(t, non_blocking=True)
+            self.devices.add(t.device)
+            return host
+        if isinstance(tree, np.ndarray):
+            return tree.copy()
+        if isinstance(tree, bytearray):
+            return bytes(tree)
+        return tree
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes in a background thread (JAX ``AsyncCheckpointer``):
+    ``save`` waits for the write before it, copies the payload to the host
+    (``_Snapshot``) and starts one thread that writes it with
+    ``save_checkpoint``, so at most one write is in flight and the file is
+    the one ``save_checkpoint`` writes. The caller may change its tensors
+    as soon as ``save`` returns: a CPU tensor or array is copied before,
+    and a CUDA tensor's copy is queued on its device's current stream
+    before anything the caller queues after (the thread waits for it
+    before reading). The checkpointer keeps page-locked host buffers as
+    large as the CUDA leaves for the next save.
+
+    ``wait`` joins the write and raises its exception, if it failed; so
+    does the next ``save``. (The JAX package's daemon thread loses a failed
+    write's exception.) The thread is a daemon, as JAX's: call ``wait``
+    before the process ends, or the last write may be lost (never torn: the
+    write is atomic)."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._snapshot = _Snapshot()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        error, self._error = self._error, None
+        if error is not None:
+            raise error
+
+    def save(self, path: str, payload: Dict[str, Any]) -> None:
+        self.wait()
+        host = self._snapshot.take(payload)
+
+        def write():
+            try:
+                self._snapshot.ready()
+                save_checkpoint(path, host)
+            except BaseException as e:      # handed to wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+
+def _dcp(fn, tree, path: str) -> None:
+    """``torch.distributed.checkpoint``'s ``fn`` (save or load) of ``tree``
+    at ``path``: over the process group, or in this process alone without
+    one (without its warning that it assumes so)."""
+    import warnings
+
+    import torch.distributed as dist
+
+    alone = not (dist.is_available() and dist.is_initialized())
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "torch.distributed is disabled")
+        fn(tree, checkpoint_id=path, no_dist=alone)
+
+
+def save_sharded(path: str, payload: Any) -> None:
+    """Write ``payload`` (a dict of trees of tensors, ``DTensor`` s and
+    scalars) as a ``torch.distributed.checkpoint`` directory at ``path``
+    (made absolute, as JAX does). Every rank of the process group calls
+    it; each writes only its own shards of each ``DTensor`` (its file
+    ``__<rank>_0.distcp``), no rank gathers, and a replicated leaf (a
+    ``Replicate()`` DTensor or a plain tensor) is written once. Rank 0
+    writes ``.metadata``, the index of every shard. Without a process group
+    one process writes everything. Files of an earlier save with more
+    ranks stay, unread (JAX's orbax call deletes the directory first)."""
+    import torch.distributed.checkpoint as dcp
+
+    _dcp(dcp.save, payload, os.path.abspath(path))
+
+
+def abstract_like(tree, sharding=None):
+    """Empty tensors shaped like ``tree``'s, to load a sharded checkpoint
+    into (JAX ``abstract_like``): each keeps its dtype, device and, for a
+    ``DTensor``, its mesh and placements, unless ``sharding``, a
+    ``(DeviceMesh, placements)`` pair (the counterpart of a
+    ``NamedSharding``), overrides them. Other leaves are kept."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import empty as dtensor_empty
+
+    def leaf(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        mesh, placements = sharding if sharding is not None else (
+            (x.device_mesh, x.placements) if isinstance(x, DTensor)
+            else (None, None))
+        if mesh is None:
+            return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        return dtensor_empty(*x.shape, dtype=x.dtype, device_mesh=mesh,
+                             placements=placements)
+
+    def walk(t):
+        if isinstance(t, Mapping):
+            return {k: walk(v) for k, v in t.items()}
+        return leaf(t)
+
+    return walk(tree)
+
+
+# files that mark a directory as an orbax checkpoint (the JAX package's
+# ``save_sharded`` format)
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt", "_METADATA")
+
+
+def load_sharded(path: str, target: Any) -> Any:
+    """Fill ``target`` (from ``abstract_like``) from the sharded checkpoint
+    at ``path`` and return it: each rank reads the bytes of the shards its
+    tensors hold, whatever the placements they were saved with (a leaf
+    saved ``Shard(0)`` loads into a ``Replicate()`` target). An orbax
+    directory (the JAX package's) is refused: the formats differ."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    if not os.path.exists(os.path.join(path, ".metadata")):
+        orbax = [m for m in _ORBAX_MARKERS
+                 if os.path.exists(os.path.join(path, m))]
+        if orbax:
+            raise ValueError(
+                f"{path} is an orbax checkpoint (it holds {orbax}), which "
+                f"the JAX package writes; the port reads only its own "
+                f"torch.distributed.checkpoint directories (with "
+                f".metadata)")
+        raise FileNotFoundError(f"no sharded checkpoint at {path} (no "
+                                f".metadata)")
+    _dcp(dcp.load, target, path)
+    return target

@@ -16,6 +16,12 @@ import numpy as np
 
 from .list_files import cityscapes_list, parse_list_file
 
+# the 19 Cityscapes evaluation classes, in train-id order
+CLASSES = ['road', 'sidewalk', 'building', 'wall', 'fence', 'pole',
+           'traffic light', 'traffic sign', 'vegetation', 'terrain', 'sky',
+           'person', 'rider', 'car', 'truck', 'bus', 'train', 'motorcycle',
+           'bicycle']
+
 # 19-class label ids -> the merged 13-class Freiburg train ids
 ID_TO_TRAIN_ID = {
     7: 0, 8: 1, 11: 2, 12: 3, 13: 4, 17: 5,
@@ -87,3 +93,21 @@ def CityscapesTranslation(root: str, data_folder: str = "translation",
                           **kwargs) -> Cityscapes:
     """Translated Cityscapes: the frames under ``translation``."""
     return Cityscapes(root, data_folder=data_folder, **kwargs)
+
+
+# the colours of the merged 13 train ids (the head of the reference's
+# table, source_dataset.py:51-55)
+TRAIN_ID_TO_COLOR = np.array([
+    (128, 64, 128), (244, 35, 232), (70, 70, 70), (102, 102, 156),
+    (190, 153, 153), (153, 153, 153), (107, 142, 35), (152, 251, 152),
+    (70, 130, 180), (220, 20, 60), (0, 0, 142), (119, 11, 32), (0, 0, 0),
+], dtype=np.uint8)
+TRAIN_ID_TO_COLOR.setflags(write=False)
+
+
+def decode_target(target) -> np.ndarray:
+    """A train-id map as RGB (..., 3) uint8 for viewing (reference
+    base_dataset.py:117-138); ids outside [0, 12] take the nearest end's
+    colour."""
+    t = np.clip(np.asarray(target, np.int64), 0, len(TRAIN_ID_TO_COLOR) - 1)
+    return TRAIN_ID_TO_COLOR[t]

@@ -23,3 +23,9 @@ def max_pool_ceil(x_nhwc: torch.Tensor, window: int = 3, stride: int = 2,
     """MaxPool2d(window, stride, padding, ceil_mode=True) on NHWC input."""
     pool = ceil_max_pool(window, stride, padding)
     return pool(x_nhwc.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x_nhwc: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool2d((1, 1)) of NHWC ``x``: the (N, C) means over
+    (H, W)."""
+    return x_nhwc.mean(dim=(1, 2))

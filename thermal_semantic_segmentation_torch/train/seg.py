@@ -61,6 +61,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..core.prng import split_for_step
 from ..device import resolve_device
 from ..kernels.upsample_argmax import upsample_argmax
 from ..losses import cross_entropy, cross_entropy_terms
@@ -227,8 +228,9 @@ def make_seg_train_step(*, ignore_index: int,
         model = state.model
         layout = width = None
         if grid:
-            width = grid_image_width(mesh, image, label,
-                                     None if device_augment else label_hw)
+            # raw frames: labels at the image's size
+            width, _ = grid_widths(mesh, image, label,
+                                   "image" if device_augment else label_hw)
             layout = mesh.layout()
         if device_augment:
             if grid:
@@ -287,20 +289,25 @@ def make_seg_train_step(*, ignore_index: int,
     return train_step
 
 
-def grid_image_width(mesh, image: torch.Tensor, label: torch.Tensor,
-                     label_hw=None) -> int:
-    """The global width of the image whose block this rank holds on the
-    ``SpatialMesh`` ``mesh``, from every rank's block sizes gathered on
-    the host (no device wait). Raises, on every rank alike, unless every
-    rank holds as many rows and the columns of the even split of the
-    image's and ``label_hw``'s widths that ``image_sharding`` and
-    ``label_sharding`` cut (``label_hw`` None: the labels are at the
-    image's size, as raw frames are before the device augmentation)."""
+def grid_widths(mesh, image: torch.Tensor, label: torch.Tensor,
+                label_hw="blocks"):
+    """(the global width of the image, the global (H, W) of the label)
+    whose blocks this rank holds on the ``SpatialMesh`` ``mesh``, from
+    every rank's block sizes gathered on the host (no device wait).
+    ``label_hw``: the label's global size, or "image" (at the image's
+    size, as raw frames are before the device augmentation), or "blocks"
+    (whatever the blocks join to). Raises, on every rank alike, unless
+    every rank holds as many rows and the columns of the even split of
+    both widths that ``image_sharding`` and ``label_sharding`` cut."""
     sizes = pmesh.all_gather(torch.tensor(
         [image.shape[0], image.shape[1], image.shape[2], label.shape[0],
          label.shape[1], label.shape[2]]), pmesh.host_group()).tolist()
     width = sum(s[2] for s in sizes[:mesh.spatial])
-    label_h, label_w = label_hw or (sizes[0][1], width)
+    if label_hw == "image":
+        label_hw = (sizes[0][1], width)
+    elif label_hw == "blocks":
+        label_hw = (sizes[0][4], sum(s[5] for s in sizes[:mesh.spatial]))
+    label_h, label_w = label_hw
     for r, (n, h, w, ln, lh, lw) in enumerate(sizes):
         q = r % mesh.spatial
         lo, hi = column_range(width, mesh.spatial, q)
@@ -312,7 +319,7 @@ def grid_image_width(mesh, image: torch.Tensor, label: torch.Tensor,
                 f"{lw}) label is not spatial shard {q} of {mesh.spatial} "
                 f"of a {width}-wide image and a {(label_h, label_w)} "
                 f"label with every rank's rows (blocks: {sizes})")
-    return width
+    return width, (label_h, label_w)
 
 
 def whole_rows(layout, width: int, image: torch.Tensor,
@@ -332,11 +339,7 @@ def augment_generator(device, dropout_seed: int, step: int,
     seeded from (``dropout_seed`` + 1, ``step``, *key), apart from the
     dropout stream (``seed_dropout``) as JAX's ``key(dropout_seed + 1)``
     is."""
-    seed = int(np.random.SeedSequence([dropout_seed + 1, step, *key])
-               .generate_state(1, np.uint64)[0])
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return gen
+    return split_for_step(device, dropout_seed + 1, step, *key)
 
 
 def average_running_stats(model: torch.nn.Module) -> None:
@@ -355,7 +358,7 @@ def average_running_stats(model: torch.nn.Module) -> None:
 
 
 def build_seg_eval_step(*, num_classes: int, ignore_index: int, device=None,
-                        bf16: bool = False):
+                        bf16: bool = False, mesh=None):
     """Returns ``eval_step(model, image, label) -> (hist, loss, pred)`` on
     ``device`` (default: the CUDA device; raises without one).
 
@@ -368,6 +371,22 @@ def build_seg_eval_step(*, num_classes: int, ignore_index: int, device=None,
     comes from the fused ``upsample_argmax`` kernel on the stride-8 logits
     (its plain version on the CPU); ``hist`` is the int64 (C, C) confusion
     matrix of the batch. Nothing is copied to the host.
+
+    With a ``parallel/mesh.SpatialMesh`` (``make_mesh_2d``) each rank
+    passes its block of the global batch, its data index's rows and its
+    spatial index's columns of the image and of the label
+    (``image_sharding``, ``label_sharding``; the label's global size is
+    what its blocks join to), and the step is the JAX step fed
+    width-sharded inputs. The forward runs on the width shards
+    (``nn/spatial.py``); ``loss`` is the CE of the rank's label columns
+    (the sharded upsample) summed over the grid and divided by the grid's
+    count of valid pixels, the same on every rank; ``hist`` is the whole
+    grid's, on every rank; ``pred`` is the rank's block, from the kernel
+    on whole rows: the stride-8 logits' columns are gathered over the
+    spatial group (at most 8 x 33 x 65 x 13 float32 at 256x512), each
+    spatial rank upsamples its rows to the label's global size and keeps
+    its columns. The block sizes are checked first, as the train step
+    checks them (``grid_widths``).
     """
     device = resolve_device(device)
 
@@ -381,7 +400,38 @@ def build_seg_eval_step(*, num_classes: int, ignore_index: int, device=None,
             hist = confusion_matrix(pred, label, num_classes)
         return hist, loss, pred
 
-    return eval_step
+    def grid_eval_step(model, image: torch.Tensor, label: torch.Tensor):
+        width, (out_h, out_w) = grid_widths(mesh, image, label)
+        layout = mesh.layout()
+        with frozen_inference(model), width_sharded([model], layout):
+            x = image.permute(0, 3, 1, 2)
+            layout.start(x, width)
+            with torch.autocast(device.type, dtype=torch.bfloat16,
+                                enabled=bf16):
+                out = model(x)["out"]
+            logits = out.float()                     # NCHW, this rank's
+            nll_sum, count = cross_entropy_terms(upsample_logits(
+                logits.permute(0, 2, 3, 1), out_h, out_w, layout=layout),
+                label, ignore_index=ignore_index)
+            loss = (pmesh.all_reduce(nll_sum, group=mesh.group)
+                    / pmesh.all_reduce(count, group=mesh.group).clamp_min(1))
+            logits_w = layout.width_of(logits)
+            rows = gather_columns(logits, layout, logits_w,
+                                  [(0, logits_w)] * layout.size)
+            pred, _ = upsample_argmax(rows.permute(0, 2, 3, 1), out_h, out_w)
+            lo, hi = layout.columns(out_w)
+            pred = pred[:, :, lo:hi]
+            hist = pmesh.all_reduce(confusion_matrix(pred, label,
+                                                     num_classes),
+                                    group=mesh.group)
+        return hist, loss, pred
+
+    if mesh is None:
+        return eval_step
+    if not isinstance(mesh, pmesh.SpatialMesh):
+        raise TypeError(f"the eval step takes a SpatialMesh, not "
+                        f"{type(mesh).__name__}")
+    return grid_eval_step
 
 
 def forward_nhwc(model, image: torch.Tensor, *, bf16: bool = False) -> dict:

@@ -177,6 +177,19 @@ def pseudo_labels(ema_feat: torch.Tensor, prototypes: torch.Tensor,
     return torch.where(hard != ignore_index, hard, pseudo)
 
 
+def ema_update(teacher_params, student_params, decay: float) -> None:
+    """The EMA teacher's update in place, ``e * decay + q * (1 - decay)``
+    over the lists of tensors ``teacher_params`` (e) and
+    ``student_params`` (q), in their dtype (JAX ``train/self_train.py``'s
+    expression, reference self_training.py:128-132). Where ``e * decay``
+    and ``q * (1 - decay)`` nearly cancel (a parameter near 0) the result's
+    ulp is far below either term's, and neither this nor the JAX order of
+    operations keeps the error within a few ulps of the result: it is
+    within a few ulps of the larger term."""
+    torch._foreach_mul_(teacher_params, decay)
+    torch._foreach_add_(teacher_params, student_params, alpha=1.0 - decay)
+
+
 def make_self_train_step(*, num_classes: int, ignore_index: int,
                          base_lr: float, proto_temperature: float = 0.5,
                          train_thred: float = 0.0, rce: bool = True,
@@ -290,10 +303,8 @@ def make_self_train_step(*, num_classes: int, ignore_index: int,
                     start_mean=False)
                 mark("prototypes")
             if ema:
-                ema_params = list(teacher.parameters())
-                torch._foreach_mul_(ema_params, ema_decay)
-                torch._foreach_add_(ema_params, list(student.parameters()),
-                                    alpha=1.0 - ema_decay)
+                ema_update(list(teacher.parameters()),
+                           list(student.parameters()), ema_decay)
                 torch._foreach_copy_(list(teacher.buffers()),
                                      list(student.buffers()))
                 mark("ema")
