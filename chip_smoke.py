@@ -165,6 +165,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      decode cache through a hit and a disk-tier reload, and the native C++
      IO where the card's host can build it (encode -> decode_raw exact,
      ``decode_ir_batch`` against numpy, frames/s at 1 and 8 threads);
+ 21b. host_io: the entry points read files on the card's host, with no
+     PIL: a seeded Freiburg tree at the raw 320x960 size (32 train
+     triples of 16-bit IR, RGB and labels, 24 test IR frames with .npy
+     labels) written by the script's own PNG encoder (rows through filter
+     types 0-4, one Adam7 file) and read back exactly by the port's
+     reader; decode cache off, host decode + resize ms a frame (IR, RGB;
+     one thread, and the loader alone over 30 batches of the files
+     cycled); the eval loop over those 30 batches from memory and from the
+     files at 8 and 2 loader threads (the first batch alone, then images/s
+     and the device's idle share over the device's span; equal mIoU);
+     ``serve`` over HTTP on 127.0.0.1 answering 320 16-bit PNG bodies
+     from 16 keep-alive connections in a load process of its own (ids
+     equal to the in-process forward of the same bytes outside
+     near-ties; req/s, p50 and p95 latency) and a JPEG body with a 400;
+     ``segmentation_evaluate`` through its ``main`` at batch 8, its mIoU
+     equal to the in-memory eval of the same decoded arrays;
+     ``segmentation_train`` through its ``main``, three steps at batch 8
+     (finite losses); PIL never imported. Then, in a process of its own
+     where Pillow is installed, the reader, the IR window, the RGB, grey
+     and label loads and their 512x256 resizes held to Pillow exactly,
+     and the CPU tests of the reader and the resamplers run against it.
+     Paths ``host_io_eval``, ``host_io_train`` and ``host_io_serve``.
+     ``python3 chip_smoke.py --host-io-compare DIR`` measures the same
+     numbers for the port in DIR (another checkout's root, e.g. an older
+     commit that reads images with PIL) against this checkout's, in four
+     processes (DIR, this, this, DIR);
  22. doctor: ``cli/doctor --check_backend true`` in a process of its own:
      PASS with the card's name and the kernels built and loaded.
 The last line is {"ok": true, "device": {...}}.
@@ -1244,15 +1270,19 @@ class NamedImages:
         return {"image": self.images[index], "img_path": f"{index:04d}.png"}
 
 
-def read_png_ids(path: str):
+def read_png_ids(path):
     """The pixels of an 8-bit grayscale or palette PNG of filter-0 rows
-    (what ``data/png.py`` writes), decoded here with zlib alone."""
+    (what ``data/png.py`` writes), decoded here with zlib alone; ``path``:
+    a file, or the PNG's bytes."""
     import struct
     import zlib
 
     import numpy as np
-    with open(path, "rb") as f:
-        data = f.read()
+    if isinstance(path, bytes):
+        data, path = path, f"a {len(path)}-byte answer"
+    else:
+        with open(path, "rb") as f:
+            data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         fail(f"{path}: not a PNG")
     pos, idat, size = 8, [], None
@@ -2626,34 +2656,6 @@ class SeededFrames:
                 "img_path": f"{self.root}/{index:04d}.png"}
 
 
-def pil_bicubic_matrix(in_size: int, out_size: int):
-    """(out, in) float64 weights of PIL's BICUBIC resample along one axis
-    (a = -0.5, the support widened by the scale when reducing; each row
-    normalised), written here from PIL's algorithm."""
-    import numpy as np
-
-    def cubic(x):
-        a, x = -0.5, abs(x)
-        if x < 1.0:
-            return ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0
-        if x < 2.0:
-            return (((x - 5.0) * x + 8.0) * x - 4.0) * a
-        return 0.0
-
-    scale = in_size / out_size
-    fscale = max(scale, 1.0)
-    support = 2.0 * fscale
-    m = np.zeros((out_size, in_size))
-    for i in range(out_size):
-        center = (i + 0.5) * scale
-        lo = max(int(center - support + 0.5), 0)
-        hi = min(int(center + support + 0.5), in_size)
-        w = np.array([cubic((x - center + 0.5) / fscale)
-                      for x in range(lo, hi)])
-        m[i, lo:hi] = w / w.sum()
-    return m
-
-
 def translate_float64(fake, fake32):
     """The translator's pixels from the float64 generator output ``fake``
     (N, H, W): de-normalised and truncated to 8 bits, then PIL's two
@@ -2669,8 +2671,11 @@ def translate_float64(fake, fake32):
     none; ``counts`` says how many there were."""
     import numpy as np
 
-    mh = pil_bicubic_matrix(SERVE_OUT[1], TRANSLATE_HW[1])   # (out_w, w)
-    mv = pil_bicubic_matrix(SERVE_OUT[0], TRANSLATE_HW[0])   # (out_h, h)
+    # PIL's BICUBIC weights (a = -0.5, widened when reducing), from PIL's
+    # algorithm in the port's data/image.py
+    from thermal_semantic_segmentation_torch.data.image import weight_matrix
+    mh = weight_matrix(SERVE_OUT[1], TRANSLATE_HW[1])   # (out_w, w)
+    mv = weight_matrix(SERVE_OUT[0], TRANSLATE_HW[0])   # (out_h, h)
     v = np.clip((fake * 0.5 + 0.5) * 255.0, 0, 255)
     tau_t = float(np.abs(fake32 - fake).max()) * 127.5
     frac = v - np.floor(v)
@@ -4946,6 +4951,766 @@ def phase_host_data(card: str, root: str) -> dict:
     return launches
 
 
+# the host_io phase: a Freiburg tree at the raw frame size, read from files
+HOST_IO_HW = (320, 960)
+HOST_IO_TRAIN, HOST_IO_TEST = 32, 24     # train triples, test IR frames
+HOST_IO_BATCHES = 30        # timed eval batches, the test frames cycled
+HOST_IO_CLIENTS = 16        # HTTP connections: two server batches in flight
+HOST_IO_REQUESTS = 320
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# an 8x8 grey baseline JPEG: a request body a host without PIL answers 400
+JPEG_BODY = bytes.fromhex(
+    "ffd8ffe000104a46494600010100000100010000ffdb004300100b0c0e0c0a100e0d0e"
+    "1211101318281a181616183123251d283a333d3c3933383740485c4e404457453738"
+    "506d51575f626768673e4d71797064785c656763ffc0000b080008000801011100ff"
+    "c4001f0000010501010101010100000000000000000102030405060708090a0bffc4"
+    "00b5100002010303020403050504040000017d010203000411051221314106135161"
+    "07227114328191a1082342b1c11552d1f02433627282090a161718191a2526272829"
+    "2a3435363738393a434445464748494a535455565758595a636465666768696a7374"
+    "75767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3"
+    "b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9"
+    "eaf1f2f3f4f5f6f7f8f9faffda0008010100003f00483c1dff004cff004affd9")
+
+
+def png_filtered_rows(raw, bpp: int, first: int):
+    """(n, row_bytes) uint8 rows -> the stream rows, row r filtered by
+    type (first + r) % 5 of the PNG specification (None, Sub, Up, Average,
+    Paeth) with its type byte in front; and the next row's type."""
+    import numpy as np
+
+    r = raw.astype(np.int16)
+    n = len(r)
+    up = np.vstack([np.zeros((1, r.shape[1]), np.int16), r[:-1]])
+    pad = np.zeros((n, bpp), np.int16)
+    left = np.hstack([pad, r[:, :-bpp]])
+    upleft = np.hstack([pad, up[:, :-bpp]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(r), left, up, (left + up) // 2, paeth])
+    kinds = (first + np.arange(n)) % 5
+    out = np.empty((n, r.shape[1] + 1), np.uint8)
+    out[:, 0] = kinds
+    out[:, 1:] = (r - preds[kinds, np.arange(n)]) % 256
+    return out, (first + n) % 5
+
+
+def write_png(path: str, pixels, interlace: bool = False) -> None:
+    """A PNG of uint16 (H, W) grey, uint8 (H, W) grey or (H, W, 3) RGB
+    pixels with zlib alone: its rows cycle through filter types 0-4, and
+    with ``interlace`` it is Adam7."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    depth = 16 if pixels.dtype == np.uint16 else 8
+    h, w = pixels.shape[:2]
+    c = pixels.shape[2] if pixels.ndim == 3 else 1
+    samples = pixels.reshape(h, w, c)
+    stream, kind = [], 0
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        raw = np.ascontiguousarray(sub.astype(">u2") if depth == 16 else sub
+                                   ).reshape(len(sub), -1).view(np.uint8)
+        rows, kind = png_filtered_rows(raw, c * depth // 8, kind)
+        stream.append(rows.tobytes())
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+    header = struct.pack(">IIBBBBB", w, h, depth, 2 if c == 3 else 0, 0, 0,
+                         int(interlace))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(b"".join(stream), 1))
+                + chunk(b"IEND", b""))
+
+
+def write_freiburg_tree(root: str, seed: int) -> dict:
+    """A seeded Freiburg tree at the raw frame size: HOST_IO_TRAIN train
+    triples (uint16 IR, RGB, labels) and HOST_IO_TEST test IR frames with
+    .npy labels, written by ``write_png`` (the first IR frame Adam7).
+    Returns {path: the array written}."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "train", "seq_00_day", "00")
+    written = {}
+    for i in range(HOST_IO_TRAIN):
+        for sub, arr in (
+                ("fl_ir_aligned", rng.integers(21000, 26000, HOST_IO_HW,
+                                               dtype=np.uint16)),
+                ("fl_rgb", rng.integers(0, 256, (*HOST_IO_HW, 3),
+                                        dtype=np.uint8)),
+                ("fl_rgb_labels", rng.integers(0, NUM_CLASSES, HOST_IO_HW,
+                                               dtype=np.uint8))):
+            path = os.path.join(base, sub, f"{i:04d}.png")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            write_png(path, arr, interlace=(i == 0 and sub == "fl_ir_aligned"))
+            written[path] = arr
+    test = os.path.join(root, "test", "day")
+    os.makedirs(os.path.join(test, "ImagesIR"), exist_ok=True)
+    os.makedirs(os.path.join(test, "SegmentationClass"), exist_ok=True)
+    for i in range(HOST_IO_TEST):
+        arr = rng.integers(21000, 26000, HOST_IO_HW, dtype=np.uint16)
+        path = os.path.join(test, "ImagesIR", f"{i:04d}_ir.png")
+        write_png(path, arr)
+        written[path] = arr
+        np.save(os.path.join(test, "SegmentationClass", f"{i:04d}_rgb.npy"),
+                rng.integers(0, NUM_CLASSES, HOST_IO_HW, dtype=np.uint8))
+    return written
+
+
+class HeldSamples:
+    """A dataset of samples already decoded (the in-memory comparison)."""
+
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def get(self, index: int, rng) -> dict:
+        return self.samples[index]
+
+
+def eval_loop(model, loader) -> dict:
+    """``seg_validate`` of ``loader`` with each eval step bracketed by CUDA
+    events and the host clock. Returns mean_iu and: first_batch_s, the
+    loop's start to the first step (the first batch's decode, which nothing
+    overlaps); steady_images_per_s, the images of every step over the
+    device's span from the first step's start to the last step's end;
+    steady_idle_share, the device's idle share of that span; wait_ms, the
+    main thread's mean time from one step's return to the next step's call
+    (waiting on the loader and the transfer); step_host_ms, its mean time
+    inside a step (queueing the forward's kernels); cpu_parallelism, the
+    process's CPU seconds a wall second over the loop."""
+    import torch
+
+    from thermal_semantic_segmentation_torch.eval.validate import (
+        seg_validate)
+    from thermal_semantic_segmentation_torch.train.seg import (
+        build_seg_eval_step)
+
+    step = build_seg_eval_step(num_classes=NUM_CLASSES, ignore_index=IGNORE)
+    events, calls, returns, images = [], [], [], []
+
+    def bracketed(model, image, label):
+        calls.append(time.perf_counter())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(model, image, label)
+        end.record()
+        events.append((start, end))
+        images.append(len(image))
+        returns.append(time.perf_counter())
+        return out
+
+    torch.cuda.synchronize()
+    t0, cpu = time.perf_counter(), time.process_time()
+    mean_iu, _, _ = seg_validate(model, loader, num_classes=NUM_CLASSES,
+                                 ignore_index=IGNORE, eval_step=bracketed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    span = events[0][0].elapsed_time(events[-1][1]) / 1e3
+    return {"mean_iu": mean_iu, "batches": len(calls), "wall_s": wall,
+            "cpu_parallelism": (time.process_time() - cpu) / wall,
+            "step_host_ms": 1e3 * statistics.mean(
+                b - a for a, b in zip(calls, returns)),
+            "first_batch_s": calls[0] - t0,
+            "steady_images_per_s": sum(images) / span,
+            "steady_idle_share": 1.0 - busy / span,
+            "wait_ms": 1e3 * statistics.mean(
+                [b - a for a, b in zip(returns, calls[1:])] or [0.0])}
+
+
+def loader_alone(ds, indices, threads: int = 8) -> dict:
+    """The loader alone over ``indices`` at batch EVAL_BATCH: the first
+    batch's seconds, then images/s over the rest and the process's CPU
+    seconds a wall second over them (how many of its threads ran at
+    once)."""
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+
+    t0 = time.perf_counter()
+    first, n = None, 0
+    for batch in DataLoader(ds, EVAL_BATCH, shuffle=False, drop_last=False,
+                            indices=indices, num_threads=threads):
+        if first is None:
+            first, cpu = time.perf_counter(), time.process_time()
+        else:
+            n += len(batch["image"])
+    wall = time.perf_counter() - first
+    return {"first_batch_s": first - t0, "images_per_s": n / wall,
+            "cpu_parallelism": (time.process_time() - cpu) / wall}
+
+
+def serve_http(args) -> tuple:
+    """``cli/serve.start_http(args)``: (the HTTP server, not yet serving,
+    the started batcher); its steps as ``serve.main`` took them in a port
+    that predates it."""
+    from http.server import ThreadingHTTPServer
+
+    from thermal_semantic_segmentation_torch.cli import serve
+    from thermal_semantic_segmentation_torch.serving.endpoints import (
+        make_handler)
+
+    if hasattr(serve, "start_http"):
+        return serve.start_http(args)
+    server, handler_kw = serve.build_server(args)
+    server.warmup()
+    server.start()
+    info = {"checkpoint": args.checkpoint_name,
+            "batch_size": args.batch_size, "kind": args.kind}
+    return (ThreadingHTTPServer((args.host, args.port),
+                                make_handler(server, info, **handler_kw)),
+            server)
+
+
+def http_load(url: str, paths_file: str, n_requests: int, n_clients: int,
+              out: str) -> int:
+    """``--http-load``: a load generator in a process of its own (so that
+    its threads do not share the server's interpreter). ``n_clients``
+    keep-alive connections POST the files listed in ``paths_file`` in
+    turn, ``n_requests`` in all; pickles {"answers": {i: (status, body,
+    latency s)}, "wall_s"} to ``out``."""
+    import http.client
+    import pickle
+    import threading
+    import urllib.parse
+
+    with open(paths_file) as f:
+        bodies = []
+        for path in f.read().split("\n"):
+            with open(path, "rb") as g:
+                bodies.append(g.read())
+    where = urllib.parse.urlsplit(url)
+    target = f"{where.path}?{where.query}"
+    answers = {}
+
+    def client(tid):
+        conn = http.client.HTTPConnection(where.hostname, where.port,
+                                          timeout=600)
+        for i in range(tid, n_requests, n_clients):
+            t0 = time.perf_counter()
+            conn.request("POST", target, body=bodies[i % len(bodies)])
+            r = conn.getresponse()
+            answers[i] = (r.status, r.read(), time.perf_counter() - t0)
+        conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    with open(out, "wb") as f:
+        pickle.dump({"answers": answers, "wall_s": wall}, f)
+    return 0
+
+
+def host_io_measure(card: str, root: str, tree: str, jpeg: bool) -> dict:
+    """The file-read paths' numbers for the port as imported (this
+    checkout's, or an older one's under ``--host-io-compare``), decode
+    cache off: decode + resize ms a frame (IR test samples, RGB train
+    samples) on one thread and through the loader alone (HOST_IO_BATCHES
+    batches, the files cycled; IR at 2, 4 and 8 threads); the eval loop
+    over those batches from memory and from the files with 8 and 2 loader
+    threads (``eval_loop``), their mIoU equal; ``serve`` over
+    HTTP on 127.0.0.1 under ``http_load`` (HOST_IO_REQUESTS requests from
+    HOST_IO_CLIENTS connections, two batches in flight), every answer's
+    ids held to the in-process forward of its bytes outside near-ties;
+    with ``jpeg``, a JPEG body answered 400. Returns the numbers, the
+    in-memory mIoU of the test frames once over (``memory_iu``) and the
+    server's kernel launches (``serve_launches``)."""
+    import os
+    import pickle
+    import threading
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli._common import val_transform
+    from thermal_semantic_segmentation_torch.cli.options import (
+        evaluation_parse)
+    from thermal_semantic_segmentation_torch.cli.serve import serve_parse
+    from thermal_semantic_segmentation_torch.data.cache import (
+        decode_cache, set_decode_cache)
+    from thermal_semantic_segmentation_torch.data.freiburg import (
+        Freiburg, FreiburgTest)
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_reference)
+    from thermal_semantic_segmentation_torch.ops.resize import upsample_logits
+    from thermal_semantic_segmentation_torch.serving.batcher import (
+        preprocess)
+
+    set_decode_cache(0, disk_dir=None)
+    hits = decode_cache().hits
+    out = {}
+    test_ds = FreiburgTest(tree, "test", "IR", transforms=val_transform())
+    rgb_ds = Freiburg(tree, "train", "RGB", transforms=val_transform())
+    cycled = [i % len(test_ds)
+              for i in range(HOST_IO_BATCHES * EVAL_BATCH)]
+    for kind, ds in (("ir", test_ds), ("rgb", rgb_ds)):
+        ds.get(0, None)     # what builds at first use
+        n = min(len(ds), HOST_IO_TEST)
+        t0 = time.perf_counter()
+        for i in range(n):
+            ds.get(i, None)
+        out[f"decode_ms_{kind}_1_thread"] = (
+            (time.perf_counter() - t0) * 1e3 / n)
+        for threads in (2, 4, 8) if kind == "ir" else (8,):
+            alone = loader_alone(ds, [i % len(ds) for i in range(
+                len(cycled))], threads)
+            out[f"loader_{kind}_{threads}_ms"] = 1e3 / alone["images_per_s"]
+            out[f"loader_{kind}_{threads}_cpu_parallelism"] = alone[
+                "cpu_parallelism"]
+        out[f"decode_ms_{kind}_loader"] = 1e3 / alone["images_per_s"]
+        out[f"loader_{kind}_first_batch_s"] = alone["first_batch_s"]
+
+    model = load_smoke_model(evaluation_parse, root)
+    held = HeldSamples([test_ds.get(i, None) for i in range(len(test_ds))])
+    out["memory_iu"] = eval_loop(model, DataLoader(
+        held, EVAL_BATCH, shuffle=False, drop_last=False))["mean_iu"]
+    for name, ds, threads in (("memory", held, 8), ("files", test_ds, 8),
+                              ("files_2", test_ds, 2)):
+        run = eval_loop(model, DataLoader(ds, EVAL_BATCH, shuffle=False,
+                                          drop_last=False, indices=cycled,
+                                          num_threads=threads))
+        out.update({f"eval_{name}_{k}": v for k, v in run.items()})
+    ious = {k: v for k, v in out.items() if k.endswith("_mean_iu")}
+    if len(set(ious.values())) != 1:
+        fail(f"host_io: the file-read evals' mIoU differ from the in-memory "
+             f"eval's: {ious}")
+    if decode_cache().hits != hits:
+        fail("host_io: the decode cache was used")
+    del model
+    torch.cuda.empty_cache()
+
+    paths = test_ds.data_list
+    args = serve_parse().parse_args(
+        ["-checkpoint_name", "smoke.pth", "--model_root_path", root,
+         "-batch_size", str(EVAL_BATCH), "--max_wait_ms", "20", "--host",
+         "127.0.0.1", "--port", str(free_port())])
+    url = f"http://127.0.0.1:{args.port}/segment?format=ids"
+    work = os.path.join(root, "host_io_http")
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "bodies.txt"), "w") as f:
+        f.write("\n".join(paths))
+    with open(os.path.join(work, "jpeg.txt"), "w") as f:
+        f.write(os.path.join(work, "body.jpg"))
+    with open(os.path.join(work, "body.jpg"), "wb") as f:
+        f.write(JPEG_BODY)
+
+    def load(listed, n, clients):
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--http-load", url, os.path.join(work, listed),
+                        str(n), str(clients),
+                        os.path.join(work, "answers.pkl")],
+                       check=True, timeout=600)
+        with open(os.path.join(work, "answers.pkl"), "rb") as f:
+            return pickle.load(f)
+
+    upsample_argmax.launches = 0        # counts from the server only
+    httpd, server = serve_http(args)
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    try:
+        run = load("bodies.txt", HOST_IO_REQUESTS, HOST_IO_CLIENTS)
+        jpeg_answer = load("jpeg.txt", 1, 1)["answers"][0] if jpeg else None
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+        serving.join(timeout=60)
+    out["serve_launches"] = upsample_argmax.launches
+    answers = run["answers"]
+    bad = {i: a[:2] for i, a in answers.items() if a[0] != 200}
+    if len(answers) != HOST_IO_REQUESTS or bad:
+        fail(f"host_io serve: {len(answers)} answers, not 200: {bad}")
+    mismatched = ties = 0
+    with torch.inference_mode():
+        for lo in range(0, len(paths), EVAL_BATCH):
+            bodies = []
+            for path in paths[lo:lo + EVAL_BATCH]:
+                with open(path, "rb") as f:
+                    bodies.append(f.read())
+            x = torch.from_numpy(np.stack([preprocess(b) for b in bodies])
+                                 ).cuda()
+            logits = server.model(x.permute(0, 3, 1, 2))["out"].float(
+            ).permute(0, 2, 3, 1)
+            want, _ = upsample_argmax_reference(logits, *SERVE_OUT)
+            top2 = upsample_logits(logits, *SERVE_OUT).topk(2, dim=-1).values
+            decided = ((top2[..., 0] - top2[..., 1]) > TIE_GAP).cpu().numpy()
+            want = want.cpu().numpy()
+            for i, a in answers.items():
+                j = i % len(paths) - lo
+                if 0 <= j < len(bodies):
+                    got = read_png_ids(a[1])
+                    ties += int((~decided[j]).sum())
+                    mismatched += int(((got != want[j]) & decided[j]).sum())
+    if mismatched:
+        fail(f"host_io serve: {mismatched} ids differ from the in-process "
+             f"forward outside near-ties")
+    lat = np.asarray([a[2] for a in answers.values()]) * 1e3
+    out.update(http_req_per_s=len(answers) / run["wall_s"],
+               http_p50_ms=float(np.percentile(lat, 50)),
+               http_p95_ms=float(np.percentile(lat, 95)),
+               http_ids_mismatched=mismatched, http_near_ties=ties)
+    if jpeg:
+        jpeg_note = f"{jpeg_answer[0]} {jpeg_answer[1].decode(errors='replace')!r}"
+        out["jpeg_answer"] = jpeg_note
+        if not (jpeg_answer[0] == 400 and b"JPEG is not decoded on this host"
+                in jpeg_answer[1] and b"PNG" in jpeg_answer[1]):
+            fail(f"host_io serve: the JPEG body got {jpeg_note}")
+    del server
+    torch.cuda.empty_cache()
+    return out
+
+
+def pillow_oracle(tree: str) -> int:
+    """``--pillow-oracle``: in a process of its own, with Pillow imported,
+    the port's reader and resamplers held to Pillow exactly on every PNG of
+    the host_io tree: ``read_png`` against ``np.asarray(Image.open())``;
+    ``load_ir_image``, ``load_rgb_image`` (RGB and grey) and ``load_label``
+    against the same steps in Pillow (the resize to RAW_SIZE, the column
+    crop, the IR window); and each result's resize to 512x256 (BICUBIC;
+    BILINEAR for RGB as the self-training augmentation; NEAREST for labels).
+    Prints one JSON line: Pillow's version, arrays compared, the names of
+    those that differ."""
+    import glob
+    import os
+
+    import numpy as np
+    import PIL
+    from PIL import Image, ImageFile
+
+    from thermal_semantic_segmentation_torch.data import image as im
+    from thermal_semantic_segmentation_torch.data import png
+    from thermal_semantic_segmentation_torch.data.freiburg import (
+        COL_CROP, IR_MAX, IR_MIN, RAW_SIZE, load_ir_image, load_label,
+        load_rgb_image)
+
+    ImageFile.LOAD_TRUNCATED_IMAGES = True
+    size = (512, 256)
+    crop = slice(*COL_CROP)
+    compared, differ = 0, []
+
+    def check(name, got, want):
+        nonlocal compared
+        compared += 1
+        if not (got.dtype == want.dtype and np.array_equal(got, want)):
+            differ.append(name)
+
+    def pil_resize(arr, resample):
+        return np.asarray(Image.fromarray(arr).resize(size, resample))
+
+    for path in sorted(glob.glob(os.path.join(tree, "**", "*.png"),
+                                 recursive=True)):
+        name = os.path.relpath(path, tree)
+        with Image.open(path) as img:
+            check(f"read_png {name}", png.read_png(path).pixels,
+                  np.asarray(img))
+            if "ImagesIR" in path or "fl_ir_aligned" in path:
+                x = np.array(img.resize(RAW_SIZE, Image.BICUBIC),
+                             np.float32)[:, crop]
+                want = (np.clip(x, IR_MIN, IR_MAX) - IR_MIN) / (
+                    IR_MAX - IR_MIN)
+                got = load_ir_image(path)
+                check(f"ir {name}", got, want)
+                check(f"ir 512x256 {name}", im.resize(got, size, im.BICUBIC),
+                      pil_resize(want, Image.BICUBIC))
+            elif "fl_rgb_labels" in path:
+                want = np.asarray(img.resize(RAW_SIZE, Image.NEAREST))[
+                    :, crop]
+                got = load_label(path)
+                check(f"label {name}", got, want)
+                check(f"label 512x256 {name}",
+                      im.resize(got, size, im.NEAREST),
+                      pil_resize(np.ascontiguousarray(want), Image.NEAREST))
+            else:
+                for mode in ("RGB", "L"):
+                    want = np.ascontiguousarray(np.asarray(
+                        img.convert(mode).resize(RAW_SIZE, Image.BICUBIC))[
+                            :, crop])
+                    got = load_rgb_image(path, grayscale=mode == "L")
+                    check(f"{mode} {name}", got, want)
+                    for resample, pil in ((im.BICUBIC, Image.BICUBIC),
+                                          (im.BILINEAR, Image.BILINEAR)):
+                        check(f"{mode} 512x256 {resample} {name}",
+                              im.resize(got, size, resample),
+                              pil_resize(want, pil))
+    print(json.dumps({"pillow": PIL.__version__, "compared": compared,
+                      "differ": len(differ), "first": differ[:5]}),
+          flush=True)
+    return 0
+
+
+def host_io_child(package: str, root: str, tree: str, card: str,
+                  block_pil: bool) -> int:
+    """``--host-io-child``: ``host_io_measure`` of the port in
+    ``package`` (a checkout's root), with ``import PIL`` failing when
+    ``block_pil``; prints its numbers as one JSON line."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(package))
+    if block_pil:
+        sys.modules["PIL"] = None
+    import thermal_semantic_segmentation_torch as port
+
+    numbers = host_io_measure(card, root, tree, jpeg=False)
+    print(json.dumps({"package": os.path.dirname(port.__file__),
+                      "pil_loaded": any(k.split(".")[0] == "PIL" and v
+                                        for k, v in sys.modules.items()),
+                      **numbers}), flush=True)
+    return 0
+
+
+def host_io_compare(other: str) -> int:
+    """``--host-io-compare DIR``: ``host_io_measure`` of the port in DIR
+    (another checkout's root, e.g. an older commit that reads images with
+    PIL) against this checkout's with PIL blocked, on one seeded tree and
+    checkpoint, in four processes in the order DIR, this, this, DIR. Prints
+    a line a process and one of the medians of each side."""
+    import os
+
+    import torch
+
+    from thermal_semantic_segmentation_torch.models.deeplab import (
+        create_deeplab)
+
+    card = phase_device()
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"other": [], "this": []}
+    with tempfile_dir() as root:
+        torch.save({"epoch": 0,
+                    "sem_net_state_dict": create_deeplab(0).state_dict()},
+                   f"{root}/smoke.pth")
+        tree = os.path.join(root, "host_io", "freiburg")
+        write_freiburg_tree(tree, seed=31)
+        for side in ("other", "this", "this", "other"):
+            package = other if side == "other" else here
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--host-io-child",
+                 package, root, tree, card, str(int(side == "this"))],
+                capture_output=True, text=True, timeout=900)
+            if r.returncode:
+                print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+                fail(f"host_io compare: the {side} run failed")
+            numbers = json.loads(r.stdout.strip().splitlines()[-1])
+            runs[side].append(numbers)
+            print(f"host_io compare {side}: {json.dumps(numbers)} on {card}",
+                  flush=True)
+    keys = [k for k, v in runs["this"][0].items()
+            if isinstance(v, float) and k in runs["other"][0]]
+    print("host_io compare medians (this / other): " + json.dumps(
+        {k: [statistics.median(r[k] for r in runs[s])
+             for s in ("this", "other")] for k in keys}) + f" on {card}",
+          flush=True)
+    print(card, flush=True)
+    return 0
+
+
+def phase_host_io(card: str, root: str) -> dict:
+    """``host_io_run`` with every import of PIL failing, as on a host
+    without PIL (the card's host may have it installed); afterwards PIL
+    must not be in ``sys.modules``. Then, where Pillow is installed, the
+    reader and the resamplers held to it (``pillow_oracle`` and the CPU
+    tests of both, processes of their own). Returns the kernels' launches
+    a path."""
+    import importlib.util
+    import os
+
+    installed = importlib.util.find_spec("PIL") is not None
+    if "PIL" in sys.modules:
+        fail("host_io: PIL was imported before the phase")
+    sys.modules["PIL"] = None       # every import of PIL now fails
+    try:
+        launches = host_io_run(card, root)
+    finally:
+        blocked = "PIL" in sys.modules and sys.modules["PIL"] is None
+        sys.modules.pop("PIL", None)
+    leaked = sorted(k for k in sys.modules if k.split(".")[0] == "PIL")
+    print(f"host_io PIL: installed on this host {installed}, blocked for the "
+          f"phase {blocked}; after it 'PIL' in sys.modules "
+          f"{'PIL' in sys.modules}, PIL modules {leaked}; on {card}",
+          flush=True)
+    if not blocked or leaked or "PIL" in sys.modules:
+        fail(f"host_io: PIL was loaded ({leaked})")
+    note("host_io", pil_installed=installed)
+    if not installed:
+        print(f"host_io pillow: not installed on this host, no oracle; on "
+              f"{card}", flush=True)
+        return launches
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--pillow-oracle",
+                        os.path.join(root, "host_io", "freiburg")],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode:
+        print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+        fail("host_io: the Pillow oracle failed")
+    oracle = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"host_io pillow: the port's read_png, IR window, RGB/grey and "
+          f"label loads and 512x256 resizes against Pillow "
+          f"{oracle['pillow']} on this host: {oracle['compared']} arrays, "
+          f"{oracle['differ']} differ {oracle['first']}; on {card}",
+          flush=True)
+    if oracle["differ"]:
+        fail(f"host_io: {oracle['differ']} arrays differ from Pillow's")
+    # the CPU tests that hold the reader and the resamplers to Pillow (the
+    # 'I;16' overshoot, every mode, filter and direction), on this host's
+    # Pillow; without tests/conftest.py, which imports JAX
+    r = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q",
+                        "-p", "no:cacheprovider",
+                        "tests/test_torch_png_read.py",
+                        "tests/test_torch_image_ops.py"],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    tail = (r.stdout.strip().splitlines() or ["no output"])[-1]
+    print(f"host_io pillow tests: tests/test_torch_png_read.py and "
+          f"tests/test_torch_image_ops.py against Pillow {oracle['pillow']} "
+          f"on this host: {tail}; on {card}", flush=True)
+    if r.returncode:
+        print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+        fail("host_io: the Pillow tests failed on this host")
+    note("host_io", pillow_arrays=oracle["compared"],
+         pillow_differ=oracle["differ"])
+    return launches
+
+
+def host_io_run(card: str, root: str) -> dict:
+    """The entry points read files on the card's host: a seeded Freiburg
+    tree of PNGs (every filter type, one Adam7 file) read back exactly by
+    the port's own reader; ``host_io_measure`` (decode ms, the eval loop
+    from files and from memory, ``serve`` over HTTP, a JPEG body's 400);
+    ``segmentation_evaluate`` through its ``main`` held to the in-memory
+    eval of the same decoded arrays; ``segmentation_train`` three steps.
+    Returns the kernels' launches a path."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli import (
+        segmentation_evaluate, segmentation_train)
+    from thermal_semantic_segmentation_torch.data import png
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+
+    tree = os.path.join(root, "host_io", "freiburg")
+    t0 = time.perf_counter()
+    written = write_freiburg_tree(tree, seed=31)
+    write_s = time.perf_counter() - t0
+    wrong = [p for p, arr in written.items()
+             if not (png.read_png(p).pixels.dtype == arr.dtype
+                     and np.array_equal(png.read_png(p).pixels, arr))]
+    print(f"host_io tree: {len(written)} PNGs at {HOST_IO_HW} ({HOST_IO_TRAIN}"
+          f" train triples, {HOST_IO_TEST} test IR frames with .npy labels; "
+          f"rows through filter types 0-4, one Adam7 file) written in "
+          f"{write_s:.2f} s; decoded back by the port's reader: "
+          f"{len(written) - len(wrong)} exact, {len(wrong)} not; on {card}",
+          flush=True)
+    if wrong:
+        fail(f"host_io: {len(wrong)} files do not decode to what was "
+             f"written: {wrong[:3]}")
+
+    m = host_io_measure(card, root, tree, jpeg=True)
+    frames = HOST_IO_BATCHES * EVAL_BATCH
+    print(f"host_io decode: ms a frame (PNG decode, PIL's resizes, window or "
+          f"crop, label), decode cache off: IR {m['decode_ms_ir_1_thread']:.2f}"
+          f" on one thread, {m['decode_ms_ir_loader']:.2f} through the loader "
+          f"alone ({frames} frames, the files cycled, the first batch "
+          f"{m['loader_ir_first_batch_s']:.3f} s apart); RGB "
+          f"{m['decode_ms_rgb_1_thread']:.2f} / {m['decode_ms_rgb_loader']:.2f}"
+          f" (first batch {m['loader_rgb_first_batch_s']:.3f} s); the "
+          f"loader alone on IR at 2, 4, 8 threads: ms a frame "
+          + ", ".join(f"{m[f'loader_ir_{t}_ms']:.2f} (CPU parallelism "
+                      f"{m[f'loader_ir_{t}_cpu_parallelism']:.2f})"
+                      for t in (2, 4, 8))
+          + f"; {os.cpu_count()} host cores; on {card}", flush=True)
+    for name in ("files", "files_2", "memory"):
+        print(f"host_io eval {name}: {m[f'eval_{name}_batches']} batches of "
+              f"{EVAL_BATCH} (the test frames cycled): first batch "
+              f"{m[f'eval_{name}_first_batch_s']:.3f} s, then "
+              f"{m[f'eval_{name}_steady_images_per_s']:.2f} images/s over "
+              f"the device's span, device idle share "
+              f"{m[f'eval_{name}_steady_idle_share']:.3f}, the main thread "
+              f"waits {m[f'eval_{name}_wait_ms']:.2f} ms a batch and spends "
+              f"{m[f'eval_{name}_step_host_ms']:.2f} in a step, CPU "
+              f"parallelism {m[f'eval_{name}_cpu_parallelism']:.2f}; mIoU "
+              f"{m[f'eval_{name}_mean_iu']}; on {card}", flush=True)
+    print(f"host_io serve: {HOST_IO_REQUESTS} 16-bit {HOST_IO_HW} PNG "
+          f"bodies over HTTP from {HOST_IO_CLIENTS} keep-alive connections "
+          f"in a load process of their own (server batch {EVAL_BATCH}) at "
+          f"{m['http_req_per_s']:.2f} req/s, latency p50 "
+          f"{m['http_p50_ms']:.1f} ms p95 {m['http_p95_ms']:.1f} ms; ids vs "
+          f"the in-process forward of the same bytes: "
+          f"{m['http_ids_mismatched']} pixels differ outside "
+          f"{m['http_near_ties']} near-ties; JPEG body: {m['jpeg_answer']}; "
+          f"launches {m['serve_launches']} on {card}", flush=True)
+    note("host_io", **{k: v for k, v in m.items()
+                       if isinstance(v, float) and not k.endswith("iu")})
+    by_path = {"host_io_serve": {"upsample_argmax": m["serve_launches"]}}
+
+    # segmentation_evaluate through its main, files read
+    argv = ["-dataset", "freiburg_ir", "--freiburg_root", tree,
+            "-checkpoint_name", "smoke.pth", "--model_root_path", root,
+            "-val_batch_size", str(EVAL_BATCH)]
+    upsample_argmax.launches = 0        # counts from the main path only
+    cli_iu, cli_loss, _ = segmentation_evaluate.main(argv)
+    by_path["host_io_eval"] = {"upsample_argmax": upsample_argmax.launches}
+    print(f"host_io eval: segmentation_evaluate.main on the files mIoU "
+          f"{cli_iu} (val_loss {cli_loss}), the in-memory eval of the same "
+          f"decoded arrays {m['memory_iu']}; launches "
+          f"{by_path['host_io_eval']} on {card}", flush=True)
+    if cli_iu != m["memory_iu"]:
+        fail(f"host_io: the file-read eval's mIoU {cli_iu} differs from the "
+             f"in-memory eval's {m['memory_iu']}")
+
+    # segmentation_train through its main, files read, three steps
+    argv = ["-dataset", "freiburg_ir", "--freiburg_root", tree,
+            "-load_model", "true", "-checkpoint_name", "smoke.pth",
+            "--model_root_path", root, "-new_checkpoint_name", "host_io.pth",
+            "-epochs", "1", "-max_steps", "3", "-batch_size",
+            str(EVAL_BATCH), "-val_batch_size", str(EVAL_BATCH)]
+    here = os.getcwd()
+    os.chdir(os.path.join(root, "host_io"))     # the CLI writes logs/ here
+    try:
+        upsample_argmax.launches = 0    # counts from the main path only
+        state, history = segmentation_train.main(argv)
+        by_path["host_io_train"] = {
+            "upsample_argmax": upsample_argmax.launches}
+    finally:
+        os.chdir(here)
+    del state
+    torch.cuda.empty_cache()
+    h = history[-1]
+    print(f"host_io train: segmentation_train.main on the files: "
+          f"{len(h['train_losses'])} steps of {EVAL_BATCH}, losses "
+          f"{h['train_losses']}, val_loss {h['val_loss']}; "
+          f"{h['train_images'] / h['train_s']:.2f} images/s over the three "
+          f"steps (the first one's set-up included), in-memory train phase "
+          f"{NOTES.get('train', {}).get('f32_images_per_s', 'not run')} "
+          f"images/s; launches {by_path['host_io_train']} on {card}",
+          flush=True)
+    if len(h["train_losses"]) != 3 or not all(
+            np.isfinite(h["train_losses"] + [h["val_loss"]])):
+        fail(f"host_io train: {h['train_losses']}, val_loss {h['val_loss']}")
+    note("host_io", train_files_images_per_s=h["train_images"] / h["train_s"])
+    return by_path
+
+
 def phase_doctor(card: str) -> None:
     """The port's doctor with ``--check_backend true`` in a process of its
     own: PASS with the card's name and the kernels built and loaded."""
@@ -5732,7 +6497,8 @@ PHASES = ("serve", "eval", "train", "pseudo", "prototypes", "self_train",
           "distance", "data_parallel", "dist", "spatial", "checkpoint",
           "export",
           "serve_translator",
-          "serve_artifact", "profile", "device_aug", "host_data", "doctor")
+          "serve_artifact", "profile", "device_aug", "host_data", "host_io",
+          "doctor")
 NEEDS = {"gan_dist": ("gan",), "translate": ("gan",),
          "distance": ("translate",), "data_parallel": ("gan",),
          "serve_artifact": ("export",)}
@@ -5814,6 +6580,7 @@ def main(argv) -> int:
             "profile": lambda: phase_profile(card, root, kernels),
             "device_aug": lambda: phase_device_aug(card, root),
             "host_data": lambda: phase_host_data(card, root),
+            "host_io": lambda: phase_host_io(card, root),
             "doctor": lambda: phase_doctor(card),
         }
         for name in phases:
@@ -5859,6 +6626,15 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--spatial-worker"]:
         sys.exit(spatial_worker(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4]))
+    if sys.argv[1:2] == ["--http-load"]:
+        sys.exit(http_load(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                           int(sys.argv[5]), sys.argv[6]))
+    if sys.argv[1:2] == ["--pillow-oracle"]:
+        sys.exit(pillow_oracle(sys.argv[2]))
+    if sys.argv[1:2] == ["--host-io-child"]:
+        sys.exit(host_io_child(*sys.argv[2:6], bool(int(sys.argv[6]))))
+    if sys.argv[1:2] == ["--host-io-compare"]:
+        sys.exit(host_io_compare(sys.argv[2]))
     if sys.argv[1:2] == ["--checkpoint-worker"]:
         sys.exit(checkpoint_worker(int(sys.argv[2]), int(sys.argv[3]),
                                    sys.argv[4]))

@@ -51,6 +51,7 @@ def test_doctor_passes_on_healthy_tree(tmp_path, capsys):
     assert "PASS  freiburg train IR" in out
     assert "PASS  seg checkpoint" in out and "'layers': [1, 1, 1, 1]" in out
     assert "PASS  translated source (translation)" in out
+    assert "PASS  PNG reader" in out and "png_unfilter" in out
     assert "compile cache" not in out
 
 
@@ -61,7 +62,9 @@ def test_doctor_fails_on_broken_tree(tmp_path, capsys):
     rc, out, jax_rc, jax_out = _both(
         ["--freiburg_root", root, "--check_backend", "false"], capsys)
     assert rc == jax_rc == 1 and "doctor: FAIL" in out
-    assert [line for line in _check_lines(out) if "native" not in line] == [
+    # the port's PNG reader line has no JAX counterpart
+    assert [line for line in _check_lines(out)
+            if "native" not in line and "PNG reader" not in line] == [
         line for line in _check_lines(jax_out)
         if "native" not in line and "compile cache" not in line]
 

@@ -103,16 +103,18 @@ def test_unlabelled_test_samples_match_jax(tree):
     ("load_label", "fl_rgb_labels")])
 def test_frame_decoders_match_jax(tree, loader_name, frame):
     from thermal_semantic_segmentation_tpu.data import freiburg as jax_fr
-    from thermal_semantic_segmentation_torch.data import freiburg
+    from thermal_semantic_segmentation_torch.data import freiburg, image
 
+    # the port's frames are numpy arrays in the JAX package's PIL modes
     path = os.path.join(tree, "train", "seq_00_day", "00", frame, "0001.png")
     got = getattr(freiburg, loader_name)(path)
     want = getattr(jax_fr, loader_name)(path)
-    assert got.mode == want.mode and got.size == want.size == (700, 320)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert image.mode_of(got) == want.mode
+    assert image.size(got) == want.size == (700, 320)
+    np.testing.assert_array_equal(got, np.asarray(want))
     if loader_name == "load_rgb_image":
         gray = freiburg.load_rgb_image(path, grayscale=True)
-        assert gray.mode == "L"
+        assert image.mode_of(gray) == "L"
         np.testing.assert_array_equal(
             np.asarray(gray), np.asarray(jax_fr.load_rgb_image(path, True)))
 

@@ -89,7 +89,7 @@ def test_importing_every_module_loads_no_banned_package():
                 "cli.serve", "serving.codec", "cli.profile_step",
                 "cli.doctor", "ops.augment", "data.cache",
                 "data.native_loader", "data.triple_transforms",
-                "parallel.spatial", "nn.spatial"):
+                "parallel.spatial", "nn.spatial", "data.image", "data.gxx"):
         assert f"{port.__name__}.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -103,12 +103,14 @@ def test_importing_every_module_loads_no_banned_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# the files of the port's last slice that are not Python modules, and the
+# the files of the port's last slices that are not Python modules, and the
 # modules, which the import checks above cover too
 LAST_SLICE_FILES = ["cli/profile_step.py", "cli/doctor.py", "ops/augment.py",
                     "data/cache.py", "data/native_loader.py",
                     "data/triple_transforms.py", "csrc/tss_io.cpp",
-                    "recipes/full_pipeline.sh", "recipes/assert_miou.py"]
+                    "recipes/full_pipeline.sh", "recipes/assert_miou.py",
+                    "data/png.py", "data/image.py", "data/gxx.py",
+                    "csrc/png_unfilter.cpp", "csrc/resample.cpp"]
 
 
 @pytest.mark.parametrize("rel", LAST_SLICE_FILES)
@@ -857,3 +859,205 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+# One body of code reads every PNG path of the slice, run by a child
+# process with PIL blocked on the port's modules and, here, with PIL on the
+# JAX package's; each key names one array of one sample.
+PIL_FREE_GATHER = '''
+def gather(kind, spec, common, freiburg, aug, preprocess, host_rng):
+    import numpy as np
+    from thermal_semantic_segmentation_torch.cli.options import seg_parse
+
+    out = {}
+
+    def put(prefix, sample):
+        for key, value in sample.items():
+            if key == "weak_params":
+                for k, v in value.items():
+                    out[f"{prefix}/weak_params/{k}"] = np.asarray(v)
+            elif key != "img_path":
+                out[f"{prefix}/{key}"] = np.asarray(value)
+
+    if kind == "freiburg":
+        for dataset, gray, for_eval in (
+                ("freiburg_ir", False, False), ("freiburg_rgb", False, False),
+                ("freiburg_rgb", True, False),
+                ("freiburg_translation", False, False),
+                ("freiburg_ir", False, True)):
+            args = seg_parse().parse_args(
+                ["-dataset", dataset, "--freiburg_root", spec["fr"],
+                 "-translation_name", "translation", "-grayscale", str(gray)])
+            tf = common.val_transform() if for_eval else \\
+                common.train_transform()
+            ds = common.build_seg_dataset(args, tf, for_eval=for_eval)
+            for i in range(len(ds)):
+                put(f"{dataset}/{gray}/{for_eval}/{i}",
+                    ds.get(i, host_rng(0, 1, i)))
+    elif kind == "cityscapes":
+        for dataset in ("cityscapes", "cityscapes_translation"):
+            args = seg_parse().parse_args(
+                ["-dataset", dataset, "--source_root", spec["cs"]])
+            ds = common.build_seg_dataset(args, common.train_transform())
+            for i in range(len(ds)):
+                put(f"{dataset}/{i}", ds.get(i, host_rng(0, 2, i)))
+    elif kind == "self_train":
+        for threshold in (0.3, 0.0):
+            ds = freiburg.Freiburg(
+                spec["fr"], "train", "IR", segmentation_mode=True,
+                self_train=True, path_soft=spec["soft"],
+                path_lp=spec["hard"], threshold=threshold, ignore_index=12,
+                augmentations=aug.SelfTrainAugment(600, (256, 128), 0.5))
+            for i in range(len(ds)):
+                put(f"{threshold}/{i}", ds.get(i, np.random.default_rng(i)))
+    elif kind == "preprocess":
+        for name, channels in spec["bodies"]:
+            with open(spec["dir"] + "/" + name, "rb") as f:
+                out[f"{name}/{channels}"] = preprocess(f.read(), (256, 512),
+                                                      channels)
+    return out
+'''
+
+PIL_FREE_KINDS = ("freiburg", "cityscapes", "self_train", "preprocess")
+
+PIL_FREE_CHILD = '''
+import json, sys
+sys.modules["PIL"] = None       # every import of PIL now fails
+import numpy as np
+from thermal_semantic_segmentation_torch.cli import _common, translator
+from thermal_semantic_segmentation_torch.core.prng import host_rng
+from thermal_semantic_segmentation_torch.data import freiburg, self_train_aug
+from thermal_semantic_segmentation_torch.serving.batcher import preprocess
+''' + PIL_FREE_GATHER + '''
+spec = json.loads(sys.argv[1])
+for kind in spec["kinds"]:
+    out = gather(kind, spec, _common, freiburg, self_train_aug, preprocess,
+                 host_rng)
+    np.savez(f"{spec['dir']}/{kind}.npz", **out)
+with open(spec["jpeg"], "rb") as f:
+    jpeg = f.read()
+errors = {}
+for name, fn in (
+        ("body", lambda: preprocess(jpeg)),
+        ("t2s", lambda: freiburg.FreiburgTranslationPairs(
+            "t2s", _common.val_transform(), root=spec["dir"],
+            strip_underscore=False).get(0, None)),
+        ("write", lambda: translator.write_frame(
+            spec["dir"] + "/out.jpg", np.zeros((4, 4, 1), np.uint8)))):
+    try:
+        fn()
+        errors[name] = "no error"
+    except ModuleNotFoundError as e:
+        errors[name] = "bare ModuleNotFoundError: " + str(e)
+    except Exception as e:
+        errors[name] = type(e).__name__ + ": " + str(e)
+with open(spec["dir"] + "/errors.json", "w") as f:
+    json.dump(errors, f)
+'''
+
+
+@pytest.fixture(scope="module")
+def pil_free_reads(tmp_path_factory):
+    """Trees of PIL-written PNGs (Freiburg with translations, Cityscapes,
+    the self-training pseudo-labels), request bodies and JPEG files, read
+    by one child process with PIL blocked."""
+    import json
+
+    from PIL import Image
+
+    from tests.synthetic import make_cityscapes_tree, make_freiburg_tree
+    base = tmp_path_factory.mktemp("pil_free")
+    fr = make_freiburg_tree(str(base / "fr"), n_train=3, n_test=2,
+                            translation_name="translation")
+    cs = make_cityscapes_tree(str(base / "cs"), n=2)
+    make_cityscapes_tree(str(base / "cs"), n=2, data_folder="translation",
+                         seed=2)
+    rng = np.random.default_rng(6)
+    for sub in ("hard", "soft"):
+        (base / sub).mkdir()
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 13, (256, 512)).astype(np.uint8)).save(
+            base / "hard" / f"{i:04d}.png")
+        np.save(base / "hard" / f"{i:04d}_conf.npy",
+                rng.random((256, 512)).astype(np.float16))
+        soft = rng.random((13, 33, 65)).astype(np.float32)
+        np.save(base / "soft" / f"{i:04d}.npy", soft / soft.sum(0))
+    bodies = {
+        "u16.png": Image.fromarray(rng.integers(20500, 26500, (41, 123))
+                                   .astype(np.uint16)),
+        "gray.png": Image.fromarray(rng.integers(0, 256, (37, 90))
+                                    .astype(np.uint8)),
+        "rgb.png": Image.fromarray(rng.integers(0, 256, (37, 90, 3))
+                                   .astype(np.uint8)),
+        "rgba.png": Image.fromarray(rng.integers(0, 256, (37, 90, 4))
+                                    .astype(np.uint8)),
+    }
+    pal = Image.fromarray(rng.integers(0, 9, (37, 90)).astype(np.uint8),
+                          mode="P")
+    pal.putpalette(rng.integers(0, 256, 27).tolist())
+    bodies["palette.png"] = pal
+    for name, img in bodies.items():
+        img.save(base / name)
+    (base / "t2s").mkdir()
+    Image.fromarray(rng.integers(0, 256, (40, 80, 3)).astype(np.uint8)).save(
+        base / "t2s" / "0000_translation.jpg")
+    Image.fromarray(rng.integers(0, 13, (40, 80)).astype(np.uint8)).save(
+        base / "t2s" / "0000_groundtruth.png")
+    spec = {"fr": fr, "cs": cs, "soft": str(base / "soft"),
+            "hard": str(base / "hard"), "dir": str(base),
+            "kinds": PIL_FREE_KINDS, "jpeg": str(base / "t2s" /
+                                                  "0000_translation.jpg"),
+            "bodies": [("u16.png", 1), ("gray.png", 1), ("rgb.png", 1),
+                       ("rgb.png", 3), ("rgba.png", 3), ("palette.png", 3),
+                       ("palette.png", 1)]}
+    proc = subprocess.run(
+        [sys.executable, "-c", PIL_FREE_CHILD, json.dumps(spec)], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return spec, json.loads((base / "errors.json").read_text())
+
+
+@pytest.mark.parametrize("kind", PIL_FREE_KINDS)
+def test_png_paths_read_without_pil_match_jax(pil_free_reads, kind):
+    """With PIL blocked, the port reads the Freiburg splits (IR, RGB, gray,
+    translated, the test split's .npy labels), Cityscapes (original and
+    translated), the self-training samples (hard PNG pseudo-labels) and
+    16-bit, L, RGB, RGBA and palette PNG request bodies: each array equals
+    the JAX package's from PIL (the soft maps within 1e-6, as
+    tests/test_torch_self_train_data.py holds them)."""
+    from thermal_semantic_segmentation_tpu.cli import _common as jax_common
+    from thermal_semantic_segmentation_tpu.core.prng import (
+        host_rng as jax_host_rng)
+    from thermal_semantic_segmentation_tpu.data import (
+        freiburg as jax_freiburg, self_train_aug as jax_aug)
+    from thermal_semantic_segmentation_tpu.serving.batcher import (
+        preprocess as jax_preprocess)
+    spec, _ = pil_free_reads
+    scope: dict = {}
+    exec(PIL_FREE_GATHER, scope)
+    want = scope["gather"](kind, spec, jax_common, jax_freiburg, jax_aug,
+                           jax_preprocess, jax_host_rng)
+    got = np.load(f"{spec['dir']}/{kind}.npz")
+    assert len(want) >= 7 and sorted(got.files) == sorted(want)
+    for key, value in want.items():
+        assert got[key].dtype == value.dtype, key
+        if key.endswith("label_soft"):
+            np.testing.assert_allclose(got[key], value, rtol=0, atol=1e-6,
+                                       err_msg=key)
+        else:
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+
+
+def test_jpeg_paths_without_pil_name_the_file(pil_free_reads):
+    """JPEG is not read without PIL: a JPEG request body, a t2s
+    ``*translation.jpg`` frame and a translator ``.jpg`` destination raise
+    an error that names the file (or the request body) and says PNG works,
+    never a bare ModuleNotFoundError."""
+    spec, errors = pil_free_reads
+    assert errors["body"].startswith("ImageReadError: request body: JPEG "
+                                     "is not decoded on this host")
+    assert errors["t2s"].startswith(f"ImageReadError: {spec['jpeg']}: JPEG")
+    assert errors["write"].startswith(
+        f"RuntimeError: {spec['dir']}/out.jpg: writing .jpg needs PIL")
+    for message in errors.values():
+        assert "PNG" in message and "ModuleNotFoundError" not in message

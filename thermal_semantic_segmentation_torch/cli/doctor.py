@@ -242,13 +242,28 @@ def _check_checkpoint(rep: _Report, args):
 
 
 def _check_native(rep: _Report):
+    from ..data import gxx, image, png
     from ..data import native_loader as nl
+    try:
+        png._unfilter_lib()
+        image._resample_lib()
+        rep.ok("PNG reader", f"PNG is read by the port's own reader (no "
+               f"PIL): the row unfilter "
+               f"{gxx.library_path(png.UNFILTER_SOURCE).name} and PIL's "
+               f"resample {gxx.library_path(image.RESAMPLE_SOURCE).name} "
+               f"built from csrc/ with g++ and loaded")
+    except (RuntimeError, OSError) as e:
+        rep.fail("PNG reader", f"csrc/png_unfilter.cpp or csrc/resample.cpp "
+                 f"does not build or load with g++, so no image can be read "
+                 f"or resized: {str(e).splitlines()[0]}")
     if nl.available():
         rep.ok("native C++ IO", f"{nl.library_path().name} built from "
                f"csrc/tss_io.cpp and loaded")
     else:
         rep.warn("native C++ IO", "unavailable (the build needs g++ with "
-                 "the libpng and libjpeg headers): PIL takes its place. "
+                 "the libpng and libjpeg headers): --native_decode and "
+                 "--native_encode fall back to the port's own PNG reader "
+                 "and writer. "
                  + nl.unavailable_reason().splitlines()[0])
 
 

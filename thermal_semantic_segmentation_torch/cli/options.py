@@ -82,7 +82,8 @@ def _add_roots(parser: argparse.ArgumentParser):
                         help='decode Freiburg frames a batch at a time with '
                              'the native C++ IO (data/native_loader.py; '
                              'bilinear resize, PIL BICUBIC stays the parity '
-                             'default). Without the library: PIL.')
+                             'default). Without the library: the port\'s own '
+                             'PNG reader, sample by sample.')
     parser.add_argument('--native_encode', type=str2bool, default=False,
                         help='write translator frames and pseudo-label PNGs '
                              'a batch at a time with the native C++ IO. '

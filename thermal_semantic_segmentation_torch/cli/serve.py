@@ -26,8 +26,10 @@ With ``--artifact <file>`` it serves an artifact of
 checkpoint): the sidecar's ``output_kind`` selects the endpoints, ``ids``
 as the seg kind, ``translation`` as the translator kind.
 
-Input: PNG/JPEG bytes. 16-bit images get the Freiburg IR radiometric window;
-8-bit images are scaled to [0, 1]; everything is resized to 256x512.
+Input: PNG bytes, read by the port's own decoder (no PIL); JPEG bytes need
+PIL on the host, and without it are answered 400. 16-bit images get the
+Freiburg IR radiometric window; 8-bit images are scaled to [0, 1];
+everything is resized to 256x512.
 ``--data_parallel true`` splits every coalesced batch over the cards this
 process sees (``parallel/mesh.LocalMesh``, shrunk to a count that divides
 ``-batch_size``), one model or program copy on each. ``--distributed true``
@@ -198,8 +200,9 @@ def build_server(args):
     return build_translation_server(args)
 
 
-def main(argv=None):
-    args = serve_parse().parse_args(argv)
+def start_http(args):
+    """Build the server ``args`` asks for, warm it up and start its batch
+    worker; returns (the HTTP server, not yet serving, the batcher)."""
     server, handler_kw = build_server(args)
     print("warming up...", flush=True)
     server.warmup()
@@ -213,6 +216,12 @@ def main(argv=None):
         "device": str(server.device), "devices": server.mesh.size}
     httpd = ThreadingHTTPServer((args.host, args.port),
                                 make_handler(server, info, **handler_kw))
+    return httpd, server
+
+
+def main(argv=None):
+    args = serve_parse().parse_args(argv)
+    httpd, server = start_http(args)
     print(f"serving on http://{args.host}:{args.port} "
           f"(batch {args.batch_size}, wait {args.max_wait_ms} ms)", flush=True)
     # production schedulers stop services with SIGTERM: turn it into a

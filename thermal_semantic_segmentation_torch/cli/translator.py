@@ -74,13 +74,20 @@ def destination(path: str, suffix: str) -> str:
 
 def write_frame(path: str, pixels: np.ndarray) -> None:
     """(H, W, C) uint8 -> ``path``: a gray (C = 1) or RGB PNG by
-    ``data/png.py``, any other extension through PIL."""
+    ``data/png.py``, any other extension (JPEG) through PIL; without PIL
+    that raises, naming the file."""
     frame = pixels[..., 0] if pixels.shape[-1] == 1 else pixels
     if path.lower().endswith(".png"):
         (png.write_gray_png if frame.ndim == 2 else png.write_rgb_png)(
             path, frame)
         return
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(
+            f"{path}: writing {os.path.splitext(path)[1] or 'this format'} "
+            f"needs PIL, which is not installed on this host (PNG is written "
+            f"without it)") from None
     Image.fromarray(frame).save(path)
 
 

@@ -3,8 +3,8 @@ JAX ``data/cityscapes.py``).
 
 The 19-class label ids merge into the 13-class Freiburg taxonomy through a
 256-entry lookup table (reference data/source_dataset.py:45-49); unmapped
-ids become the ignore label 12. PIL is imported where it is used, so the
-package imports on a host without it.
+ids become the ignore label 12. Frames and labels are read by
+``data/image.py`` (no PIL).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from . import image as im
 from .list_files import cityscapes_list, parse_list_file
 
 # the 19 Cityscapes evaluation classes, in train-id order
@@ -74,17 +75,14 @@ class Cityscapes:
         return len(self.data_list)
 
     def get(self, index: int, rng: np.random.Generator) -> dict:
-        from PIL import Image
-
         image_name = self.data_list[index]
-        image = Image.open(image_name)
-        if self.data_folder == "leftImg8bit":
-            image = image.convert("RGB")
+        image = im.open_image(image_name, "RGB" if self.data_folder
+                              == "leftImg8bit" else None)
         if not self.train_mode:
             img, _ = self.transforms(rng, image, None)
             return {"image": img, "img_path": image_name.replace(
                 "leftImg8bit", "translation")}
-        label = Image.open(self.label_list[index])
+        label = im.open_image(self.label_list[index])
         img, lab = self.transforms(rng, image, label)
         return {"image": img, "label": remap_label(lab)}
 

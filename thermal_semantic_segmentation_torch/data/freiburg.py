@@ -3,8 +3,9 @@ translated test pairs (counterpart of the JAX ``data/freiburg.py``).
 
 IR radiometric normalisation: resize the 16-bit frame to RAW_SIZE BICUBIC,
 crop columns COL_CROP, clamp to [IR_MIN, IR_MAX] and scale to [0, 1]. RGB
-frames and labels get the same resize (labels NEAREST) and crop. PIL is
-imported where it is used, so the package imports on a host without it.
+frames and labels get the same resize (labels NEAREST) and crop. Frames are
+numpy arrays in PIL's modes, read and resampled by ``data/image.py`` as PIL
+does, without PIL (the t2s sets' JPEG frames need PIL).
 Decoded frames and labels go through the process's decode cache
 (``data/cache.py``, off unless ``--decode_cache_mb`` or
 ``--decode_cache_dir`` is given) under the JAX package's keys: ('ir', path),
@@ -19,6 +20,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from . import image as im
 from .cache import decode_cache
 from .list_files import freiburg_lists, parse_list_file
 
@@ -27,62 +29,48 @@ RAW_SIZE = (960, 320)          # PIL (w, h)
 COL_CROP = (150, 850)
 
 
-def _pil_image():
-    """PIL's ``Image`` module, with truncated files decoding to a partly
-    zero image instead of raising, as the reference sets at every entry
-    point."""
-    from PIL import Image, ImageFile
+def ir_frame(frame: np.ndarray) -> np.ndarray:
+    """A decoded IR frame ('I;16') -> float32 'F' (H, crop width) in
+    [0, 1]: the BICUBIC resize to RAW_SIZE, the column crop, the clamp to
+    [IR_MIN, IR_MAX] and the scale."""
+    image = im.resize(frame, RAW_SIZE, im.BICUBIC).astype(np.float32)
+    image = np.clip(image[:, COL_CROP[0]:COL_CROP[1]], IR_MIN, IR_MAX)
+    return (image - IR_MIN) / (IR_MAX - IR_MIN)
 
-    ImageFile.LOAD_TRUNCATED_IMAGES = True
-    return Image
 
-
-def load_ir_image(path_or_file):
-    """16-bit IR PNG (path or file object) -> float [0, 1] PIL 'F' image,
-    windowed and column-cropped. A file object is decoded every time (it
-    has no stable cache key)."""
-    Image = _pil_image()
-
+def load_ir_image(path_or_file) -> np.ndarray:
+    """16-bit IR PNG (path, file object or bytes) -> float32 'F' (H, W) in
+    [0, 1], windowed and column-cropped (``ir_frame``). A file object or
+    bytes are decoded every time (no stable cache key)."""
     def decode():
-        image = np.array(Image.open(path_or_file).resize(
-            RAW_SIZE, Image.BICUBIC), dtype=np.float32)
-        image = np.clip(image[:, COL_CROP[0]:COL_CROP[1]], IR_MIN, IR_MAX)
-        return (image - IR_MIN) / (IR_MAX - IR_MIN)
+        return ir_frame(im.open_image(path_or_file))
 
     if not isinstance(path_or_file, str):
-        return Image.fromarray(decode())
-    return Image.fromarray(decode_cache().get_or_decode(
-        ("ir", path_or_file), decode))
+        return decode()
+    return decode_cache().get_or_decode(("ir", path_or_file), decode)
 
 
-def load_rgb_image(path: str, grayscale: bool = False):
-    """RGB frame -> uint8 PIL image (grayscale 'L' with ``grayscale``),
+def load_rgb_image(path: str, grayscale: bool = False) -> np.ndarray:
+    """RGB frame -> uint8 'RGB' (H, W, 3) ('L' (H, W) with ``grayscale``),
     resized and column-cropped."""
-    Image = _pil_image()
-
     def decode():
-        img = Image.open(path).convert("RGB")
+        img = im.open_image(path, "RGB")
         if grayscale:
-            from PIL import ImageOps
-            img = ImageOps.grayscale(img)
-        arr = np.array(img.resize(RAW_SIZE, Image.BICUBIC), dtype=np.float32)
-        return np.uint8(arr[:, COL_CROP[0]:COL_CROP[1]])
+            img = im.convert(img, "L")
+        return np.ascontiguousarray(im.resize(img, RAW_SIZE, im.BICUBIC)[
+            :, COL_CROP[0]:COL_CROP[1]])
 
-    return Image.fromarray(decode_cache().get_or_decode(
-        ("rgb", path, grayscale), decode))
+    return decode_cache().get_or_decode(("rgb", path, grayscale), decode)
 
 
-def load_label(path: str):
-    """Label PNG -> 'L' PIL image, resized NEAREST and column-cropped."""
-    Image = _pil_image()
-
+def load_label(path: str) -> np.ndarray:
+    """Label PNG -> uint8 (H, W) ids, resized NEAREST and column-cropped."""
     def decode():
-        label = np.array(Image.open(path).resize(RAW_SIZE, Image.NEAREST),
-                         dtype=np.uint8)
-        return label[:, COL_CROP[0]:COL_CROP[1]]
+        label = im.resize(im.open_image(path), RAW_SIZE, im.NEAREST)
+        return np.ascontiguousarray(
+            np.asarray(label, np.uint8)[:, COL_CROP[0]:COL_CROP[1]])
 
-    return Image.fromarray(decode_cache().get_or_decode(("label", path),
-                                                        decode), mode="L")
+    return decode_cache().get_or_decode(("label", path), decode)
 
 
 class Freiburg:
@@ -165,11 +153,9 @@ class Freiburg:
         if self.self_train:
             return load_ir_image(image_name)
         if self.segmentation_mode:
-            Image = _pil_image()
             translated = self._swap_split(image_name)
-            return Image.fromarray(decode_cache().get_or_decode(
-                ("translated", translated),
-                lambda: np.asarray(Image.open(translated))))
+            return decode_cache().get_or_decode(
+                ("translated", translated), lambda: im.open_image(translated))
         if self.domain == "IR":
             return load_ir_image(image_name)
         if self.domain == "RGB":
@@ -182,22 +168,20 @@ class Freiburg:
         column crop and IR window), then each sample's transforms run on its
         frame. None where this mode has no native path (translation,
         self-training, grayscale) or the library is unavailable: the loader
-        then reads sample by sample. The native resize is bilinear, the PIL
-        path's BICUBIC, so the two agree in distribution, not bit for bit;
-        PIL stays the parity path."""
+        then reads sample by sample. The native resize is bilinear, the
+        sample path's PIL BICUBIC, so the two agree in distribution, not bit
+        for bit; the sample path stays the parity path."""
         from . import native_loader as nl
 
         plain = not (self.segmentation_mode or self.self_train
                      or self.grayscale)
         if not (self.native_decode and plain and nl.available()):
             return None
-        Image = _pil_image()
         paths = [self.data_list[i] for i in indices]
         if self.domain == "IR":
-            images = [Image.fromarray(a[..., 0])
-                      for a in nl.decode_ir_batch(paths)]
+            images = [a[..., 0] for a in nl.decode_ir_batch(paths)]
         else:
-            images = [Image.fromarray(a) for a in nl.decode_rgb_batch(paths)]
+            images = list(nl.decode_rgb_batch(paths))
         return [self.get(i, rng, image=img)
                 for i, rng, img in zip(indices, rngs, images)]
 
@@ -224,13 +208,12 @@ class Freiburg:
         return out
 
     def _self_train_sample(self, out: dict, image, label, rng) -> dict:
-        Image = _pil_image()
         name = out["img_path"]
         label_soft = None
         if self.proto_rectify:
             label_soft = np.load(os.path.join(
                 self.path_soft, name.replace(".png", ".npy")))
-        label_hard = np.array(Image.open(os.path.join(self.path_lp, name)),
+        label_hard = np.array(im.open_image(os.path.join(self.path_lp, name)),
                               dtype=np.uint8)
         if self.threshold:
             conf = np.load(os.path.join(self.path_lp,
@@ -239,8 +222,7 @@ class Freiburg:
             keep = np.full(label_hard.shape, self.ignore_index, np.uint8)
             for cid in self.hard_keep_classes:
                 keep[label_hard == cid] = cid
-            label_hard = np.array(Image.fromarray(keep).resize(
-                image.size, Image.NEAREST), dtype=np.uint8)
+            label_hard = im.resize(keep, im.size(image), im.NEAREST)
         image_full = np.asarray(image, dtype=np.float32)
         img, mask, mask_hard, lpsoft, params = self.augmentations(
             rng, image, np.array(label, dtype=np.uint8), label_hard,
@@ -297,10 +279,8 @@ class FreiburgTest:
             img, _ = self.transforms(rng, image, None)
             return {"image": img}
 
-        Image = _pil_image()
-        label = Image.fromarray(np.load(self.label_list[index])).resize(
-            RAW_SIZE, Image.NEAREST)
-        label = Image.fromarray(np.array(label)[:, COL_CROP[0]:COL_CROP[1]])
+        label = im.resize(np.load(self.label_list[index]), RAW_SIZE,
+                          im.NEAREST)[:, COL_CROP[0]:COL_CROP[1]]
         img, lab = self.transforms(rng, image, label)
         return {"image": img, "label": np.asarray(lab, dtype=np.int64)}
 
@@ -327,9 +307,8 @@ class FreiburgTranslationPairs:
         return len(self.translation_files)
 
     def get(self, index: int, rng: np.random.Generator) -> dict:
-        Image = _pil_image()
         image_name = self.translation_files[index]
-        image = Image.open(image_name)
-        label = Image.open(image_name.replace(self._old, self._new))
+        image = im.open_image(image_name)        # JPEG: PIL
+        label = im.open_image(image_name.replace(self._old, self._new))
         img, lab = self.transforms(rng, image, label)
         return {"image": img, "label": np.asarray(lab, dtype=np.int64)}

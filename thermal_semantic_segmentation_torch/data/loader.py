@@ -137,7 +137,7 @@ class DataLoader:
                     else [fetch(i) for i in batch_idx])
 
         # only where the dataset asks for it: the fallback above reads its
-        # samples in turn, so PIL loads keep the pool's parallelism
+        # samples in turn, so per-sample loads keep the pool's parallelism
         use_batch = (hasattr(self.dataset, "get_batch")
                      and getattr(self.dataset, "native_decode", False))
         with cf.ThreadPoolExecutor(max_workers=self.num_threads) as pool:

@@ -7,75 +7,44 @@ frames uint8. Encoding writes batches of 8-bit images (an optional
 PIL-BICUBIC-equivalent resize, then PNG or JPEG by suffix) and palette PNGs.
 This is host IO: no device work and no CUDA kernel.
 
-The library is compiled at first use with ``g++ -O3 -shared -fPIC
--std=c++17 ... -lpng -ljpeg -lz`` into the package's ``_build/`` directory
-(gitignored, shared with the CUDA kernels), its file name carrying a hash of
-the source, so an edited source is rebuilt and a stale library never loads.
-When it cannot be built or loaded (no ``g++``, or no libpng/libjpeg
-headers), ``available()`` is false, the reason is logged once, and the
-callers take their PIL path.
+The library is compiled at first use by ``data/gxx.py`` (``g++ ... -lpng
+-ljpeg -lz``). When it cannot be built or loaded (no ``g++``, or no
+libpng/libjpeg headers), ``available()`` is false, the reason is logged
+once, and the callers read sample by sample through ``data/image.py``.
 
-The native decode resizes bilinearly; the PIL path's BICUBIC stays the
-parity path (``data/freiburg.py``), as in the JAX package.
+The native decode resizes bilinearly; ``data/image.py``'s BICUBIC (PIL's)
+stays the parity path (``data/freiburg.py``), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
 import os
-import subprocess
-import tempfile
 import threading
-from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 
-PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "csrc" / "tss_io.cpp"
-BUILD_DIR = PACKAGE_DIR / "_build"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+from . import gxx
+
+SOURCE = gxx.CSRC_DIR / "tss_io.cpp"
+BUILD_DIR = gxx.BUILD_DIR
 LIBS = ("-lpng", "-ljpeg", "-lz")
 
 _lock = threading.Lock()
 _state: dict = {}          # "lib": the loaded CDLL or None, "why": reason
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(GXX_FLAGS + LIBS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"libtss_io-{digest}.so"
+def library_path():
+    return gxx.library_path(SOURCE, LIBS)
 
 
-def build() -> Path:
+def build():
     """Compile ``csrc/tss_io.cpp`` unless its library exists; returns the
     library's path. Raises ``RuntimeError`` with the compiler's output when
     the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = ["g++", *GXX_FLAGS, str(SOURCE), *LIBS, "-o", tmp]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=300)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        os.unlink(tmp)
-        raise RuntimeError(f"g++ could not run: {e}") from e
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        log = proc.stderr.strip()
-        first = next((line for line in log.splitlines() if "error" in line),
-                     log.splitlines()[0] if log else "")
-        raise RuntimeError(f"g++ failed for csrc/tss_io.cpp (exit "
-                           f"{proc.returncode}): {first}\n{log}")
-    os.replace(tmp, out)    # atomic: a reader never sees a partial library
-    return out
+    return gxx.build(SOURCE, LIBS)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -114,7 +83,7 @@ def _load() -> Optional[ctypes.CDLL]:
             except (RuntimeError, OSError) as e:
                 _state["lib"], _state["why"] = None, str(e)
                 logging.getLogger(__name__).warning(
-                    "native C++ IO unavailable, using PIL: %s", e)
+                    "native C++ IO unavailable, reading sample by sample: %s", e)
         return _state["lib"]
 
 

@@ -11,7 +11,8 @@ map the teacher's features of the *full* image into the student's view:
 
 The soft maps (C, h, w) resample bilinearly with aligned corners, in float32
 from the JAX package's float64 source coordinates (``ops/resize
-.resize_bilinear_taps``), on the host. PIL is imported where it is used.
+.resize_bilinear_taps``), on the host. The image and the masks are numpy
+arrays in PIL's modes, resampled by ``data/image.py`` as PIL does.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear_taps
+from . import image as im
 
 
 def interp_soft(lpsoft: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -51,28 +53,28 @@ class SelfTrainAugment:
     def __call__(self, rng: np.random.Generator, img, mask: np.ndarray,
                  mask_hard: Optional[np.ndarray] = None,
                  lpsoft: Optional[np.ndarray] = None):
-        """img: a PIL image; mask, mask_hard: (H, W) uint8; lpsoft: (C, h, w)
-        soft maps at any size. Returns (image (th, tw[, 3]) float32, mask
-        int64, hard mask int64 or None, soft maps (C, th, tw) float32 or
-        None, params)."""
-        from PIL import Image
-
-        mask_img = Image.fromarray(np.uint8(mask), mode="L")
-        hard_img = (Image.fromarray(np.uint8(mask_hard), mode="L")
-                    if mask_hard is not None else None)
+        """img: an 'F' (H, W) float32 or 8-bit image (``data/image.py``; a
+        PIL image is taken as its array); mask, mask_hard: (H, W) uint8;
+        lpsoft: (C, h, w) soft maps at any size. Returns (image (th, tw[,
+        3]) float32, mask int64, hard mask int64 or None, soft maps (C, th,
+        tw) float32 or None, params)."""
+        img = np.asarray(img)
+        mask_img = np.uint8(mask)
+        hard_img = np.uint8(mask_hard) if mask_hard is not None else None
+        width, height = im.size(img)
         if lpsoft is not None:
-            lpsoft = interp_soft(lpsoft, img.size[1], img.size[0])
+            lpsoft = interp_soft(lpsoft, height, width)
         params = {}
 
         # RandomSized (self_train_augmentation.py:130-157)
-        prop = img.size[0] / img.size[1]
+        prop = width / height
         w = int(rng.uniform(0.5, 1.5) * self.resize)
         h = int(w / prop)
         params["resized_hw"] = np.array([h, w], dtype=np.int32)
-        img = img.resize((w, h), Image.BILINEAR)
-        mask_img = mask_img.resize((w, h), Image.NEAREST)
+        img = im.resize(img, (w, h), im.BILINEAR)
+        mask_img = im.resize(mask_img, (w, h), im.NEAREST)
         if hard_img is not None:
-            hard_img = hard_img.resize((w, h), Image.NEAREST)
+            hard_img = im.resize(hard_img, (w, h), im.NEAREST)
         if lpsoft is not None:
             lpsoft = interp_soft(lpsoft, h, w)
 
@@ -81,10 +83,10 @@ class SelfTrainAugment:
         if w < tw or h < th:
             # undersized: resized straight to the crop size (the reference's
             # fallback)
-            img = img.resize((tw, th), Image.BILINEAR)
-            mask_img = mask_img.resize((tw, th), Image.NEAREST)
+            img = im.resize(img, (tw, th), im.BILINEAR)
+            mask_img = im.resize(mask_img, (tw, th), im.NEAREST)
             if hard_img is not None:
-                hard_img = hard_img.resize((tw, th), Image.NEAREST)
+                hard_img = im.resize(hard_img, (tw, th), im.NEAREST)
             if lpsoft is not None:
                 lpsoft = interp_soft(lpsoft, th, tw)
             params["crop"] = np.array([0, th, 0, tw], dtype=np.int32)
@@ -95,10 +97,10 @@ class SelfTrainAugment:
             params["crop"] = np.array([y1, y1 + th, x1, x1 + tw],
                                       dtype=np.int32)
             box = (x1, y1, x1 + tw, y1 + th)
-            img = img.crop(box)
-            mask_img = mask_img.crop(box)
+            img = im.crop(img, box)
+            mask_img = im.crop(mask_img, box)
             if hard_img is not None:
-                hard_img = hard_img.crop(box)
+                hard_img = im.crop(hard_img, box)
             if lpsoft is not None:
                 lpsoft = lpsoft[:, y1:y1 + th, x1:x1 + tw]
 
@@ -106,10 +108,10 @@ class SelfTrainAugment:
         flip = rng.random() < self.hflip
         params["flip"] = np.bool_(flip)
         if flip:
-            img = img.transpose(Image.FLIP_LEFT_RIGHT)
-            mask_img = mask_img.transpose(Image.FLIP_LEFT_RIGHT)
+            img = im.flip_left_right(img)
+            mask_img = im.flip_left_right(mask_img)
             if hard_img is not None:
-                hard_img = hard_img.transpose(Image.FLIP_LEFT_RIGHT)
+                hard_img = im.flip_left_right(hard_img)
             if lpsoft is not None:
                 lpsoft = lpsoft[:, :, ::-1]
 

@@ -1,7 +1,7 @@
 """Auxiliary datasets (counterpart of the JAX ``data/simple.py``): the
 unlabelled KITTI raw frames and FLIR ADAS thermal train frames, and the
-(original, translated) pairs of the translation-distance eval. PIL is
-imported where a frame is decoded."""
+(original, translated) pairs of the translation-distance eval. Frames are
+read by ``data/image.py`` (PNG without PIL; JPEG through PIL)."""
 
 from __future__ import annotations
 
@@ -10,8 +10,8 @@ from typing import Callable
 
 import numpy as np
 
-from .freiburg import (COL_CROP, RAW_SIZE, _pil_image, load_ir_image,
-                       load_label)
+from . import image as im
+from .freiburg import COL_CROP, RAW_SIZE, load_ir_image, load_label
 from .list_files import (flir_list, freiburg_lists, kitti_list,
                          parse_list_file)
 
@@ -39,10 +39,9 @@ class Kitti:
 
     def get(self, index: int, rng: np.random.Generator) -> dict:
         image_name = self.data_list[index]
-        image = _pil_image().open(image_name).convert("RGB")
+        image = im.open_image(image_name, "RGB")
         if self.grayscale:
-            from PIL import ImageOps
-            image = ImageOps.grayscale(image)
+            image = im.convert(image, "L")
         img, _ = self.transforms(rng, image, None)
         out = {"image": img}
         if self.translation_mode:
@@ -65,7 +64,7 @@ class FlirTrain:
         return len(self.data_list)
 
     def get(self, index: int, rng: np.random.Generator) -> dict:
-        image = _pil_image().open(self.data_list[index])
+        image = im.open_image(self.data_list[index])
         img, _ = self.transforms(rng, image, None)
         return {"image": img}
 
@@ -111,7 +110,6 @@ class DistanceDataset:
         return len(self.data_list)
 
     def get(self, index: int, rng: np.random.Generator) -> dict:
-        Image = _pil_image()
         ori_name = self.data_list[index]
         rel = os.path.relpath(ori_name, self.root)
         trans_name = os.path.join(self.root, rel.replace(
@@ -120,13 +118,12 @@ class DistanceDataset:
             ori = np.asarray(load_ir_image(ori_name),
                              dtype=np.float32)[..., None]
         elif self.domain == "RGB":
-            arr = np.array(Image.open(ori_name).convert("RGB").resize(
-                RAW_SIZE, Image.BICUBIC),
-                dtype=np.float32)[:, COL_CROP[0]:COL_CROP[1]]
-            ori = np.uint8(arr).astype(np.float32) / 255.0
+            arr = im.resize(im.open_image(ori_name, "RGB"), RAW_SIZE,
+                            im.BICUBIC)[:, COL_CROP[0]:COL_CROP[1]]
+            ori = arr.astype(np.float32) / 255.0
         else:
             raise ValueError("Not a valid domain.")
-        raw = np.asarray(Image.open(trans_name))
+        raw = im.open_image(trans_name)
         trans = raw.astype(np.float32)
         if raw.dtype == np.uint8 or trans.max() > 1.5:
             trans = trans / 255.0

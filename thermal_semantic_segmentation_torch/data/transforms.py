@@ -3,10 +3,11 @@
 
 A transform is a callable ``t(rng, image, label) -> (image, label)`` where
 ``rng`` is a ``numpy.random.Generator``; ``label`` may be ``None``. Images
+and labels are numpy arrays in PIL's modes (``data/image.py``; a PIL image
+is taken as its array), and each operation gives PIL's pixels. Images
 resample BICUBIC and labels NEAREST, as in the reference. The random
 transforms draw from ``rng`` in the JAX package's order, so the same (seed,
-epoch, index) gives the same arrays. PIL is imported where it is used, so
-the package imports on a host without it.
+epoch, index) gives the same arrays.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import image as im
 
 
 class Compose:
@@ -38,11 +41,9 @@ class Resize:
                            else self.image_size)
 
     def __call__(self, rng, image, label=None):
-        from PIL import Image
-
-        image = image.resize(self.image_size, Image.BICUBIC)
+        image = im.resize(image, self.image_size, im.BICUBIC)
         if label is not None:
-            label = label.resize(self.label_size, Image.NEAREST)
+            label = im.resize(label, self.label_size, im.NEAREST)
         return image, label
 
 
@@ -52,13 +53,14 @@ class RandomCrop:
 
     def __call__(self, rng, image, label=None):
         tw, th = self.size
+        width, height = im.size(np.asarray(image))
         # reference quirk: offsets drawn in [0, extent-1] inclusive
-        left = int(rng.integers(0, max(image.size[0] - tw - 1, 0) + 1))
-        upper = int(rng.integers(0, max(image.size[1] - th - 1, 0) + 1))
+        left = int(rng.integers(0, max(width - tw - 1, 0) + 1))
+        upper = int(rng.integers(0, max(height - th - 1, 0) + 1))
         box = (left, upper, left + tw, upper + th)
-        image = image.crop(box)
+        image = im.crop(image, box)
         if label is not None:
-            label = label.crop(box)
+            label = im.crop(label, box)
         return image, label
 
 
@@ -68,11 +70,9 @@ class RandomHorizontalFlip:
 
     def __call__(self, rng, image, label=None):
         if rng.random() < self.p:
-            from PIL import Image
-
-            image = image.transpose(Image.FLIP_LEFT_RIGHT)
+            image = im.flip_left_right(image)
             if label is not None:
-                label = label.transpose(Image.FLIP_LEFT_RIGHT)
+                label = im.flip_left_right(label)
         return image, label
 
 
@@ -113,14 +113,12 @@ class RandomResizedCrop:
         return (height - h) // 2, (width - w) // 2, h, w
 
     def __call__(self, rng, image, label=None):
-        from PIL import Image
-
-        top, left, h, w = self.get_params(rng, *image.size)
+        top, left, h, w = self.get_params(rng, *im.size(np.asarray(image)))
         box = (left, top, left + w, top + h)
         out_wh = (self.size[1], self.size[0])
-        image = image.crop(box).resize(out_wh, Image.BICUBIC)
+        image = im.resize(im.crop(image, box), out_wh, im.BICUBIC)
         if label is not None:
-            label = label.crop(box).resize(out_wh, Image.NEAREST)
+            label = im.resize(im.crop(label, box), out_wh, im.NEAREST)
         return image, label
 
 
@@ -163,14 +161,12 @@ class ColorJitter:
                 if amount else 1.0)
 
     def __call__(self, rng, image, label=None):
-        from PIL import ImageEnhance
-
-        for enhancer, amount in ((ImageEnhance.Brightness, self.brightness),
-                                 (ImageEnhance.Contrast, self.contrast),
-                                 (ImageEnhance.Color, self.saturation)):
+        for enhance, amount in ((im.enhance_brightness, self.brightness),
+                                (im.enhance_contrast, self.contrast),
+                                (im.enhance_color, self.saturation)):
             f = self._factor(rng, amount)
             if f != 1.0:
-                image = enhancer(image).enhance(f)
+                image = enhance(image, f)
         return image, label
 
 
@@ -191,7 +187,7 @@ class MultipleApply:
 
 
 class ToArray:
-    """PIL -> float32 HWC numpy. uint8 scales to [0, 1]; float passes
+    """An image -> float32 HWC numpy. uint8 scales to [0, 1]; float passes
     through. Grayscale and 'F' images come out (H, W, 1); labels, if given,
     come out int64 (H, W)."""
 
@@ -203,7 +199,7 @@ class ToArray:
             arr = arr.astype(np.float32)
         if arr.ndim == 2:
             arr = arr[..., None]
-        if label is not None and not isinstance(label, np.ndarray):
+        if label is not None:
             label = np.asarray(label, dtype=np.int64)
         return arr, label
 

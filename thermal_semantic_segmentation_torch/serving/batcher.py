@@ -11,7 +11,6 @@ decoding (the translation kind, an exported artifact) and keep the batcher.
 
 from __future__ import annotations
 
-import io
 import queue
 import threading
 import time
@@ -37,28 +36,31 @@ def preprocess(image_bytes: bytes, hw=HW, channels: int = 1) -> np.ndarray:
 
     16-bit input follows the Freiburg IR protocol (``data/freiburg.py``
     ``load_ir_image``: resize to RAW_SIZE BICUBIC, column crop, radiometric
-    window), then the eval resize to ``hw``; 8-bit input (grayscale or RGB)
-    scales to [0, 1]."""
-    from PIL import Image
-
-    from ..data.freiburg import load_ir_image
-
-    img = Image.open(io.BytesIO(image_bytes))
-    arr = np.asarray(img)
-    if arr.dtype == np.uint16:
-        windowed = load_ir_image(io.BytesIO(image_bytes))
-        arr = np.asarray(windowed.resize((hw[1], hw[0]), Image.BICUBIC),
-                         dtype=np.float32)[..., None]
-    else:
-        img = img.convert("RGB" if channels == 3 else "L")
-        arr = np.asarray(img.resize((hw[1], hw[0]), Image.BICUBIC),
-                         dtype=np.float32) / 255.0
-        if arr.ndim == 2:
-            arr = arr[..., None]
+    window), then the eval resize to ``hw``; 8-bit input (grayscale, RGB,
+    RGBA or palette) converts to L or RGB and scales to [0, 1]. PNG bodies
+    are read without PIL (``data/image.py``); a JPEG body needs PIL, and
+    without it is refused (a ``ValueError``: HTTP 400)."""
+    arr = _decode_resized(image_bytes, hw, channels)
     if arr.shape[-1] != channels:
         raise ValueError(f"expected {channels}-channel input, got "
                          f"{arr.shape[-1]} (16-bit IR is 1-channel)")
     return arr
+
+
+def _decode_resized(image_bytes: bytes, hw, channels: int) -> np.ndarray:
+    """Request bytes -> (H, W, C) float32 at ``hw``: a 16-bit frame through
+    the IR window (C = 1), an 8-bit one converted to RGB (``channels`` 3)
+    or L and divided by 255."""
+    from ..data import image as im
+    from ..data.freiburg import ir_frame
+
+    pixels, palette = im.read_image(image_bytes, name="request body")
+    if pixels.dtype == np.uint16:
+        return im.resize(ir_frame(pixels), (hw[1], hw[0]), im.BICUBIC)[
+            ..., None]
+    img = im.convert(pixels, "RGB" if channels == 3 else "L", palette)
+    arr = im.resize(img, (hw[1], hw[0]), im.BICUBIC).astype(np.float32) / 255.0
+    return arr[..., None] if arr.ndim == 2 else arr
 
 
 class InferenceServer:

@@ -10,7 +10,6 @@ per input in request order (status 0 ok, 1 bad frame, 2 inference error).
 
 from __future__ import annotations
 
-import io
 import json
 import struct
 
@@ -20,7 +19,7 @@ import torch
 from ..data.palette import colorize_prediction
 from ..data.png import gray_png_bytes, rgb_png_bytes
 from ..models.forward import generator_forward
-from .batcher import HW
+from .batcher import HW, _decode_resized
 
 
 def encode_result(pred: np.ndarray, fmt: str, palette) -> tuple:
@@ -43,7 +42,8 @@ def make_translation_fns(*, channels: int, normalize, denormalize, hw=HW,
 
     - preprocess: 16-bit IR through ``load_ir_image``'s radiometric window
       (1-channel only), 8-bit input converted to RGB or L, resized BICUBIC
-      to ``hw`` and divided by 255; then ``(x - m) / m`` with ``m`` =
+      to ``hw`` and divided by 255 (``batcher.preprocess``'s decode: PNG
+      without PIL); then ``(x - m) / m`` with ``m`` =
       ``normalize`` (its first value for 1-channel input);
     - predict ``(net, x)``: ``forward(net, x)``, by default the server's
       replica ``net``'s eval forward (``models/forward.generator_forward``,
@@ -62,28 +62,13 @@ def make_translation_fns(*, channels: int, normalize, denormalize, hw=HW,
     on_device = {}      # one upload of ``d`` a device, not one a batch
 
     def preprocess_fn(image_bytes: bytes) -> np.ndarray:
-        from PIL import Image
-
-        from ..data.freiburg import load_ir_image
-
-        img = Image.open(io.BytesIO(image_bytes))
-        if np.asarray(img).dtype == np.uint16:
-            # 16-bit thermal input: the Freiburg IR window, as the seg kind
-            # preprocesses it (a plain convert('L') saturates it to white)
-            if channels != 1:
-                raise ValueError("16-bit IR input is 1-channel")
-            windowed = load_ir_image(io.BytesIO(image_bytes))
-            arr = np.asarray(windowed.resize((hw[1], hw[0]), Image.BICUBIC),
-                             dtype=np.float32)[..., None]
-        else:
-            img = img.convert("RGB" if channels == 3 else "L")
-            arr = np.asarray(img.resize((hw[1], hw[0]), Image.BICUBIC),
-                             dtype=np.float32) / 255.0
-            if arr.ndim == 2:
-                arr = arr[..., None]
+        # 16-bit thermal input goes through the Freiburg IR window, as the
+        # seg kind preprocesses it (a plain convert('L') saturates it to
+        # white)
+        arr = _decode_resized(image_bytes, hw, channels)
         if arr.shape[-1] != channels:
             raise ValueError(f"expected {channels}-channel input, got "
-                             f"{arr.shape[-1]}")
+                             f"{arr.shape[-1]} (16-bit IR is 1-channel)")
         return (arr - mean) / mean
 
     def predict_fn(net, x: torch.Tensor) -> torch.Tensor:
