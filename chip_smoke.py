@@ -192,7 +192,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      commit that reads images with PIL) against this checkout's, in four
      processes (DIR, this, this, DIR);
  22. doctor: ``cli/doctor --check_backend true`` in a process of its own:
-     PASS with the card's name and the kernels built and loaded.
+     PASS with the card's name and the kernels built and loaded;
+ 23. recipe: the accuracy gates' wiring run (``recipes/gates.py
+     --smoke``) in this process, every stage through its CLI's ``main`` on
+     files: a 16-frame GAN tree at the raw 320x960 size; the sem nets
+     (``segmentation_train``, layers 1,1,1,1, RGB ``three_channels`` and
+     IR); the full-width CycleGAN (ngf 64, contour and module2 sem losses,
+     ``-max_steps 2``) through ``main`` (a 1-step baseline, then resumed
+     with ``-load_model``) and ``main_gan``; ``translator`` and
+     ``distance_evaluate`` after each; the per-class fidelity;
+     ``segmentation_train`` on the translations, ``segmentation_evaluate``,
+     ``generate_pseudo_label`` (soft and hard, flip), ``cal_prototype``,
+     ``self_train_main`` and the final evaluation. Checks one translation
+     a source frame, one pseudo-label file a target frame and mode, a
+     finite (13, feature width) prototype file, every checkpoint loading,
+     L1, SSIM and mIoU finite and in range, and the final CLI mIoU equal
+     to the in-memory eval of the same checkpoint on the same decoded
+     arrays. Path ``recipe``.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -4753,28 +4769,6 @@ def phase_device_aug(card: str, root: str) -> dict:
     return launches
 
 
-def write_png16(path: str, pixels) -> None:
-    """A 16-bit grayscale PNG of filter-0 rows, with zlib alone."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    h, w = pixels.shape
-    rows = np.zeros((h, 1 + 2 * w), np.uint8)
-    rows[:, 1:] = pixels.astype(">u2").view(np.uint8).reshape(h, 2 * w)
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data)))
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0,
-                                             0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
-                + chunk(b"IEND", b""))
-
-
 def ir_decode_numpy(pixels, resize_wh=(960, 320), crop=(150, 850),
                     window=(21800.0, 25000.0)):
     """``decode_ir_batch``'s arithmetic on one decoded frame, in numpy
@@ -4822,6 +4816,7 @@ def phase_host_data(card: str, root: str) -> dict:
     from thermal_semantic_segmentation_torch.data.device_pipeline import (
         device_prefetch)
     from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.data.png import write_gray16_png
     from thermal_semantic_segmentation_torch.eval.validate import (
         seg_validate)
     from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
@@ -4891,7 +4886,7 @@ def phase_host_data(card: str, root: str) -> dict:
     paths = [os.path.join(frames_dir, f"{i:04d}.png")
              for i in range(NATIVE_FRAMES)]
     for path, frame in zip(paths, frames):
-        write_png16(path, frame)
+        write_gray16_png(path, frame)
     calls = []
 
     def decode():
@@ -5711,6 +5706,132 @@ def host_io_run(card: str, root: str) -> dict:
     return by_path
 
 
+RECIPE_FRAMES = 16         # the gates' smoke tree: source = target frames
+RECIPE_FEATURE_WIDTH = 256   # the module2 head's 'feat' width
+
+
+def phase_recipe(card: str, root: str) -> dict:
+    """The gates' wiring run on the card (``recipes/gates.py --smoke``,
+    in this process): the GAN gate's chain, then the pipeline gate's on
+    its work directory, every stage through its CLI's ``main`` on a
+    16-frame tree of files. Checks the outputs' counts and loads, the
+    measures' ranges, and the final CLI mIoU against the in-memory eval of
+    the same checkpoint on the same decoded arrays. Returns the kernel's
+    launches over the chain."""
+    import glob
+    import math
+    import os
+
+    import numpy as np
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli import segmentation_evaluate
+    from thermal_semantic_segmentation_torch.cli._common import (
+        apply_model_meta, build_deeplab, load_gan_checkpoint,
+        load_seg_checkpoint, val_transform)
+    from thermal_semantic_segmentation_torch.cli.options import (
+        evaluation_parse)
+    from thermal_semantic_segmentation_torch.core.checkpoint import (
+        load_checkpoint)
+    from thermal_semantic_segmentation_torch.data.freiburg import FreiburgTest
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.eval.validate import seg_validate
+    from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
+        upsample_argmax)
+    from thermal_semantic_segmentation_torch.recipes import gates
+
+    work = os.path.join(root, "recipe", "gate")
+    stages = gates.Stages()
+    upsample_argmax.launches = 0        # counts from the main path only
+    gan = gates.gan_gate(work, smoke=True, stages=stages)
+    pipeline = gates.pipeline_gate(work, smoke=True, stages=stages)
+    launches = {"upsample_argmax": upsample_argmax.launches}
+    tmp = work + "_smoke"
+    tree = os.path.join(tmp, "datasets", "freiburg")
+    ckpt = os.path.join(tmp, "ckpt")
+    failures = []
+
+    def count(*parts):
+        return len(glob.glob(os.path.join(tmp, *parts)))
+
+    n_trans = count("datasets", "freiburg", "translation", "seq_00_day",
+                    "00", "fl_rgb", "*.png")
+    n_source = count("datasets", "freiburg", "train", "seq_00_day", "00",
+                     "fl_rgb", "*.png")
+    pseudo = {kind: count("pseudo_labels", mode, "pipeline_seg", pattern)
+              for kind, mode, pattern in (
+                  ("soft", "soft", "[0-9][0-9][0-9][0-9].npy"),
+                  ("hard", "hard", "[0-9][0-9][0-9][0-9].png"),
+                  ("hard_color", "hard", "*_color.png"),
+                  ("hard_conf", "hard", "*_conf.npy"))}
+    if n_source != RECIPE_FRAMES or n_trans != n_source:
+        failures.append(f"{n_trans} translations of {n_source} source frames")
+    if set(pseudo.values()) != {RECIPE_FRAMES}:
+        failures.append(f"pseudo-label files {pseudo}, want {RECIPE_FRAMES} "
+                        f"of each")
+    protos = np.asarray(load_checkpoint(os.path.join(
+        tmp, "prototypes", "prototypes_on_freiburg_ir_from_pipeline_seg")
+    )["objective_vectors"])
+    if (protos.shape != (NUM_CLASSES, RECIPE_FEATURE_WIDTH)
+            or not np.isfinite(protos).all()):
+        failures.append(f"prototypes of shape {protos.shape}, finite "
+                        f"{bool(np.isfinite(protos).all())}")
+    for name in ("g_gate_base.pth", "g_gate.pth", "g_oneway.pth"):
+        load_gan_checkpoint(os.path.join(ckpt, name))
+    for name in ("sem_s.pth", "sem_t.pth", "pipeline_seg.pth",
+                 "bestpipeline_st.pth", "lastpipeline_st.pth"):
+        load_seg_checkpoint(os.path.join(ckpt, name))
+    measures = {"l1_baseline": gan["l1_baseline"],
+                "l1_trained": gan["l1_trained"],
+                "ssim_baseline": gan["ssim_baseline"],
+                "ssim_trained": gan["ssim_trained"],
+                "miou_seg": pipeline["miou_seg_on_translations"],
+                "miou_final": pipeline["value"]}
+    for k, v in measures.items():
+        lo = -1.0 if k.startswith("ssim") else 0.0
+        if not (math.isfinite(v) and lo <= v <= 1.0):
+            failures.append(f"{k} {v} outside [{lo}, 1]")
+    if not all(0.0 <= v <= 1.0 for v in gan["per_class_l1"]):
+        failures.append(f"per-class L1 {gan['per_class_l1']}")
+
+    # the final checkpoint through the eval CLI's main, and in memory on
+    # the same decoded arrays (comparison launches: not counted)
+    argv = ["-dataset", "freiburg_ir", "--freiburg_root", tree,
+            "-checkpoint_name", "bestpipeline_st.pth", "--model_root_path",
+            ckpt, "-val_batch_size", str(EVAL_BATCH)]
+    cli_iu, _, _ = segmentation_evaluate.main(argv)
+    args = evaluation_parse().parse_args(argv)
+    state_dict, meta = load_seg_checkpoint(os.path.join(
+        ckpt, "bestpipeline_st.pth"))
+    apply_model_meta(args, meta)
+    model = build_deeplab(args)
+    model.load_state_dict(state_dict, strict=True)
+    test_ds = FreiburgTest(tree, "test", "IR", transforms=val_transform())
+    held = HeldSamples([test_ds.get(i, None) for i in range(len(test_ds))])
+    memory_iu, _, _ = seg_validate(
+        model, DataLoader(held, EVAL_BATCH, shuffle=False, drop_last=False),
+        num_classes=NUM_CLASSES, ignore_index=IGNORE)
+    del model
+    torch.cuda.empty_cache()
+    if cli_iu != memory_iu:
+        failures.append(f"the final eval CLI's mIoU {cli_iu} differs from "
+                        f"the in-memory eval's {memory_iu}")
+    if round(float(cli_iu), 4) != pipeline["value"]:
+        failures.append(f"the chain's final mIoU {pipeline['value']} is not "
+                        f"the eval CLI's {cli_iu}")
+    print(f"recipe: the gates' smoke chain on a {RECIPE_FRAMES}-frame "
+          f"{HOST_IO_HW} tree, full-width GAN: stage seconds "
+          f"{json.dumps(stages.seconds)}; {n_trans} translations, "
+          f"pseudo-label files {pseudo}, prototypes {protos.shape}; "
+          f"{json.dumps(measures)}, slot map {gan['slot_map']}; final mIoU "
+          f"CLI {cli_iu}, in memory {memory_iu}; launches {launches} on "
+          f"{card}", flush=True)
+    note("recipe", **{f"{k}_s": float(v) for k, v in stages.seconds.items()})
+    if failures:
+        fail("recipe: " + "; ".join(failures))
+    return launches
+
+
 def phase_doctor(card: str) -> None:
     """The port's doctor with ``--check_backend true`` in a process of its
     own: PASS with the card's name and the kernels built and loaded."""
@@ -6498,7 +6619,7 @@ PHASES = ("serve", "eval", "train", "pseudo", "prototypes", "self_train",
           "export",
           "serve_translator",
           "serve_artifact", "profile", "device_aug", "host_data", "host_io",
-          "doctor")
+          "doctor", "recipe")
 NEEDS = {"gan_dist": ("gan",), "translate": ("gan",),
          "distance": ("translate",), "data_parallel": ("gan",),
          "serve_artifact": ("export",)}
@@ -6582,6 +6703,7 @@ def main(argv) -> int:
             "host_data": lambda: phase_host_data(card, root),
             "host_io": lambda: phase_host_io(card, root),
             "doctor": lambda: phase_doctor(card),
+            "recipe": lambda: phase_recipe(card, root),
         }
         for name in phases:
             launches = timed(name, runs[name])

@@ -1,5 +1,4 @@
-"""PNG reading and 8-bit PNG writing on ``zlib`` and ``struct``, without
-PIL.
+"""PNG reading and PNG writing on ``zlib`` and ``struct``, without PIL.
 
 ``read_png`` decodes a PNG file, file object or bytes to the array
 ``np.asarray(PIL.Image.open(...))`` gives (the mode PIL opens it in) and the
@@ -10,10 +9,11 @@ The pseudo-label files are an 8-bit grayscale PNG of class ids and an 8-bit
 palette ('P') PNG of the same ids under the Freiburg palette; the validation
 dumps are palette PNGs of the prediction and the ground truth and a gray or
 RGB PNG of the input image; the translation server answers with a gray or
-RGB PNG. The JAX package writes them all with PIL. The
-card's machine has no PIL, so the port writes them here: one IHDR, a PLTE
-for the palette image, one IDAT of filter-0 rows, IEND. PIL decodes them to
-the same pixels (and palette) as its own files.
+RGB PNG; the synthetic Freiburg trees (``recipes/synthetic_trees.py``)
+are 16-bit grayscale IR frames, RGB frames and grayscale labels. The JAX
+package writes them all with PIL. The port writes them here: one IHDR, a
+PLTE for the palette image, one IDAT of filter-0 rows, IEND. PIL decodes
+them to the same pixels (and palette) as its own files.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def _png_bytes(pixels: np.ndarray, colour_type: int,
-               palette: bytes = b"") -> bytes:
+               palette: bytes = b"", depth: int = 8) -> bytes:
     pixels = np.asarray(pixels)
     want = 3 if colour_type == _RGB else 2
     if pixels.ndim != want or 0 in pixels.shape or (
@@ -46,14 +46,17 @@ def _png_bytes(pixels: np.ndarray, colour_type: int,
         raise ValueError(f"expected a non-empty "
                          f"{'(H, W, 3)' if want == 3 else '2-D'} image, got "
                          f"shape {pixels.shape}")
-    if pixels.dtype != np.uint8:
-        if pixels.size and (pixels.min() < 0 or pixels.max() > 255):
-            raise ValueError("pixel values outside 0..255")
-        pixels = pixels.astype(np.uint8)
+    dtype = np.dtype(">u2") if depth == 16 else np.dtype(np.uint8)
+    if pixels.dtype != dtype:
+        top = 2 ** depth - 1
+        if pixels.size and (pixels.min() < 0 or pixels.max() > top):
+            raise ValueError(f"pixel values outside 0..{top}")
+        pixels = pixels.astype(dtype)
     h, w = pixels.shape[:2]
-    rows = np.zeros((h, pixels[0].size + 1), np.uint8)  # filter 0 (none)
-    rows[:, 1:] = pixels.reshape(h, -1)
-    header = struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0, 0)
+    row = pixels[0].size * dtype.itemsize
+    rows = np.zeros((h, row + 1), np.uint8)     # filter 0 (none)
+    rows[:, 1:] = pixels.reshape(h, -1).view(np.uint8)
+    header = struct.pack(">IIBBBBB", w, h, depth, colour_type, 0, 0, 0)
     parts = [_SIGNATURE, _chunk(b"IHDR", header)]
     if palette:
         parts.append(_chunk(b"PLTE", palette))
@@ -70,6 +73,19 @@ def gray_png_bytes(pixels: np.ndarray) -> bytes:
 def write_gray_png(path: str, pixels: np.ndarray) -> None:
     """``gray_png_bytes`` written to ``path``."""
     data = gray_png_bytes(pixels)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def gray16_png_bytes(pixels: np.ndarray) -> bytes:
+    """(H, W) values in 0..65535 -> the bytes of a 16-bit grayscale PNG
+    (PIL's 'I;16' file; a Freiburg IR frame)."""
+    return _png_bytes(pixels, _GRAY, depth=16)
+
+
+def write_gray16_png(path: str, pixels: np.ndarray) -> None:
+    """``gray16_png_bytes`` written to ``path``."""
+    data = gray16_png_bytes(pixels)
     with open(path, "wb") as f:
         f.write(data)
 

@@ -4,17 +4,18 @@ from __future__ import annotations
 
 import torch
 
-from ..nn.spatial import MaxPool2d
-
 
 def ceil_max_pool(window: int = 3, stride: int = 2,
-                  padding: int = 1) -> MaxPool2d:
+                  padding: int = 1) -> "MaxPool2d":
     """MaxPool2d with ceil mode, as the DeepLab stem uses it (NCHW); it
     also runs on width-sharded maps (``nn/spatial.py``).
 
     Ceil mode changes the output grid (128 -> 65 rows), which the checkpoint
-    layout depends on.
+    layout depends on. (``nn/spatial.py`` is imported here: ``nn``'s
+    ResNet imports this module.)
     """
+    from ..nn.spatial import MaxPool2d
+
     return MaxPool2d(window, stride, padding, ceil_mode=True)
 
 
