@@ -5708,85 +5708,142 @@ def host_io_run(card: str, root: str) -> dict:
 
 RECIPE_FRAMES = 16         # the gates' smoke tree: source = target frames
 RECIPE_FEATURE_WIDTH = 256   # the module2 head's 'feat' width
+RECIPE_FULL_WIDTH = "3,4,23,3"   # the convergence chain's ResNet-101
+RECIPE_FULL_WIDTH_LR = "0.001"
+
+
+def recipe_cli_vs_memory(tree: str, ckpt: str, name: str,
+                         batch: int) -> tuple:
+    """(CLI mIoU, in-memory mIoU, layers): checkpoint ``name`` through the
+    eval CLI's ``main`` at ``-val_batch_size batch``, and through
+    ``seg_validate`` on the same decoded test arrays at the same batch
+    (comparison launches: not counted)."""
+    import os
+
+    import torch
+
+    from thermal_semantic_segmentation_torch.cli import segmentation_evaluate
+    from thermal_semantic_segmentation_torch.cli._common import (
+        apply_model_meta, build_deeplab, load_seg_checkpoint, val_transform)
+    from thermal_semantic_segmentation_torch.cli.options import (
+        evaluation_parse)
+    from thermal_semantic_segmentation_torch.data.freiburg import FreiburgTest
+    from thermal_semantic_segmentation_torch.data.loader import DataLoader
+    from thermal_semantic_segmentation_torch.eval.validate import seg_validate
+
+    argv = ["-dataset", "freiburg_ir", "--freiburg_root", tree,
+            "-checkpoint_name", name, "--model_root_path", ckpt,
+            "-val_batch_size", str(batch)]
+    cli_iu, _, _ = segmentation_evaluate.main(argv)
+    args = evaluation_parse().parse_args(argv)
+    state_dict, meta = load_seg_checkpoint(os.path.join(ckpt, name))
+    apply_model_meta(args, meta)
+    model = build_deeplab(args)
+    model.load_state_dict(state_dict, strict=True)
+    test_ds = FreiburgTest(tree, "test", "IR", transforms=val_transform())
+    held = HeldSamples([test_ds.get(i, None) for i in range(len(test_ds))])
+    memory_iu, _, _ = seg_validate(
+        model, DataLoader(held, batch, shuffle=False, drop_last=False),
+        num_classes=NUM_CLASSES, ignore_index=IGNORE)
+    del model
+    torch.cuda.empty_cache()
+    return cli_iu, memory_iu, tuple(args.layers)
 
 
 def phase_recipe(card: str, root: str) -> dict:
     """The gates' wiring run on the card (``recipes/gates.py --smoke``,
     in this process): the GAN gate's chain, then the pipeline gate's on
-    its work directory, every stage through its CLI's ``main`` on a
+    its work directory, the self-training gate's (layers 1,1,1,1) and the
+    convergence gate's at full width (layers 3,4,23,3, bf16), each in a
+    directory of its own, every stage through its CLI's ``main`` on a
     16-frame tree of files. Checks the outputs' counts and loads, the
-    measures' ranges, and the final CLI mIoU against the in-memory eval of
-    the same checkpoint on the same decoded arrays. Returns the kernel's
-    launches over the chain."""
+    measures' ranges, and each chain's final CLI mIoU against the
+    in-memory eval of the same checkpoint on the same decoded arrays.
+    Returns the kernel's launches over the four chains."""
     import glob
     import math
     import os
 
     import numpy as np
-    import torch
 
-    from thermal_semantic_segmentation_torch.cli import segmentation_evaluate
     from thermal_semantic_segmentation_torch.cli._common import (
-        apply_model_meta, build_deeplab, load_gan_checkpoint,
-        load_seg_checkpoint, val_transform)
-    from thermal_semantic_segmentation_torch.cli.options import (
-        evaluation_parse)
+        load_gan_checkpoint, load_seg_checkpoint)
     from thermal_semantic_segmentation_torch.core.checkpoint import (
         load_checkpoint)
-    from thermal_semantic_segmentation_torch.data.freiburg import FreiburgTest
-    from thermal_semantic_segmentation_torch.data.loader import DataLoader
-    from thermal_semantic_segmentation_torch.eval.validate import seg_validate
     from thermal_semantic_segmentation_torch.kernels.upsample_argmax import (
         upsample_argmax)
     from thermal_semantic_segmentation_torch.recipes import gates
 
-    work = os.path.join(root, "recipe", "gate")
-    stages = gates.Stages()
+    work = os.path.join(root, "recipe")
+    stages = {g: gates.Stages() for g in ("gan", "pipeline", "selftrain",
+                                          "convergence")}
     upsample_argmax.launches = 0        # counts from the main path only
-    gan = gates.gan_gate(work, smoke=True, stages=stages)
-    pipeline = gates.pipeline_gate(work, smoke=True, stages=stages)
+    gan = gates.gan_gate(f"{work}/gate", smoke=True, stages=stages["gan"])
+    pipeline = gates.pipeline_gate(f"{work}/gate", smoke=True,
+                                   stages=stages["pipeline"])
+    selftrain = gates.selftrain_gate(f"{work}/selftrain", smoke=True,
+                                     stages=stages["selftrain"])
+    convergence = gates.convergence_gate(
+        f"{work}/convergence", smoke=True, stages=stages["convergence"],
+        layers=RECIPE_FULL_WIDTH, lr=RECIPE_FULL_WIDTH_LR)
     launches = {"upsample_argmax": upsample_argmax.launches}
-    tmp = work + "_smoke"
-    tree = os.path.join(tmp, "datasets", "freiburg")
-    ckpt = os.path.join(tmp, "ckpt")
     failures = []
 
-    def count(*parts):
+    def count(tmp, *parts):
         return len(glob.glob(os.path.join(tmp, *parts)))
 
-    n_trans = count("datasets", "freiburg", "translation", "seq_00_day",
+    def labels_and_prototypes(tmp, model):
+        """The pseudo-label files of ``model`` by kind, and its
+        prototypes' shape; a miss is a failure."""
+        pseudo = {kind: count(tmp, "pseudo_labels", mode, model, pattern)
+                  for kind, mode, pattern in (
+                      ("soft", "soft", "[0-9][0-9][0-9][0-9].npy"),
+                      ("hard", "hard", "[0-9][0-9][0-9][0-9].png"),
+                      ("hard_color", "hard", "*_color.png"),
+                      ("hard_conf", "hard", "*_conf.npy"))}
+        if set(pseudo.values()) != {RECIPE_FRAMES}:
+            failures.append(f"{model}: pseudo-label files {pseudo}, want "
+                            f"{RECIPE_FRAMES} of each")
+        protos = np.asarray(load_checkpoint(os.path.join(
+            tmp, "prototypes", f"prototypes_on_freiburg_ir_from_{model}")
+        )["objective_vectors"])
+        if (protos.shape != (NUM_CLASSES, RECIPE_FEATURE_WIDTH)
+                or not np.isfinite(protos).all()):
+            failures.append(f"{model}: prototypes of shape {protos.shape}, "
+                            f"finite {bool(np.isfinite(protos).all())}")
+        return pseudo, protos.shape
+
+    tmp = f"{work}/gate_smoke"
+    n_trans = count(tmp, "datasets", "freiburg", "translation", "seq_00_day",
                     "00", "fl_rgb", "*.png")
-    n_source = count("datasets", "freiburg", "train", "seq_00_day", "00",
+    n_source = count(tmp, "datasets", "freiburg", "train", "seq_00_day", "00",
                      "fl_rgb", "*.png")
-    pseudo = {kind: count("pseudo_labels", mode, "pipeline_seg", pattern)
-              for kind, mode, pattern in (
-                  ("soft", "soft", "[0-9][0-9][0-9][0-9].npy"),
-                  ("hard", "hard", "[0-9][0-9][0-9][0-9].png"),
-                  ("hard_color", "hard", "*_color.png"),
-                  ("hard_conf", "hard", "*_conf.npy"))}
     if n_source != RECIPE_FRAMES or n_trans != n_source:
         failures.append(f"{n_trans} translations of {n_source} source frames")
-    if set(pseudo.values()) != {RECIPE_FRAMES}:
-        failures.append(f"pseudo-label files {pseudo}, want {RECIPE_FRAMES} "
-                        f"of each")
-    protos = np.asarray(load_checkpoint(os.path.join(
-        tmp, "prototypes", "prototypes_on_freiburg_ir_from_pipeline_seg")
-    )["objective_vectors"])
-    if (protos.shape != (NUM_CLASSES, RECIPE_FEATURE_WIDTH)
-            or not np.isfinite(protos).all()):
-        failures.append(f"prototypes of shape {protos.shape}, finite "
-                        f"{bool(np.isfinite(protos).all())}")
+    pseudo, protos = labels_and_prototypes(tmp, "pipeline_seg")
+    st_pseudo, st_protos = labels_and_prototypes(f"{work}/selftrain_smoke",
+                                                 "selftrain_source")
     for name in ("g_gate_base.pth", "g_gate.pth", "g_oneway.pth"):
-        load_gan_checkpoint(os.path.join(ckpt, name))
-    for name in ("sem_s.pth", "sem_t.pth", "pipeline_seg.pth",
-                 "bestpipeline_st.pth", "lastpipeline_st.pth"):
-        load_seg_checkpoint(os.path.join(ckpt, name))
+        load_gan_checkpoint(os.path.join(tmp, "ckpt", name))
+    for d, names in (("gate", ("sem_s.pth", "sem_t.pth", "pipeline_seg.pth",
+                               "bestpipeline_st.pth",
+                               "lastpipeline_st.pth")),
+                     ("selftrain", ("selftrain_source.pth",
+                                    "bestselftrain_adapted.pth",
+                                    "lastselftrain_adapted.pth")),
+                     ("convergence", ("convergence_gate.pth",))):
+        for name in names:
+            load_seg_checkpoint(os.path.join(work, f"{d}_smoke", "ckpt",
+                                             name))
     measures = {"l1_baseline": gan["l1_baseline"],
                 "l1_trained": gan["l1_trained"],
                 "ssim_baseline": gan["ssim_baseline"],
                 "ssim_trained": gan["ssim_trained"],
                 "miou_seg": pipeline["miou_seg_on_translations"],
-                "miou_final": pipeline["value"]}
+                "miou_final": pipeline["value"],
+                "miou_source": selftrain["miou_source"],
+                "miou_adapted": selftrain["miou_adapted"],
+                "miou_convergence": convergence["value"]}
     for k, v in measures.items():
         lo = -1.0 if k.startswith("ssim") else 0.0
         if not (math.isfinite(v) and lo <= v <= 1.0):
@@ -5794,39 +5851,44 @@ def phase_recipe(card: str, root: str) -> dict:
     if not all(0.0 <= v <= 1.0 for v in gan["per_class_l1"]):
         failures.append(f"per-class L1 {gan['per_class_l1']}")
 
-    # the final checkpoint through the eval CLI's main, and in memory on
-    # the same decoded arrays (comparison launches: not counted)
-    argv = ["-dataset", "freiburg_ir", "--freiburg_root", tree,
-            "-checkpoint_name", "bestpipeline_st.pth", "--model_root_path",
-            ckpt, "-val_batch_size", str(EVAL_BATCH)]
-    cli_iu, _, _ = segmentation_evaluate.main(argv)
-    args = evaluation_parse().parse_args(argv)
-    state_dict, meta = load_seg_checkpoint(os.path.join(
-        ckpt, "bestpipeline_st.pth"))
-    apply_model_meta(args, meta)
-    model = build_deeplab(args)
-    model.load_state_dict(state_dict, strict=True)
-    test_ds = FreiburgTest(tree, "test", "IR", transforms=val_transform())
-    held = HeldSamples([test_ds.get(i, None) for i in range(len(test_ds))])
-    memory_iu, _, _ = seg_validate(
-        model, DataLoader(held, EVAL_BATCH, shuffle=False, drop_last=False),
-        num_classes=NUM_CLASSES, ignore_index=IGNORE)
-    del model
-    torch.cuda.empty_cache()
-    if cli_iu != memory_iu:
-        failures.append(f"the final eval CLI's mIoU {cli_iu} differs from "
-                        f"the in-memory eval's {memory_iu}")
-    if round(float(cli_iu), 4) != pipeline["value"]:
-        failures.append(f"the chain's final mIoU {pipeline['value']} is not "
-                        f"the eval CLI's {cli_iu}")
-    print(f"recipe: the gates' smoke chain on a {RECIPE_FRAMES}-frame "
-          f"{HOST_IO_HW} tree, full-width GAN: stage seconds "
-          f"{json.dumps(stages.seconds)}; {n_trans} translations, "
-          f"pseudo-label files {pseudo}, prototypes {protos.shape}; "
-          f"{json.dumps(measures)}, slot map {gan['slot_map']}; final mIoU "
-          f"CLI {cli_iu}, in memory {memory_iu}; launches {launches} on "
-          f"{card}", flush=True)
-    note("recipe", **{f"{k}_s": float(v) for k, v in stages.seconds.items()})
+    # each chain's final checkpoint through the eval CLI's main at the
+    # batch its chain used, and in memory on the same decoded arrays
+    finals = {}
+    for chain, d, name, batch, got in (
+            ("pipeline", "gate", "bestpipeline_st.pth", EVAL_BATCH,
+             pipeline["value"]),
+            ("selftrain", "selftrain", "bestselftrain_adapted.pth",
+             EVAL_BATCH, selftrain["miou_adapted"]),
+            # the convergence gate's eval runs at the CLI's default batch
+            ("convergence", "convergence", "convergence_gate.pth", 1,
+             convergence["value"])):
+        tmp = os.path.join(work, f"{d}_smoke")
+        cli_iu, memory_iu, layers = recipe_cli_vs_memory(
+            os.path.join(tmp, "datasets", "freiburg"),
+            os.path.join(tmp, "ckpt"), name, batch)
+        finals[chain] = {"cli": float(cli_iu), "memory": float(memory_iu),
+                         "layers": ",".join(map(str, layers))}
+        if cli_iu != memory_iu:
+            failures.append(f"{chain}: the final eval CLI's mIoU {cli_iu} "
+                            f"differs from the in-memory eval's {memory_iu}")
+        if round(float(cli_iu), 4) != got:
+            failures.append(f"{chain}: the chain's final mIoU {got} is not "
+                            f"the eval CLI's {cli_iu}")
+    if finals["convergence"]["layers"] != RECIPE_FULL_WIDTH:
+        failures.append(f"the convergence chain trained layers "
+                        f"{finals['convergence']['layers']}, not "
+                        f"{RECIPE_FULL_WIDTH}")
+    seconds = {g: st.seconds for g, st in stages.items()}
+    print(f"recipe: the gates' smoke chains on {RECIPE_FRAMES}-frame "
+          f"{HOST_IO_HW} trees, full-width GAN and convergence (layers "
+          f"{RECIPE_FULL_WIDTH}, bf16): stage seconds "
+          f"{json.dumps(seconds)}; {n_trans} translations, pseudo-label "
+          f"files {pseudo} / {st_pseudo}, prototypes {protos} / {st_protos}"
+          f"; {json.dumps(measures)}, slot map {gan['slot_map']}; final "
+          f"mIoU CLI and in memory {json.dumps(finals)}; launches "
+          f"{launches} on {card}", flush=True)
+    note("recipe", **{f"{g}_{k}_s": float(v) for g, secs in seconds.items()
+                      for k, v in secs.items()})
     if failures:
         fail("recipe: " + "; ".join(failures))
     return launches

@@ -30,6 +30,7 @@ from thermal_semantic_segmentation_torch.ops.resize import (  # noqa: E402
     resize_bilinear)
 
 FORWARD_ATOL = 5e-4
+TRUNCATED_TAIL = 2.3     # |w| / std of a normal cut at 2 of its stds <= 2.28
 TINY = dict(num_classes=13, layers=(1, 1, 1, 1))
 HW = (64, 128)
 
@@ -71,6 +72,34 @@ def test_forward_matches_jax(num_channels, bn_clr):
         assert g.shape == w.shape, (key, g.shape, w.shape)
         np.testing.assert_allclose(g, w, rtol=0, atol=FORWARD_ATOL,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("bn_clr", [False, True])
+def test_initial_weights_follow_the_jax_distributions(bn_clr):
+    """Every tensor of the port's seeded init is drawn as the JAX init
+    draws its twin: the same constants, and for a tensor of 1,000 values
+    or more the same mean and spread (within 10% of the spread) and no
+    value past the JAX truncation (a normal cut at two of its standard
+    deviations is within 2.28 of its own) where JAX's tensor is cut."""
+    _, variables = jax_create_deeplab(jax.random.key(3), bn_clr=bn_clr,
+                                      image_size=HW, **TINY)
+    want = jax_variables_to_state_dict(jax.tree.map(np.asarray, variables))
+    got = create_deeplab(3, device="cpu", bn_clr=bn_clr, **TINY).state_dict()
+    checked = truncated = 0
+    for key, w in want.items():
+        g, w = got[key].double(), w.double()
+        if w.numel() < 1000 or float(w.std()) == 0.0:
+            if float(w.std()) == 0.0:
+                torch.testing.assert_close(g, w, rtol=0, atol=0, msg=key)
+            continue
+        sw, sg = float(w.std()), float(g.std())
+        assert abs(sg / sw - 1) < 0.1, (key, sg, sw)
+        assert abs(float(g.mean() - w.mean())) < 0.1 * sw, key
+        if float(w.abs().max()) <= TRUNCATED_TAIL * sw:    # JAX truncates
+            assert float(g.abs().max()) <= TRUNCATED_TAIL * sg, key
+            truncated += 1
+        checked += 1
+    assert checked > 10 and truncated >= 8
 
 
 def test_converter_refuses_unknown_variables():

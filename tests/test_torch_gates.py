@@ -377,7 +377,8 @@ def test_smoke_chain_of_both_gates(tiny_clis, tmp_path, capsys, monkeypatch):
     assert not glob.glob(str(tmp_path / "*GATE_TORCH.json"))
 
 
-@pytest.mark.parametrize("gate", ["gan", "pipeline"])
+@pytest.mark.parametrize("gate", ["gan", "pipeline", "selftrain",
+                                  "convergence"])
 def test_gate_refuses_to_run_without_a_card(gate, tmp_path, monkeypatch):
     """No card and no ``--device cpu``: the runner stops before any stage
     (no tree, no CPU run)."""

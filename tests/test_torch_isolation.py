@@ -114,7 +114,8 @@ LAST_SLICE_FILES = ["cli/profile_step.py", "cli/doctor.py", "ops/augment.py",
                     "recipes/full_pipeline.sh", "recipes/assert_miou.py",
                     "data/png.py", "data/image.py", "data/gxx.py",
                     "csrc/png_unfilter.cpp", "csrc/resample.cpp",
-                    "recipes/gates.py", "recipes/synthetic_trees.py"]
+                    "recipes/gates.py", "recipes/synthetic_trees.py",
+                    "recipes/convergence_gate.sh"]
 
 
 @pytest.mark.parametrize("rel", LAST_SLICE_FILES)

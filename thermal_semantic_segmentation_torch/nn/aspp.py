@@ -18,6 +18,8 @@ with biases straight to the logits, summed; keys ``conv2d_list.{i}``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -29,6 +31,8 @@ BRANCH_WIDTH = 256
 DILATIONS = (6, 12, 18, 24)
 DROPRATE = 0.1
 HEAD_STD = 0.001
+# the standard deviation of a unit normal cut at +-2 (jax.nn.initializers)
+TRUNCATED_NORMAL_STD = .87962566103423978
 LEGACY_STD = 0.01
 # The branches run on at most this many feature-map pixels (N * H * W) per
 # call. Past about 22,000 (H100, cuDNN 9.2, float32), cuDNN leaves its
@@ -119,15 +123,16 @@ class ASPPModule2(WidthSharded, nn.Module):
             Conv2d(BRANCH_WIDTH, num_classes, 1, bias=False))
 
     def init_weights_(self, generator: torch.Generator) -> None:
-        """Kaiming-normal branch/bottleneck convs, N(0, 0.001) classifier."""
+        """As the JAX head: flax's ``kaiming_normal`` branch/bottleneck
+        convs, its default ``lecun_normal`` SE layers, zero biases and an
+        N(0, 0.001) classifier."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                nn.init.kaiming_normal_(m.weight, nonlinearity="relu",
-                                        generator=generator)
+                _variance_scaling_(m.weight, 2.0, generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Linear):
-                nn.init.normal_(m.weight, 0.0, 0.01, generator=generator)
+                _variance_scaling_(m.weight, 1.0, generator)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.GroupNorm):
                 nn.init.ones_(m.weight)
@@ -143,6 +148,25 @@ class ASPPModule2(WidthSharded, nn.Module):
         feat = self.head[0](self.bottleneck(split_branches(
             self.branches, x, self.spatial)))
         return {"feat": feat, "out": self.head[1](feat)}
+
+
+def _variance_scaling_(weight: torch.Tensor, scale: float,
+                       generator: torch.Generator) -> None:
+    """flax's ``variance_scaling(scale, 'fan_in', 'truncated_normal')``: a
+    normal cut at two of its standard deviations, scaled so that the
+    result's variance is ``scale / fan_in``: unit normals past the cut
+    are dropped and more drawn until there are enough (the inverse CDF of
+    ``nn.init.trunc_normal_`` takes over twice as long on the CPU, where
+    the models are built)."""
+    std = math.sqrt(scale / weight[0].numel()) / TRUNCATED_NORMAL_STD
+    n = weight.numel()
+    kept = []
+    while sum(k.numel() for k in kept) < n:
+        z = torch.randn(n + n // 16 + 16, generator=generator,
+                        dtype=weight.dtype)
+        kept.append(z[z.abs() <= 2.0])
+    with torch.no_grad():
+        weight.copy_(torch.cat(kept)[:n].view_as(weight).mul_(std))
 
 
 class ASPPLegacy(nn.Module):

@@ -2,7 +2,8 @@
 Freiburg tree of real files, must reach the JAX gates' thresholds.
 
     python -m thermal_semantic_segmentation_torch.recipes.gates \\
-        {gan,pipeline} [--workdir=DIR] [--smoke] [--device cpu]
+        {gan,pipeline,selftrain,convergence} [--workdir=DIR] [--smoke] \\
+        [--device cpu] [--epochs N --layers L --lr X  (convergence only)]
 
 - ``gan``: the CycleGAN must learn the pixel-aligned colour-to-intensity
   map of ``make_gan_freiburg_tree`` (512 frames, seed 5). Frozen sem nets
@@ -20,21 +21,40 @@ Freiburg tree of real files, must reach the JAX gates' thresholds.
   flip), ``cal_prototype``, ``self_train_main`` and the final evaluation.
   It passes when the final mIoU is at least 0.75 and at least the seg
   model's less 0.05. Writes ``PIPELINE_GATE_TORCH.json``.
+- ``selftrain``: self-training must close a constructed domain gap
+  (``make_selftrain_freiburg_tree``, 256 frames, seed 3: clean source
+  bands, the target's shifted 0.35 slots with 0.25-slot noise):
+  ``segmentation_train`` on the source frames (100 epochs, layers
+  1,1,1,1), ``segmentation_evaluate`` on the target test split,
+  ``generate_pseudo_label`` (soft and hard, flip), ``cal_prototype``,
+  ``self_train_main`` (4 epochs, lr 3e-4) and the adapted model's
+  evaluation. It passes when the adapted mIoU gains at least 0.05 on the
+  source model's. Writes ``SELFTRAIN_GATE_TORCH.json``.
+- ``convergence``: ``segmentation_train`` must learn the intensity rule
+  of ``make_learnable_freiburg_tree`` (256 frames, seed 3, 3 bands) under
+  the crop transform, bf16, batch 8; ``segmentation_evaluate`` scores the
+  held-out test split. It passes at mIoU >= 0.9. It alone takes
+  ``--epochs``, ``--layers`` and ``--lr`` (default 100, 1,1,1,1, 0.003;
+  full width is ``--layers 3,4,23,3 --lr 0.001``). Writes
+  ``CONVERGENCE_TORCH.json``.
 
 Every stage is the CLI's own ``main(argv)``, called in this process, on
 the CUDA card (``--device cpu``: on the CPU; with no card and no
 ``--device cpu`` the runner stops before any stage). Each stage prints
 one JSON line: its name, seconds, the images its loaders delivered (a
 train stage's validation images included; a GAN step reads a source and
-a target image) and their rate, and its mIoU, L1 or SSIM. The settings
-are the JAX gates' (``bench_all.py`` of the JAX repo), unchanged.
+a target image) and their rate, its mIoU, L1 or SSIM, and on the card
+its peak of allocated device memory (``peak_gib``). The settings are the
+JAX gates' (``bench_all.py`` of the JAX repo), unchanged.
 
 ``--workdir``: the trees, checkpoints and ``.done`` markers persist there,
 so a cut run resumes; a stage is skipped only after an earlier run
-completed it. ``--smoke``: the wiring run (in ``<workdir>_smoke``): a
-16-frame tree, 1-2 epochs a stage, ``-max_steps 2`` (a one-direction
-``main_gan`` stage too); the GAN at ngf 8 on the CPU. It checks no
-threshold and writes no gate JSON.
+completed it (the self-training source model and the convergence training:
+with the same arguments). ``--smoke``: the wiring run (in
+``<workdir>_smoke``): a 16-frame tree, 1-2 epochs a stage (``--layers``
+still applies), ``-max_steps 2`` (a one-direction ``main_gan`` stage too);
+the GAN at ngf 8 on the CPU. It checks no threshold and writes no gate
+JSON.
 """
 
 from __future__ import annotations
@@ -58,12 +78,18 @@ import numpy as np
 
 from . import synthetic_trees
 from .assert_miou import parse_miou
-from .synthetic_trees import make_gan_freiburg_tree
+from .synthetic_trees import (make_gan_freiburg_tree,
+                              make_learnable_freiburg_tree,
+                              make_selftrain_freiburg_tree)
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 GATE_JSON = {"gan": "GAN_GATE_TORCH.json",
-             "pipeline": "PIPELINE_GATE_TORCH.json"}
+             "pipeline": "PIPELINE_GATE_TORCH.json",
+             "selftrain": "SELFTRAIN_GATE_TORCH.json",
+             "convergence": "CONVERGENCE_TORCH.json"}
+# the convergence gate's options and their defaults (bench_all.py's)
+CONVERGENCE_DEFAULTS = {"epochs": "100", "layers": "1,1,1,1", "lr": "0.003"}
 SMOKE_STEPS = ["-max_steps", "2"]
 # the pipeline reuses a GAN checkpoint with at least this many epochs
 TRAINED_EPOCH, SMOKE_TRAINED_EPOCH = 5, 1
@@ -100,17 +126,25 @@ def gan_checkpoint_trained(path, min_epoch: int = 5) -> bool:
         return False
 
 
-def run_stage_once(marker_path, fn):
+def run_stage_once(marker_path, fn, key: str = "done"):
     """Run ``fn()`` unless ``<marker_path>.done`` says an earlier run
-    completed it; the marker is written only after ``fn`` returns (a seg
-    checkpoint exists after its first best epoch, so its file proves
-    nothing). Returns whether ``fn`` ran."""
+    completed it with the same ``key`` (a stage's arguments, where they
+    can change between runs of one workdir); the marker is written only
+    after ``fn`` returns (a seg checkpoint exists after its first best
+    epoch, so its file proves nothing). A marker of another key is stale:
+    it and ``marker_path`` go before ``fn`` runs. Returns whether ``fn``
+    ran."""
     marker = marker_path + ".done"
     if os.path.exists(marker):
-        return False
+        with open(marker) as f:
+            if f.read() == key + "\n":
+                return False
+        os.remove(marker)
+        if os.path.exists(marker_path):
+            os.remove(marker_path)
     fn()
     with open(marker, "w") as f:
-        f.write("done\n")
+        f.write(key + "\n")
     return True
 
 
@@ -210,7 +244,10 @@ class Stages:
 
     def run(self, name, fn, measure=None):
         """``fn()``, then ``measure(result)``'s numbers (a dict) on the
-        stage's line; returns ``fn``'s result."""
+        stage's line, and on the card the stage's peak of allocated
+        device memory; returns ``fn``'s result."""
+        import torch
+
         from ..data.loader import DataLoader
 
         images = [0]
@@ -223,6 +260,9 @@ class Stages:
                 yield batch
 
         DataLoader.__iter__ = counted
+        card = torch.cuda.is_available()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
         try:
             out = fn()
@@ -234,16 +274,20 @@ class Stages:
         if images[0]:       # a stage that reads through no loader has none
             line.update(images=images[0],
                         images_per_s=round(images[0] / seconds, 3))
+        if card:
+            line["peak_gib"] = round(torch.cuda.max_memory_allocated()
+                                     / 2**30, 3)
         line.update(measure(out) if measure else {})
         print(json.dumps(line), flush=True)
         _release()
         return out
 
-    def once(self, name, marker_path, fn):
+    def once(self, name, marker_path, fn, key: str = "done"):
         """``run`` under ``run_stage_once``; a stage an earlier run
         completed prints ``"reused": true``."""
         ran, before = [], self.seconds.get(name)
-        self.run(name, lambda: ran.append(run_stage_once(marker_path, fn)),
+        self.run(name, lambda: ran.append(run_stage_once(marker_path, fn,
+                                                         key)),
                  lambda _: {} if ran[0] else {"reused": True})
         if not ran[0]:      # keep an earlier run's seconds, if any
             self.seconds.pop(name)
@@ -537,7 +581,120 @@ def pipeline_gate(workdir=None, *, smoke: bool = False, device_flags=(),
             "total_sec": round(time.perf_counter() - t0, 1)}
 
 
-GATES = {"gan": gan_gate, "pipeline": pipeline_gate}
+def selftrain_gate(workdir=None, *, smoke: bool = False, device_flags=(),
+                   stages=None) -> dict:
+    """The self-training gate; returns its result."""
+    from ..cli import (cal_prototype, generate_pseudo_label,
+                       segmentation_train, self_train_main)
+
+    stages = stages or Stages()
+    source_epochs, st_epochs = ("2", "1") if smoke else ("100", "4")
+    steps = SMOKE_STEPS if smoke else []
+    with _work_dir(workdir, smoke) as tmp, contextlib.chdir(tmp):
+        root = os.path.join(tmp, "datasets", "freiburg")
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        ensure_tree(root, make_selftrain_freiburg_tree,
+                    n_train=16 if smoke else 256, n_test=8, seed=3,
+                    invalidate=[ckpt_dir, os.path.join(tmp, "pseudo_labels"),
+                                os.path.join(tmp, "prototypes")])
+        common = ["--freiburg_root", root, "--model_root_path", ckpt_dir,
+                  "--layers", "1,1,1,1", "--decode_cache_mb", "2048",
+                  *device_flags]
+        # the pseudo-label and self-training parsers take no -net_mode
+        net1 = ["-net_mode", "one_channel"]
+
+        def evaluate(tag, ckpt_name):
+            return stages.run(tag, lambda: evaluate_miou(
+                ["-dataset", "freiburg_ir", "-val_batch_size", "8",
+                 "-checkpoint_name", ckpt_name, *common, *net1]),
+                lambda miou: {"miou": round(miou, 4)})
+
+        t0 = time.perf_counter()
+        source_argv = ["-dataset", "freiburg_translation",
+                       "-translation_name", "synthetic_translation",
+                       "-epochs", source_epochs, "-batch_size", "8",
+                       "-val_batch_size", "8", "-lr", "0.003",
+                       "-new_checkpoint_name", "selftrain_source.pth",
+                       *steps, *common, *net1]
+        stages.once("selftrain_source",
+                    os.path.join(ckpt_dir, "selftrain_source.pth"),
+                    lambda: segmentation_train.main(source_argv),
+                    key=" ".join(source_argv))
+        miou_source = evaluate("source_eval", "selftrain_source.pth")
+        for soft, ptype in (("True", "soft"), ("False", "hard")):
+            stages.run(f"pseudo_{ptype}", lambda: generate_pseudo_label.main([
+                "--root", tmp, "--soft", soft, "-pseudo_type", ptype,
+                "--flip", "True", "-batch_size", "8",
+                "-checkpoint_name", "selftrain_source.pth", *common]))
+        stages.run("prototypes", lambda: cal_prototype.main([
+            "-root", tmp, "-dataset", "freiburg_ir", "-epochs", "1",
+            "-batch_size", "8", "-max_steps", "2" if smoke else "32",
+            "-checkpoint_name", "selftrain_source.pth", *common, *net1]))
+        stages.run("self_train", lambda: self_train_main.main([
+            "--root", tmp, "-checkpoint_name", "selftrain_source.pth",
+            "-new_checkpoint_name", "selftrain_adapted.pth",
+            "-translation_name", "synthetic_translation",
+            "--lr", "0.0003", "--epochs", st_epochs, "--val_interval", "32",
+            "-batch_size", "4", *steps, *common]))
+        miou_adapted = evaluate("adapted_eval", os.path.join(
+            ckpt_dir, "bestselftrain_adapted.pth"))
+
+    gain = miou_adapted - miou_source
+    return {"metric": "selftrain_gate_miou_gain", "value": round(gain, 4),
+            "unit": "mIoU", "miou_source": round(miou_source, 4),
+            "miou_adapted": round(miou_adapted, 4),
+            "threshold_gain": 0.05, "passed": gain >= 0.05,
+            "protocol": "256x512, nanmean(iu[:11])",
+            "total_sec": round(time.perf_counter() - t0, 1)}
+
+
+def convergence_gate(workdir=None, *, smoke: bool = False, device_flags=(),
+                     stages=None,
+                     epochs: str = CONVERGENCE_DEFAULTS["epochs"],
+                     layers: str = CONVERGENCE_DEFAULTS["layers"],
+                     lr: str = CONVERGENCE_DEFAULTS["lr"]) -> dict:
+    """The convergence gate; returns its result. ``train_sec`` is null
+    when an earlier run of ``workdir`` completed the training at the same
+    options."""
+    from ..cli import segmentation_train
+
+    stages = stages or Stages()
+    if smoke:
+        epochs = "2"
+    steps = SMOKE_STEPS if smoke else []
+    with _work_dir(workdir, smoke) as tmp, contextlib.chdir(tmp):
+        root = os.path.join(tmp, "datasets", "freiburg")
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        ensure_tree(root, make_learnable_freiburg_tree,
+                    n_train=16 if smoke else 256, n_test=8, seed=3,
+                    n_bands=3, invalidate=[ckpt_dir])
+        common = ["--freiburg_root", root, "--model_root_path", ckpt_dir,
+                  "--layers", layers, "--decode_cache_mb", "1024",
+                  "-net_mode", "one_channel", *device_flags]
+        # a run at other options in the same workdir trains anew
+        train_argv = ["-dataset", "freiburg_ir", "-epochs", epochs,
+                      "-batch_size", "8", "-val_batch_size", "8",
+                      "-lr", lr, "--bf16", "true",
+                      "-new_checkpoint_name", "convergence_gate.pth",
+                      *steps, *common]
+        stages.once("convergence_train",
+                    os.path.join(ckpt_dir, "convergence_gate.pth"),
+                    lambda: segmentation_train.main(train_argv),
+                    key=" ".join(train_argv))
+        miou = stages.run("convergence_eval", lambda: evaluate_miou(
+            ["-dataset", "freiburg_ir", "-checkpoint_name",
+             "convergence_gate.pth", *common]),
+            lambda m: {"miou": round(m, 4)})
+
+    return {"metric": "synthetic_convergence_miou", "value": round(miou, 4),
+            "unit": "mIoU", "threshold": 0.9, "passed": miou >= 0.9,
+            "epochs": int(epochs), "layers": layers, "lr": float(lr),
+            "bf16": True, "protocol": "256x512, nanmean(iu[:11])",
+            "train_sec": stages.seconds.get("convergence_train")}
+
+
+GATES = {"gan": gan_gate, "pipeline": pipeline_gate,
+         "selftrain": selftrain_gate, "convergence": convergence_gate}
 
 
 def card_name() -> str:
@@ -562,7 +719,15 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="", choices=("", "cpu"),
                         help="cpu: run every stage on the CPU; default: "
                              "the CUDA card")
+    for name, default in CONVERGENCE_DEFAULTS.items():
+        parser.add_argument(f"--{name}", default=None,
+                            help=f"convergence only (default {default})")
     args = parser.parse_args(argv)
+    options = {k: getattr(args, k) for k in CONVERGENCE_DEFAULTS
+               if getattr(args, k) is not None}
+    if options and args.gate != "convergence":
+        parser.error(f"--{', --'.join(options)}: the convergence gate's "
+                     f"options, not the {args.gate} gate's")
     import torch
 
     if args.device != "cpu" and not torch.cuda.is_available():
@@ -571,7 +736,8 @@ def main(argv=None) -> int:
     device_flags = ["--device", "cpu"] if args.device == "cpu" else []
     stages = Stages()
     result = GATES[args.gate](args.workdir or None, smoke=args.smoke,
-                              device_flags=device_flags, stages=stages)
+                              device_flags=device_flags, stages=stages,
+                              **options)
     result["device"] = "cpu" if device_flags else card_name()
     result["stage_sec"] = stages.seconds
     if args.smoke:
